@@ -11,18 +11,21 @@ result line):
 
   1. card     — the card's name and power limit (nvidia-smi), torch and CUDA
                 versions; TF32 off for matmuls and cuDNN.
-  2. build    — builds every CUDA kernel of the path from ``src/repro_torch/
-                csrc`` (one nvcc per source, in parallel) and prints the time.
-  3. kernels  — each kernel against its plain PyTorch version on the card, in
-                float32 and float64: node_fused on random segments that
-                straddle its tiles, with dead rows; then every node_fused and
-                panel_qr call of one ``qr`` dispatch of the configuration
-                below, captured with its real inputs (the TSQR leaf panels
-                [B, 256, 32] cut from that configuration's R₀ among them),
-                each timed beside its plain version and, for panel_qr, beside
-                ``torch.geqrf`` on the same panels. panel_qr is held to its
-                plain version on RᵀR and, for V and beta, to the
-                factorization they define (see `reflector_error`).
+  2. build    — builds every CUDA kernel from ``src/repro_torch/csrc`` (one
+                nvcc per source, all started together) and prints the time.
+  3. kernels  — each kernel against its plain PyTorch version on the card:
+                node_fused on random segments that straddle its tiles, with
+                dead rows; panel_qr's device-memory variant on random
+                full-rank float64 panels [4, 1024, 32] and [2, 4096, 32];
+                then every node_fused and panel_qr call of one ``qr``
+                dispatch of the configuration below, captured with its real
+                inputs (the TSQR leaf panels [B, 256, 32] cut from that
+                configuration's R₀ among them), each timed beside its plain
+                version and, for panel_qr, beside ``torch.geqrf`` on the same
+                panels. panel_qr is held to its plain version on RᵀR and, for
+                V and beta, to the factorization they define (see
+                `reflector_error`). flash_attention at hd 64 and 256, with a
+                window and without causality, against its plain version.
   4. main     — ``yelp_like(scale=4_000_000, cols=16)``: Review 8 M rows,
                 N = 35 columns, R₀ ≈ 2.4·10⁷ rows at bucketed capacity. The
                 plan is built on the host (timed), then
@@ -37,19 +40,56 @@ result line):
                 Last, torch.profiler's device time by kernel for one call
                 each of qr, svd and the unfused qr, with the device's busy
                 share of the call.
-  5. summary  — one ``{"kernels": [...]}`` line, then, last, the
+  5. wide     — a float64 ``qr`` over a star of three wide relations
+                (N = 512 columns, a few thousand rows) through
+                ``Session(use_kernel=True)``: its TSQR combine panels
+                [B, ≥ 878, 32] exceed one block's shared memory and go to
+                panel_qr's device-memory variant (counted apart as
+                ``panel_qr_gmem``). R against ``use_kernel=False`` at 1e-9
+                relative; the variant's captured calls against the plain
+                version and ``torch.geqrf``.
+  6. tails    — ``segmented_head_tail(use_kernel=True)`` at the two largest
+                node passes of the configuration above (Review's 8.4 M × 1
+                and User's 524 k × 18 at capacity), float32 and float64,
+                against ``use_kernel=False``; the segmented_tail calls it
+                makes, captured, against the plain version.
+  7. lm       — the qwen3-8b eval forward at full width (36 blocks,
+                d_model 4096, 32/8 heads, hd 128, d_ff 12288, vocab 151,936;
+                float32 parameters, bfloat16 compute) on a batch of
+                2 × 4096 tokens through ``make_eval_step`` with
+                ``use_flash_kernel=True``: one warm-up, then the median of 3
+                (tokens/s, loss, peak memory). Every flash_attention call of
+                one forward, captured, against the plain version (chunked
+                over KV heads) and ``scaled_dot_product_attention``; the
+                logits of one forward against ``use_flash_kernel=False``
+                (the ported ``_attend``) at 2e-2 of max |logits|; the device
+                time by kernel of one eval step.
+  8. summary  — one ``{"kernels": [...]}`` line, then, last, the
                 ``{"ok": true, "device": {...}}`` line.
+
+Each of phases 4–7 drives one path of the port with the launch counters
+zeroed just before and read just after, and fails if a kernel of that path
+did not launch.
 
 Tolerances (float64 against the plain version or the unfused path):
 relative 1e-9 of the largest magnitude compared — the JAX package's own
 kernel-vs-XLA bound (tests/test_kernel_path.py:30) scaled to these values;
-float32: node_fused 1e-5 and panel_qr 1e-4 relative (the JAX package's
-recorded float32 gaps are 9.5e-7 and 2.5e-5).
+float32: node_fused and segmented_tail 1e-5, panel_qr 1e-4 relative (the
+JAX package's recorded float32 gaps are 9.5e-7 and 2.5e-5); flash_attention
+in float32 and float64 2e-5 and 1e-12 absolute (the JAX package's
+flash-vs-oracle bound, tests/test_flash_kernel.py, and float64 rounding). In
+bfloat16 the kernel and its plain version both round one float32 result, so
+each element is held to one bfloat16 step: |got − want| ≤ 2⁻⁷·|want| +
+1e-3·rms(want) (`flash_compare`); the RMS of the plain output is printed
+beside the error.
 
 Bounds: ``bound_ms`` is the larger of the bytes each call must move (inputs
 read once, outputs written once) over 3.35 TB/s and its floating-point
-operations over the H100 SXM's peak for the type without tensor cores
-(67 TFLOP/s float32, 34 TFLOP/s float64; NVIDIA's data sheet).
+operations over the H100 SXM's peak for the type: without tensor cores for
+the FiGaRo kernels (67 TFLOP/s float32, 34 TFLOP/s float64), and the dense
+bfloat16 tensor-core peak (989 TFLOP/s) for flash_attention on bfloat16,
+counting the causal score pairs this run's positions make visible
+(NVIDIA's data sheet).
 """
 
 from __future__ import annotations
@@ -65,12 +105,31 @@ import time
 
 REPO = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12, "bfloat16": 989e12}
 TOL = {("node_fused", "float32"): 1e-5, ("node_fused", "float64"): 1e-9,
-       ("panel_qr", "float32"): 1e-4, ("panel_qr", "float64"): 1e-9}
+       ("panel_qr", "float32"): 1e-4, ("panel_qr", "float64"): 1e-9,
+       ("segmented_tail", "float32"): 1e-5,
+       ("segmented_tail", "float64"): 1e-9}
+# flash_attention, per dtype: (share of |want|, share of rms(want), absolute)
+# an element may differ by (`flash_compare`).
+FLASH_TOL = {"bfloat16": (2.0 ** -7, 1e-3, 0.0), "float32": (0.0, 0.0, 2e-5),
+             "float64": (0.0, 0.0, 1e-12)}
 REPS = 3  # timed runs after one warm-up
-REPLACES = {"node_fused": "src/repro/kernels/node_fused/kernel.py:130",
-            "panel_qr": "src/repro/kernels/panel_qr/kernel.py:71"}
+# Every CUDA kernel: (source, the TPU kernel it replaces).
+KERNELS = {
+    "node_fused": ("src/repro_torch/csrc/node_fused.cu",
+                   "src/repro/kernels/node_fused/kernel.py:130"),
+    "panel_qr": ("src/repro_torch/csrc/panel_qr.cu",
+                 "src/repro/kernels/panel_qr/kernel.py:71"),
+    "panel_qr_gmem": ("src/repro_torch/csrc/panel_qr.cu",
+                      "src/repro/kernels/panel_qr/kernel.py:71"),
+    "segmented_tail": ("src/repro_torch/csrc/head_tail.cu",
+                       "src/repro/kernels/head_tail/kernel.py:68"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attn.cu",
+                        "src/repro/kernels/flash_attn/kernel.py:84"),
+}
+WIDE_COLS = (170, 171, 171)  # data columns of the wide star: N = 512
+LM_BATCH, LM_SEQ = 2, 4096  # SHAPES["train_4k"]'s sequence, batch cut to 2
 
 
 def log(*args) -> None:
@@ -157,12 +216,11 @@ def phase_build():
 
 # -- phase 3 ------------------------------------------------------------------
 
-def node_fused_cost(args) -> tuple[int, int]:
+def node_fused_cost(data, *rows) -> tuple[int, int]:
     """(bytes, flops) one node_fused call needs: data and five row vectors
     (plus the 1-byte flags) read once, two outputs written once; ~8 flops
     per element (mask, weight, scan add, two coefficient products, a
     difference, a sum and the emit scale)."""
-    data = args[0]
     m = data.shape[-2]
     item = data.element_size()
     return 3 * data.numel() * item + m * (5 * item + 1), 8 * data.numel()
@@ -185,6 +243,93 @@ def bound_ms(nbytes: int, flops: int, dtype: str) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def elementwise(args, got, want) -> dict:
+    """`rel_err` over every output of one call."""
+    got = got if isinstance(got, (tuple, list)) else [got]
+    want = want if isinstance(want, (tuple, list)) else [want]
+    errs = [rel_err(g, w) for g, w in zip(got, want)]
+    return {"max_abs_err": max(e[0] for e in errs),
+            "max_rel_err": max(e[1] for e in errs)}
+
+
+def flash_compare(args, got, want) -> dict:
+    """flash_attention's output held elementwise: |got − want| ≤
+    a·|want| + r·rms(want) + c, with (a, r, c) = FLASH_TOL of the dtype.
+    ``bound_ratio`` is the largest |got − want| over that allowance (≤ 1
+    passes); ``max_rel_err`` is max |got − want| over rms(want)."""
+    a, r, c = FLASH_TOL[str(want.dtype).split(".")[1]]
+    want = want.double()
+    diff = (got.double() - want).abs()
+    rms = float(want.square().mean().sqrt())
+    allowed = a * want.abs() + (r * rms + c)
+    return {"max_abs_err": float(diff.max()), "min_rms": rms,
+            "max_rel_err": float(diff.max()) / rms,
+            "bound_ratio": float((diff / allowed).max())}
+
+
+def fold(acc: dict, errs: dict) -> None:
+    """Keep the worst of each error over calls (the least for ``min_*``)."""
+    for key, val in errs.items():
+        pick = min if key.startswith("min_") else max
+        acc[key] = pick(acc.get(key, val), val)
+
+
+def measure(calls, kernel, plain, cost, compare, dtype: str, library=None,
+            reps: int = 5) -> dict:
+    """A kernel against its plain version over captured calls ``[(args,
+    kwargs), ...]``: the worst of each error ``compare(args, got, want)``
+    gives, the summed device times of the kernel, the plain version and
+    ``library`` (one PyTorch call of the same function, or None), and the
+    summed bound from ``cost(*args, **kwargs)`` -> (bytes, flops)."""
+    import torch
+
+    res = {}
+    ms = plain_ms = lib_ms = b_ms = 0.0
+    nbytes = flops = 0
+    shapes = []
+    for args, kw in calls:
+        got = kernel(*args, **kw)
+        want = plain(*args, **kw)
+        torch.cuda.synchronize()
+        fold(res, compare(args, got, want))
+        del got, want
+        ms += cuda_ms(lambda: kernel(*args, **kw), reps)
+        plain_ms += cuda_ms(lambda: plain(*args, **kw), 1)
+        if library is not None:
+            lib_ms += cuda_ms(lambda: library(*args, **kw), reps)
+        cb, cf = cost(*args, **kw)
+        nbytes += cb
+        flops += cf
+        b_ms += bound_ms(cb, cf, dtype)[0]
+        shapes.append(list(args[0].shape))
+        torch.cuda.empty_cache()
+    res.update(calls=len(shapes), shapes=shapes, ms=ms, plain_ms=plain_ms,
+               library_ms=lib_ms if library is not None else None,
+               bound_ms=b_ms, bound_by=bound_ms(nbytes, flops, dtype)[1],
+               bytes=nbytes, flops=flops)
+    return res
+
+
+ERROR_KEYS = ("max_abs_err", "max_rel_err", "reflectors", "min_rms",
+              "bound_ratio")
+
+
+def report(label: str, res: dict, limits: dict, library: str = "") -> None:
+    """Log one `measure` result and fail unless each error in ``limits`` is
+    within its limit."""
+    errs = ", ".join(f"{k} {res[k]:.3e}" + (f" (limit {limits[k]:g})"
+                                           if k in limits else "")
+                     for k in ERROR_KEYS if k in res)
+    lib = (f", {library} {res['library_ms']:.3f} ms"
+           if res["library_ms"] is not None else "")
+    log(f"{label}: {res['calls']} calls, largest "
+        f"{max(res['shapes'], key=math.prod)}; vs plain: {errs}; kernel "
+        f"{res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms{lib}, bound "
+        f"{res['bound_ms']:.3f} ms ({res['bound_by']})")
+    for key, limit in limits.items():
+        check(res[key] <= limit, f"{label}: {key} {res[key]:.3e} > {limit:g}")
 
 
 def random_segments(m, n, batch, dtype, seed):
@@ -231,14 +376,16 @@ def check_random_segments():
 
 
 class Capture:
-    """Records the inputs of every kernel-wrapper call while active."""
+    """Records the inputs of every call of the named kernel wrappers while
+    active (default: the FiGaRo main path's two)."""
 
-    def __init__(self):
-        from repro_torch.kernels.node_fused import ops as nf_ops
-        from repro_torch.kernels.panel_qr import ops as pq_ops
-
-        self._mods = [(nf_ops, "node_fused"), (pq_ops, "panel_qr")]
-        self.calls: dict[str, list] = {"node_fused": [], "panel_qr": []}
+    def __init__(self, wrappers=None):
+        if wrappers is None:
+            from repro_torch.kernels.node_fused import ops as nf_ops
+            from repro_torch.kernels.panel_qr import ops as pq_ops
+            wrappers = [(nf_ops, "node_fused"), (pq_ops, "panel_qr")]
+        self._mods = wrappers
+        self.calls: dict[str, list] = {name: [] for _, name in wrappers}
 
     def __enter__(self):
         self._saved = []
@@ -246,9 +393,9 @@ class Capture:
             real = getattr(mod, name)
             self._saved.append((mod, name, real))
 
-            def hook(*args, _real=real, _name=name):
-                self.calls[_name].append([a.clone() for a in args])
-                return _real(*args)
+            def hook(*args, _real=real, _name=name, **kwargs):
+                self.calls[_name].append(([a.clone() for a in args], kwargs))
+                return _real(*args, **kwargs)
 
             setattr(mod, name, hook)
         return self
@@ -287,73 +434,43 @@ def gram(r):
     return r.mT @ r
 
 
-def measure_path_kernels(calls, dtype: str, reps: int = 5) -> dict:
-    """Kernel vs plain version (and library) over every captured call of one
-    dispatch: the max errors and the summed times and bounds.
+def panel_qr_compare(args, got, want) -> dict:
+    """panel_qr: RᵀR against the plain version's, and V and beta by
+    `reflector_error`. R, V and beta are not compared elementwise at the
+    main path's inputs: R is unique only for a panel of full column rank,
+    and TSQR leaves are not (one user's carried head repeats over all of
+    that user's review rows, so a leaf's user block has rank ≤ the users in
+    it). There a reflector is formed from roundoff and two correct
+    factorizations differ in V, beta and whole rows of R, while RᵀR = AᵀA
+    holds for both."""
+    errs = elementwise(args, gram(got[2]), gram(want[2]))
+    errs["reflectors"] = reflector_error(args[0], *got)
+    return errs
 
-    node_fused: both outputs elementwise. panel_qr: RᵀR against the plain
-    version's, and V and beta by `reflector_error`. R, V and beta are not
-    compared elementwise at these inputs: R is unique only for a panel of
-    full column rank, and TSQR leaves are not (one user's carried head
-    repeats over all of that user's review rows, so a leaf's user block has
-    rank ≤ the users in it). There a reflector is formed from roundoff and
-    two correct factorizations differ in V, beta and whole rows of R, while
-    RᵀR = AᵀA holds for both."""
+
+def measure_path_kernels(calls, dtype: str, label: str = "qr dispatch",
+                         names=("node_fused", "panel_qr")) -> dict:
+    """`measure` and `report` of node_fused and panel_qr over the captured
+    calls of one dispatch."""
     import torch
     from repro_torch.kernels.node_fused import kernel as nk, ref as nr
     from repro_torch.kernels.panel_qr import kernel as pk, ref as pr
 
+    parts = {"node_fused": (nk.node_fused, nr.node_fused_ref,
+                            node_fused_cost, elementwise, None),
+             "panel_qr": (pk.panel_qr, pr.panel_qr_ref, panel_qr_cost,
+                          panel_qr_compare, torch.geqrf)}
     out = {}
-    for name, kern, plain in (("node_fused", nk.node_fused,
-                               nr.node_fused_ref),
-                              ("panel_qr", pk.panel_qr, pr.panel_qr_ref)):
-        err_abs = err_rel = refl = ms = plain_ms = lib_ms = b_ms = 0.0
-        nbytes = flops = 0
-        shapes = []
-        for args in calls[name]:
-            got = kern(*args)
-            if name == "panel_qr":
-                refl = max(refl, reflector_error(args[0], *got))
-                got = got[2:]
-            want = plain(*args)
-            if name == "panel_qr":
-                want = want[2:]
-                got, want = [gram(got[0])], [gram(want[0])]
-            torch.cuda.synchronize()
-            for g, w in zip(got, want):
-                e_abs, e_rel = rel_err(g, w)
-                err_abs, err_rel = max(err_abs, e_abs), max(err_rel, e_rel)
-            del got, want
-            ms += cuda_ms(lambda: kern(*args), reps)
-            plain_ms += cuda_ms(lambda: plain(*args), 1)
-            if name == "panel_qr":
-                lib_ms += cuda_ms(lambda: torch.geqrf(args[0]), 1)
-                cb, cf = panel_qr_cost(args[0])
-            else:
-                cb, cf = node_fused_cost(args)
-            nbytes += cb
-            flops += cf
-            b_ms += bound_ms(cb, cf, dtype)[0]
-            shapes.append(list(args[0].shape))
-            torch.cuda.empty_cache()
+    for name in names:
+        kernel, plain, cost, compare, library = parts[name]
+        out[name] = measure(calls[name], kernel, plain, cost, compare, dtype,
+                            library=library)
         tol = TOL[(name, dtype)]
-        what = "R'R" if name == "panel_qr" else "outputs"
-        log(f"{name} {dtype}: {len(shapes)} calls per qr dispatch, largest "
-            f"{max(shapes, key=math.prod)}; {what} vs plain: max abs err "
-            f"{err_abs:.3e}, relative {err_rel:.3e} (tol {tol:g})"
-            + (f"; reflectors {refl:.3e} (tol {tol:g})"
-               if name == "panel_qr" else "")
-            + f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
-            + (f", torch.geqrf {lib_ms:.3f} ms" if name == "panel_qr" else "")
-            + f", bound {b_ms:.3f} ms ({bound_ms(nbytes, flops, dtype)[1]})")
-        check(err_rel <= tol, f"{name} {dtype} against its plain version")
-        check(refl <= tol, f"{name} {dtype} reflectors factor the panels")
-        out[name] = {"calls": len(shapes), "shapes": shapes,
-                     "max_abs_err": err_abs, "max_rel_err": err_rel,
-                     "ms": ms, "plain_ms": plain_ms,
-                     "library_ms": lib_ms if name == "panel_qr" else None,
-                     "bound_ms": b_ms,
-                     "bound_by": bound_ms(nbytes, flops, dtype)[1]}
+        limits = {"max_rel_err": tol}
+        if name == "panel_qr":
+            limits["reflectors"] = tol
+        report(f"{name} {dtype} over one {label} (panel_qr: R'R)", out[name],
+               limits, library="torch.geqrf")
     return out
 
 
@@ -409,10 +526,348 @@ def gram_check_small(torch_dtype):
     return rel
 
 
+# -- phase 3 (wide panels, flash cases) ----------------------------------------
+
+def check_wide_panels() -> float:
+    """panel_qr's device-memory variant on random full-rank float64 panels,
+    elementwise (V, beta, R) against the plain version."""
+    import torch
+    from repro_torch.kernels.panel_qr import kernel as pk, ref as pr
+
+    worst = 0.0
+    for shape in ((4, 1024, 32), (2, 4096, 32)):
+        g = torch.Generator(device="cuda").manual_seed(shape[1])
+        a = torch.randn(*shape, generator=g, device="cuda",
+                        dtype=torch.float64)
+        check(pk.variant(shape[1], shape[2], 8) == "gmem",
+              f"panel {shape} takes the device-memory variant")
+        res = measure([((a,), {})], pk.panel_qr, pr.panel_qr_ref,
+                      panel_qr_cost, elementwise, "float64", reps=3)
+        report(f"panel_qr (device-memory variant) random float64 "
+               f"{list(shape)}, V, beta, R", res,
+               {"max_rel_err": TOL[("panel_qr", "float64")]})
+        worst = max(worst, res["max_rel_err"])
+    return worst
+
+
+def visible_pairs(q_pos, k_pos, causal: bool, window) -> int:
+    """Query-key pairs the mask lets through (per batch row and head)."""
+    kp = k_pos[None, :].long()
+    qp = q_pos[:, None].long()
+    ok = kp >= 0
+    if causal:
+        ok = ok & (kp <= qp)
+    if window is not None:
+        ok = ok & (kp > qp - window)
+    return int(ok.sum())
+
+
+def flash_cost(q, k, v, q_pos, k_pos, causal=True,
+               window=None) -> tuple[int, int]:
+    """(bytes, flops) of one flash_attention call: q, k, v and the output
+    (q's size) read or written once, the positions read once; two products
+    of 2·hd flops per visible query-key pair and query head."""
+    b, _, hq, hd = q.shape
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() \
+        + 4 * (q_pos.numel() + k_pos.numel())
+    return nbytes, 4 * hd * b * hq * visible_pairs(q_pos, k_pos, causal,
+                                                  window)
+
+
+def flash_plain(q, k, v, q_pos, k_pos, causal=True, window=None):
+    """The plain version one KV head (and its query group) at a time, so the
+    materialized scores stay [B, 1, G, Tq, Tk]."""
+    import torch
+    from repro_torch.kernels.flash_attn import ref as fr
+
+    hkv = k.shape[2]
+    g = q.shape[2] // hkv
+    return torch.cat([fr.flash_attention_ref(
+        q[:, :, h * g:(h + 1) * g], k[:, :, h:h + 1], v[:, :, h:h + 1],
+        q_pos, k_pos, causal=causal, window=window) for h in range(hkv)],
+        dim=2)
+
+
+def check_flash_cases() -> float:
+    """flash_attention at hd 64 and 256, with a window, without causality
+    and in float32 and float64, against its plain version on random
+    inputs; the worst `flash_compare` ratio (≤ 1 passes)."""
+    import torch
+    from repro_torch.kernels.flash_attn import kernel as fk
+
+    worst = 0.0
+    for (b, t, hq, hkv, hd, causal, window, dt) in (
+            (1, 2048, 8, 2, 64, True, None, torch.bfloat16),
+            (1, 1024, 4, 4, 256, True, None, torch.bfloat16),
+            (2, 2048, 8, 2, 128, True, 512, torch.bfloat16),
+            (1, 1000, 8, 8, 128, False, None, torch.float32),
+            (1, 300, 4, 2, 128, True, 100, torch.float64)):
+        g = torch.Generator(device="cuda").manual_seed(t + hd)
+        q = torch.randn(b, t, hq, hd, generator=g, device="cuda").to(dt)
+        k = torch.randn(b, t, hkv, hd, generator=g, device="cuda").to(dt)
+        v = torch.randn(b, t, hkv, hd, generator=g, device="cuda").to(dt)
+        pos = torch.arange(t, device="cuda", dtype=torch.int32)
+        name = str(dt).split(".")[1]
+        res = measure([((q, k, v, pos, pos),
+                        {"causal": causal, "window": window})],
+                      fk.flash_attention, flash_plain, flash_cost,
+                      flash_compare, name, reps=3)
+        report(f"flash_attention {name} [B={b}, T={t}, Hq={hq}, Hkv={hkv}, "
+               f"hd={hd}] causal={causal} window={window}", res,
+               {"bound_ratio": 1.0})
+        worst = max(worst, res["bound_ratio"])
+    return worst
+
+
+# -- phase 5: wide N -----------------------------------------------------------
+
+def wide_tree(seed: int = 0):
+    """A star of three relations whose data columns total N = 512: S1
+    (keys e0, e1) joined to S2 on e0 and to S3 on e1, a few thousand rows
+    (tests/helpers.py:random_acyclic_db's star3 shape with wide tables)."""
+    import numpy as np
+    from repro_torch.core.join_tree import JoinTree
+    from repro_torch.core.relation import Database, full_reduce
+
+    rng = np.random.default_rng(seed)
+    rows = {"S1": 1200, "S2": 600, "S3": 600}
+    keys = {"S1": ("e0", "e1"), "S2": ("e0",), "S3": ("e1",)}
+    tables = {}
+    for (name, m), nd in zip(rows.items(), WIDE_COLS):
+        tables[name] = ({a: rng.integers(0, 24, size=m) for a in keys[name]},
+                        rng.normal(size=(m, nd)),
+                        [f"{name.lower()}y{j}" for j in range(nd)])
+    edges = [("S1", "S2"), ("S1", "S3")]
+    db = full_reduce(Database.from_arrays(tables), edges)
+    return JoinTree.from_edges(db, "S1", edges)
+
+
+def phase_wide() -> dict:
+    import torch
+    from repro_torch import figaro
+    from repro_torch.core.join_tree import build_plan
+    from repro_torch.core.postprocess import normalize_sign
+    from repro_torch.kernels import _platform
+    from repro_torch.kernels.panel_qr import kernel as pk
+
+    plan = build_plan(wide_tree())
+    n = plan.spec.num_cols
+    check(n >= 512, "the wide tree has N >= 512 columns")
+    sess = figaro.Session(use_kernel=True, assembly="band", device="cuda")
+    plain = figaro.Session(use_kernel=False, device="cuda")
+    sess.qr(plan, dtype=torch.float64)  # warm-up: plan to the card
+    torch.cuda.synchronize()
+    _platform.reset_launch_counts()
+    t0 = time.perf_counter()
+    r_k = sess.qr(plan, dtype=torch.float64)
+    torch.cuda.synchronize()
+    t_qr = time.perf_counter() - t0
+    launches = _platform.launch_counts()
+    log(f"wide tree: N = {n}, exact R0 rows {plan.spec.r0_rows}; float64 qr "
+        f"(kernel path) {t_qr * 1e3:.1f} ms; launches {launches}")
+    for kname in ("panel_qr", "panel_qr_gmem"):
+        check(launches.get(kname, 0) > 0, f"{kname} launched on the wide path")
+    r_p = plain.qr(plan, dtype=torch.float64)
+    err_abs, err_rel = rel_err(normalize_sign(r_k), normalize_sign(r_p))
+    log(f"wide R (kernel path) vs R (use_kernel=False), float64: max abs "
+        f"err {err_abs:.3e}, relative {err_rel:.3e} (tol 1e-9)")
+    check(r_k.shape == (n, n) and bool(torch.isfinite(r_k).all()),
+          "wide qr shape/finite")
+    check(err_rel <= 1e-9, "wide kernel-path R matches the unfused path")
+    with Capture() as cap:
+        sess.qr(plan, dtype=torch.float64)
+        torch.cuda.synchronize()
+    gmem = [(args, kw) for args, kw in cap.calls["panel_qr"]
+            if pk.variant(*args[0].shape[-2:], 8) == "gmem"]
+    log(f"wide qr: {len(cap.calls['panel_qr'])} panel_qr calls, {len(gmem)} "
+        f"of them on the device-memory variant")
+    measured = measure_path_kernels(
+        {"panel_qr": gmem}, "float64", names=("panel_qr",),
+        label="wide qr dispatch, device-memory variant")["panel_qr"]
+    return {"launches": launches, "r_rel_err": err_rel, "qr_ms": t_qr * 1e3,
+            "gmem": measured, "n": n}
+
+
+# -- phase 6: segmented tails --------------------------------------------------
+
+def segment_layout(first):
+    """(seg_id, pos_in_seg, K) of a segment-start vector."""
+    import torch
+
+    seg = torch.cumsum(first.long(), 0) - 1
+    starts = torch.nonzero(first).squeeze(1)
+    pos = torch.arange(first.numel(), device=first.device) - starts[seg]
+    return seg, pos, int(seg[-1]) + 1
+
+
+def segmented_tail_cost(data, *rows) -> tuple[int, int]:
+    """(bytes, flops) of one segmented_tail call: data and wa read once,
+    out written once, two [m] coefficients and the 1-byte flags; ~5 flops
+    per element (scan add, difference, two products, a sum)."""
+    m = data.shape[-2]
+    item = data.element_size()
+    return 3 * data.numel() * item + m * (2 * item + 1), 5 * data.numel()
+
+
+def phase_tails(passes) -> dict:
+    """``segmented_head_tail(use_kernel=True)`` on the captured node passes
+    (per dtype: [(data·data_scale, weights, first), ...])."""
+    import torch
+    from repro_torch.core.heads_tails import segmented_head_tail
+    from repro_torch.kernels import _platform
+    from repro_torch.kernels.head_tail import kernel as hk, ops as ht_ops, \
+        ref as hr
+
+    layouts = {name: [segment_layout(first) for _, _, first in inputs]
+               for name, inputs in passes.items()}
+    _platform.reset_launch_counts()
+    outs = {}
+    with Capture([(ht_ops, "segmented_tail")]) as cap:
+        for name, inputs in passes.items():
+            outs[name] = [segmented_head_tail(data, w, seg, pos, k,
+                                              use_kernel=True)
+                          for (data, w, _), (seg, pos, k)
+                          in zip(inputs, layouts[name])]
+        torch.cuda.synchronize()
+    launches = _platform.launch_counts()
+    log(f"segmented_head_tail(use_kernel=True) path: launches {launches}")
+    check(launches.get("segmented_tail", 0) > 0,
+          "segmented_tail launched on its path")
+    result = {"launches": launches}
+    for name, inputs in passes.items():
+        tol = TOL[("segmented_tail", name)]
+        err_out = 0.0
+        for (data, w, _), (seg, pos, k), got in zip(inputs, layouts[name],
+                                                    outs[name]):
+            want = segmented_head_tail(data, w, seg, pos, k)
+            err_out = max(err_out, elementwise(None, got, want)["max_rel_err"])
+            log(f"  {name} pass {list(data.shape)}: K = {k}")
+        log(f"segmented_head_tail {name}: kernel path vs unfused relative "
+            f"{err_out:.3e} (tol {tol:g})")
+        check(err_out <= tol, f"segmented_head_tail {name} kernel path "
+              "against the unfused path")
+        calls = [(args, kw) for args, kw in cap.calls["segmented_tail"]
+                 if str(args[0].dtype).split(".")[1] == name]
+        result[name] = measure(calls, hk.segmented_tail,
+                               hr.segmented_tail_ref, segmented_tail_cost,
+                               elementwise, name)
+        report(f"segmented_tail {name} over its path", result[name],
+               {"max_rel_err": tol})
+    return result
+
+
+# -- phase 7: the LM eval forward ----------------------------------------------
+
+def sdpa(q, k, v, q_pos, k_pos, causal=True, window=None):
+    """``scaled_dot_product_attention`` on flash_attention's layout, for
+    plain causal self-attention (the LM path's only case): the library
+    yardstick."""
+    import torch.nn.functional as F
+
+    check(causal and window is None and q.shape[1] == k.shape[1],
+          "sdpa times plain causal self-attention only")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                          enable_gqa=True)
+
+
+def phase_lm(seed: int) -> dict:
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels import _platform
+    from repro_torch.kernels.flash_attn import kernel as fk, ops as fa_ops
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.train import make_eval_step
+
+    check(SHAPES["train_4k"].seq_len == LM_SEQ, "train_4k's sequence length")
+    cfg = dataclasses.replace(get_config("qwen3-8b"), use_flash_kernel=True)
+    plain_cfg = dataclasses.replace(cfg, use_flash_kernel=False)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = Transformer(cfg, device="cuda").init(gen)
+    tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_SEQ), generator=gen,
+                           device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"qwen3-8b: {cfg.n_blocks} blocks, d_model {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}, hd {cfg.resolved_head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}; {n_params / 1e9:.3f} B parameters "
+        f"({cfg.param_dtype}), compute {cfg.compute_dtype}; initialized on "
+        f"the card in {time.perf_counter() - t0:.2f} s; batch "
+        f"{LM_BATCH} x {LM_SEQ} tokens")
+    batch = {"tokens": tokens}
+    eval_fn = make_eval_step(cfg)
+    _platform.reset_launch_counts()
+    metrics, t_step, ts, warm = wall(lambda: eval_fn(model, batch), REPS)
+    launches = _platform.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    loss = float(metrics["loss"])
+    tok_s = LM_BATCH * LM_SEQ / t_step
+    log(f"eval step: median {t_step * 1e3:.1f} ms of "
+        f"{[round(x * 1e3, 1) for x in ts]} ms (warm-up {warm * 1e3:.1f} ms); "
+        f"{tok_s:.0f} tokens/s; loss {loss:.4f} (ce "
+        f"{float(metrics['ce']):.4f}, zloss {float(metrics['zloss']):.3e}, "
+        f"tokens {float(metrics['tokens']):.0f}); peak device memory "
+        f"{peak:.2f} GiB; launches {launches} over {REPS + 1} steps")
+    check(launches.get("flash_attention", 0) == (REPS + 1) * cfg.n_blocks,
+          "flash_attention launched once per layer on the LM path")
+    check(math.isfinite(loss), "LM loss finite")
+
+    with torch.inference_mode():
+        with Capture([(fa_ops, "flash_attention")]) as cap:
+            logits_f, _, _ = model(batch, cfg)
+            torch.cuda.synchronize()
+        logits_p, _, _ = model(batch, plain_cfg)
+        torch.cuda.synchronize()
+        scale = float(logits_p.abs().max())
+        err = float((logits_f - logits_p).abs().max())
+    del logits_f, logits_p
+    torch.cuda.empty_cache()
+    log(f"logits (use_flash_kernel=True) vs (use_flash_kernel=False): max abs "
+        f"err {err:.3e} of max |logits| {scale:.3e} (relative "
+        f"{err / scale:.3e}, tol 2e-2)")
+    check(err <= 2e-2 * scale,
+          "logits with the flash kernel match the _attend path")
+    calls = cap.calls["flash_attention"]
+    del cap
+    for args, kw in calls:
+        qp = args[3]
+        check(kw.get("causal", True) and kw.get("window") is None and bool(
+            (qp == torch.arange(qp.numel(), device=qp.device)).all()),
+            "the LM path's attention is plain causal self-attention")
+    with torch.inference_mode():
+        flash = measure(calls, fk.flash_attention, flash_plain, flash_cost,
+                        flash_compare, "bfloat16", library=sdpa, reps=3)
+    del calls
+    report(f"flash_attention bfloat16 over one forward of [{LM_BATCH}, "
+           f"{LM_SEQ}, {cfg.n_heads}, {cfg.resolved_head_dim}] (KV heads "
+           f"{cfg.n_kv_heads})", flash, {"bound_ratio": 1.0},
+           library="scaled_dot_product_attention")
+    log(f"flash_attention bound: {flash['flops']:.3e} flops at 989 TFLOP/s, "
+        f"{flash['bytes']:.3e} bytes at 3.35 TB/s")
+    with torch.inference_mode():
+        profile_once("qwen3-8b eval step (flash kernel)",
+                     lambda: eval_fn(model, batch))
+    log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        " GiB over the LM phase")
+    del model
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": t_step * 1e3,
+            "tokens_per_s": tok_s, "loss": loss, "peak_gib": peak,
+            "logits_rel_err": err / scale, "flash": flash,
+            "launches_per_forward":
+                launches.get("flash_attention", 0) // (REPS + 1)}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--scale", type=int, default=4_000_000,
                         help="yelp_like scale (default: 4,000,000)")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of the LM's random weights and tokens")
     args = parser.parse_args(argv)
 
     import torch
@@ -436,6 +891,8 @@ def main(argv=None) -> int:
 
     log("== phase 3: kernels against their plain versions")
     check_random_segments()
+    wide_panel_err = check_wide_panels()
+    flash_case_err = check_flash_cases()
     t0 = time.perf_counter()
     tree = yelp_like(scale=args.scale, cols=16)
     t_gen = time.perf_counter() - t0
@@ -451,6 +908,7 @@ def main(argv=None) -> int:
     sess = figaro.Session(use_kernel=True, assembly="band", device="cuda")
     plain = figaro.Session(use_kernel=False, device="cuda")
     per_dtype = {}
+    tail_passes = {}
     for torch_dtype in (torch.float32, torch.float64):
         name = str(torch_dtype).split(".")[1]
         t0 = time.perf_counter()
@@ -461,7 +919,15 @@ def main(argv=None) -> int:
             f"{time.perf_counter() - t0:.2f} s (first call: host bucketing "
             f"and H2D included for float32)")
         per_dtype[name] = measure_path_kernels(cap.calls, name)
-        del cap
+        # The two largest node passes (the tallest, then the largest of the
+        # rest), as segmented_head_tail inputs.
+        nf = [a for a, _ in cap.calls["node_fused"]]
+        tallest = max(nf, key=lambda a: a[0].shape[-2])
+        widest = max((a for a in nf if a is not tallest),
+                     key=lambda a: a[0].numel())
+        tail_passes[name] = [(a[0] * a[1][:, None], a[2], a[3])
+                             for a in (tallest, widest)]
+        del cap, nf, tallest, widest
         torch.cuda.empty_cache()
     cap_plan = plan.__dict__["_capacity_plan"]
     log(f"capacity R0: {cap_plan.spec.r0_rows} rows x {spec.num_cols}")
@@ -475,7 +941,7 @@ def main(argv=None) -> int:
         lambda: sess.least_squares(plan, 0), REPS)
     launches = _platform.launch_counts()
     log(f"launch counts over the main path: {launches}")
-    for kname in REPLACES:
+    for kname in ("node_fused", "panel_qr"):
         check(launches.get(kname, 0) > 0, f"{kname} launched on the path")
     _platform.reset_launch_counts()
     sess.qr(plan)
@@ -526,35 +992,72 @@ def main(argv=None) -> int:
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB; elapsed {time.perf_counter() - t_start:.1f} s")
 
-    log("== phase 5: summary")
+    del sess, plain, plan, tree, cap_plan, r32, r_k, r_p
+    torch.cuda.empty_cache()
+
+    log("== phase 5: wide N")
+    wide = phase_wide()
+    torch.cuda.empty_cache()
+
+    log("== phase 6: segmented tails")
+    tails = phase_tails(tail_passes)
+    del tail_passes
+    torch.cuda.empty_cache()
+
+    log("== phase 7: qwen3-8b eval forward")
+    lm = phase_lm(args.seed)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+
+    log("== phase 8: summary")
+    measured = {
+        "node_fused": (launches, per_dtype["float32"]["node_fused"],
+                       per_dtype["float64"]["node_fused"], "float32"),
+        "panel_qr": (launches, per_dtype["float32"]["panel_qr"],
+                     per_dtype["float64"]["panel_qr"], "float32"),
+        "panel_qr_gmem": (wide["launches"], wide["gmem"], None, "float64"),
+        "segmented_tail": (tails["launches"], tails["float32"],
+                           tails["float64"], "float32"),
+        "flash_attention": (lm["launches"], lm["flash"], None, "bfloat16"),
+    }
     kernels = []
-    for kname in REPLACES:
-        f32, f64 = per_dtype["float32"][kname], per_dtype["float64"][kname]
-        entry = {"name": kname, "route": "cuda",
-                 "source": f"src/repro_torch/csrc/{kname}.cu",
-                 "replaces": REPLACES[kname],
-                 "launches": launches.get(kname, 0),
-                 "launches_per_qr": per_qr.get(kname, 0),
-                 "dtype": "float32",
-                 "max_abs_err": f32["max_abs_err"],
-                 "max_err": f32["max_abs_err"],
-                 "max_rel_err": f32["max_rel_err"],
-                 "ms": f32["ms"], "kernel_ms": f32["ms"],
-                 "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
-                 "bound_by": f32["bound_by"],
-                 "library_ms": f32["library_ms"],
-                 "float64": {k: f64[k] for k in ("max_abs_err",
-                                                 "max_rel_err", "ms",
-                                                 "plain_ms", "bound_ms",
-                                                 "bound_by", "library_ms")}}
+    for kname, (source, replaces) in KERNELS.items():
+        path_launches, main, f64, dt = measured[kname]
+        entry = {"name": kname, "route": "cuda", "source": source,
+                 "replaces": replaces,
+                 "launches": path_launches.get(kname, 0), "dtype": dt,
+                 "max_abs_err": main["max_abs_err"],
+                 "max_rel_err": main["max_rel_err"],
+                 "ms": main["ms"], "plain_ms": main["plain_ms"],
+                 "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+                 "library_ms": main["library_ms"]}
+        entry.update({k: main[k] for k in ("reflectors", "min_rms",
+                                           "bound_ratio") if k in main})
+        if kname in ("node_fused", "panel_qr"):
+            entry["launches_per_qr"] = per_qr.get(kname, 0)
+        if kname == "flash_attention":
+            entry["launches_per_forward"] = lm["launches_per_forward"]
+        if f64 is not None:
+            entry["float64"] = {k: f64[k] for k in (
+                "max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")}
+        check(entry["launches"] > 0, f"{kname} launched on its path")
         kernels.append(entry)
     log(json.dumps({"main_path_ms": {"qr_f32": t_qr * 1e3,
                                      "svd_f64": t_svd * 1e3,
                                      "pca_f64": t_pca * 1e3,
-                                     "lsq_f64": t_lsq * 1e3},
+                                     "lsq_f64": t_lsq * 1e3,
+                                     "wide_qr_f64": wide["qr_ms"],
+                                     "lm_eval_step": lm["step_ms"]},
+                    "lm_tokens_per_s": lm["tokens_per_s"],
+                    "lm_loss": lm["loss"], "lm_peak_gib": lm["peak_gib"],
+                    "lm_logits_rel_err_vs_attend": lm["logits_rel_err"],
                     "plan_build_s": t_plan, "scale": args.scale,
                     "r_rel_err_vs_unfused": err_rel,
-                    "small_gram_rel_err": gram_rel}))
+                    "wide_r_rel_err_vs_unfused": wide["r_rel_err"],
+                    "wide_panel_rel_err": wide_panel_err,
+                    "flash_cases_bound_ratio": flash_case_err,
+                    "small_gram_rel_err": gram_rel,
+                    "elapsed_s": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

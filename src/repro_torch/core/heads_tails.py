@@ -146,6 +146,8 @@ def segmented_head_tail(
     seg_id: torch.Tensor,
     pos_in_seg: torch.Tensor,
     num_segments: int,
+    *,
+    use_kernel: bool = False,
 ):
     """Per-segment generalized head & tail over contiguous row segments.
 
@@ -155,6 +157,9 @@ def segmented_head_tail(
       seg_id: [m] int64 — segment of each row (non-decreasing).
       pos_in_seg: [m] int — 0 for the first row of a segment.
       num_segments: segment count K.
+      use_kernel: compute the tails with the segmented-tail kernel
+        (`repro_torch.kernels.head_tail`: the CUDA kernel on the card, its
+        plain version on the CPU) instead of two segmented scans.
 
     Returns:
       heads: [..., K, n] — H(seg, v_seg)
@@ -168,13 +173,19 @@ def segmented_head_tail(
     wa = data * weights[:, None]
 
     c_incl = segmented_cumsum(w2, first)
-    s_incl = segmented_cumsum(wa, first)
     c_excl = c_incl - w2
-    s_excl = s_incl - wa
     c_excl_safe = torch.where(pos_in_seg > 0, c_excl, torch.ones_like(c_excl))
-    tails = (torch.sqrt(c_excl_safe)[:, None] * data
-             - weights[:, None] * s_excl / torch.sqrt(c_excl_safe)[:, None])
-    tails = tails / torch.sqrt(c_incl)[:, None]
+    if use_kernel:
+        from repro_torch.kernels.head_tail import ops as ht_ops
+        coef_a = torch.sqrt(c_excl_safe / c_incl)
+        coef_b = -weights / torch.sqrt(c_excl_safe * c_incl)
+        tails = ht_ops.segmented_tail(data, wa, first.contiguous(),
+                                      coef_a.contiguous(), coef_b.contiguous())
+    else:
+        s_excl = segmented_cumsum(wa, first) - wa
+        tails = (torch.sqrt(c_excl_safe)[:, None] * data
+                 - weights[:, None] * s_excl / torch.sqrt(c_excl_safe)[:, None])
+        tails = tails / torch.sqrt(c_incl)[:, None]
     tails = torch.where((pos_in_seg > 0)[:, None], tails,
                         torch.zeros_like(tails))
 

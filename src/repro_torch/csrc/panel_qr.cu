@@ -18,10 +18,20 @@
 // shared memory with a leading dimension of m + 1, so the column reductions
 // and the rank-1 update read consecutive addresses. Accumulation is in the
 // I/O type (float for float, double for double), as in the TPU kernel.
+//
 // A panel whose shared-memory footprint exceeds what a block may use
-// (227 KiB) is refused by the caller before launch.
+// (227 KiB: in float64 with nb = 32, more than ~870 rows, which the TSQR
+// combine reaches at N > ~435 columns) goes to panel_qr_gmem_kernel instead:
+// the same steps, one block per panel, with the working panel, the reflector
+// and w = v'A in a device-memory scratch buffer (column-major, leading
+// dimension m) and only the block reductions in shared memory. It is slower
+// (every step reads and writes the trailing panel in device memory, mostly
+// from L2), but it has no size limit. The wrapper picks the variant by
+// smem_bytes against kMaxSmem, which kernels/panel_qr/kernel.py mirrors; the
+// shared-memory launch still refuses a panel over kMaxSmem.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -59,27 +69,24 @@ int64_t smem_bytes(int64_t m, int64_t nb, int64_t elem) {
   return (nb * (m + 1) + m + 33 + nb) * elem;
 }
 
+// The Householder steps on a column-major working copy of one panel (column j
+// at As + j * ld), with the reflector in vs [m] and w = v'A in ws [nb];
+// red is the block-reduction scratch (33 entries, shared memory). As, vs and
+// ws lie in shared memory (panel_qr_kernel) or in device memory
+// (panel_qr_gmem_kernel); the barriers order both for the block. Offsets
+// inside a panel are 32-bit (the launchers refuse m * nb > INT_MAX): the
+// rank-1 update's index arithmetic is on the critical path, and 64-bit
+// division there made the kernel measurably slower.
 template <typename T>
-__global__ void panel_qr_kernel(const T* __restrict__ a, T* __restrict__ v_out,
-                                T* __restrict__ beta_out, T* __restrict__ r_out,
-                                int m, int nb) {
-  extern __shared__ unsigned char smem_raw[];
-  T* As = reinterpret_cast<T*>(smem_raw);  // column j at As + j * ld
-  const int ld = m + 1;
-  T* vs = As + (int64_t)nb * ld;  // [m] current reflector
-  T* red = vs + m;                // [33] reduction scratch
-  T* ws = red + 33;               // [nb] w = v'A
-
-  const int64_t panel = (int64_t)m * nb;
-  const T* a_b = a + blockIdx.x * panel;
-  T* v_b = v_out + blockIdx.x * panel;
-  T* r_b = r_out + blockIdx.x * panel;
-  T* beta_b = beta_out + (int64_t)blockIdx.x * nb;
+__device__ void householder_steps(const T* __restrict__ a_b, T* As, int ld, T* vs, T* ws,
+                                  T* red, T* __restrict__ v_b, T* __restrict__ beta_b,
+                                  T* __restrict__ r_b, int m, int nb) {
+  const int panel = m * nb;
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
 
-  for (int64_t e = tid; e < panel; e += nt) {
-    const int i = (int)(e / nb), j = (int)(e % nb);
+  for (int e = tid; e < panel; e += nt) {
+    const int i = e / nb, j = e % nb;
     As[j * ld + i] = a_b[e];
   }
   __syncthreads();
@@ -126,10 +133,46 @@ __global__ void panel_qr_kernel(const T* __restrict__ a, T* __restrict__ v_out,
     for (int i = tid; i < m; i += nt) v_b[(int64_t)i * nb + k] = T(0);
     if (tid == 0) beta_b[k] = T(0);
   }
-  for (int64_t e = tid; e < panel; e += nt) {
-    const int i = (int)(e / nb), j = (int)(e % nb);
+  for (int e = tid; e < panel; e += nt) {
+    const int i = e / nb, j = e % nb;
     r_b[e] = i <= j ? As[j * ld + i] : T(0);
   }
+}
+
+template <typename T>
+__global__ void panel_qr_kernel(const T* __restrict__ a, T* __restrict__ v_out,
+                                T* __restrict__ beta_out, T* __restrict__ r_out,
+                                int m, int nb) {
+  extern __shared__ unsigned char smem_raw[];
+  T* As = reinterpret_cast<T*>(smem_raw);  // nb columns of m + 1
+  const int ld = m + 1;
+  T* vs = As + (int64_t)nb * ld;  // [m] current reflector
+  T* red = vs + m;                // [33] reduction scratch
+  T* ws = red + 33;               // [nb] w = v'A
+  const int64_t panel = (int64_t)m * nb;
+  householder_steps(a + blockIdx.x * panel, As, ld, vs, ws, red,
+                    v_out + blockIdx.x * panel, beta_out + (int64_t)blockIdx.x * nb,
+                    r_out + blockIdx.x * panel, m, nb);
+}
+
+// Scratch elements one panel needs in device memory: the panel (nb columns of
+// m), the reflector (m) and w (nb).
+__host__ __device__ int64_t gmem_scratch_elems(int64_t m, int64_t nb) {
+  return nb * m + m + nb;
+}
+
+template <typename T>
+__global__ void panel_qr_gmem_kernel(const T* __restrict__ a, T* __restrict__ v_out,
+                                     T* __restrict__ beta_out, T* __restrict__ r_out,
+                                     T* scratch, int m, int nb) {
+  __shared__ T red[33];
+  T* As = scratch + blockIdx.x * gmem_scratch_elems(m, nb);
+  T* vs = As + (int64_t)nb * m;
+  T* ws = vs + m;
+  const int64_t panel = (int64_t)m * nb;
+  householder_steps(a + blockIdx.x * panel, As, m, vs, ws, red,
+                    v_out + blockIdx.x * panel, beta_out + (int64_t)blockIdx.x * nb,
+                    r_out + blockIdx.x * panel, m, nb);
 }
 
 template <typename T>
@@ -148,13 +191,19 @@ int launch(const T* a, T* v, T* beta, T* r, int64_t B, int64_t m, int64_t nb,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_gmem(const T* a, T* v, T* beta, T* r, T* scratch, int64_t B, int64_t m,
+                int64_t nb, cudaStream_t stream) {
+  if (gmem_scratch_elems(m, nb) > INT_MAX) return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  panel_qr_gmem_kernel<T><<<(unsigned)B, kThreads, 0, stream>>>(
+      a, v, beta, r, scratch, (int)m, (int)nb);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
-
-// Shared memory one panel block needs, and the most a block may use.
-int64_t pq_smem_bytes(int64_t m, int64_t nb, int64_t elem) { return smem_bytes(m, nb, elem); }
-int64_t pq_smem_limit() { return kMaxSmem; }
 
 int pq_launch_f32(const float* a, float* v, float* beta, float* r, int64_t B,
                   int64_t m, int64_t nb, void* stream) {
@@ -164,6 +213,20 @@ int pq_launch_f32(const float* a, float* v, float* beta, float* r, int64_t B,
 int pq_launch_f64(const double* a, double* v, double* beta, double* r, int64_t B,
                   int64_t m, int64_t nb, void* stream) {
   return launch<double>(a, v, beta, r, B, m, nb, (cudaStream_t)stream);
+}
+
+// The device-memory variant, for panels over kMaxSmem; scratch holds
+// B * pq_gmem_scratch_elems(m, nb) elements.
+int64_t pq_gmem_scratch_elems(int64_t m, int64_t nb) { return gmem_scratch_elems(m, nb); }
+
+int pq_launch_gmem_f32(const float* a, float* v, float* beta, float* r, float* scratch,
+                       int64_t B, int64_t m, int64_t nb, void* stream) {
+  return launch_gmem<float>(a, v, beta, r, scratch, B, m, nb, (cudaStream_t)stream);
+}
+
+int pq_launch_gmem_f64(const double* a, double* v, double* beta, double* r,
+                       double* scratch, int64_t B, int64_t m, int64_t nb, void* stream) {
+  return launch_gmem<double>(a, v, beta, r, scratch, B, m, nb, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -3,8 +3,9 @@
 Each source under ``src/repro_torch/csrc/`` has a plain C interface and is
 compiled on first use into ``build/repro_torch/`` at the repository root
 (listed in ``.gitignore``) as ``lib<name>-<hash>.so``, where the hash is that
-of the source text and the compiler flags: an edited source builds anew, an
-unchanged one is loaded as it is. `build_all` starts one ``nvcc`` per source
+of the source text, of the headers it includes from ``csrc/`` (``#include
+"x.cuh"``, followed transitively) and of the compiler flags: an edited source
+or header builds anew, an unchanged one is loaded as it is. `build_all` starts one ``nvcc`` per source
 at once and waits for all of them.
 
 The flags build for Hopper only (``sm_90a``). Nothing here runs when a
@@ -17,6 +18,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -25,7 +27,7 @@ __all__ = ["SOURCES", "build_dir", "library", "build_all"]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
-SOURCES = ("node_fused", "panel_qr")
+SOURCES = ("node_fused", "panel_qr", "head_tail", "flash_attn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -50,11 +52,26 @@ def _nvcc() -> str:
                        "kernels of repro_torch are built with it at first use")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources_of(src: pathlib.Path) -> list[pathlib.Path]:
+    """``src`` and every header of ``csrc/`` it includes, transitively."""
+    seen = [src]
+    for path in seen:
+        for name in _INCLUDE.findall(path.read_bytes()):
+            header = (path.parent / name.decode()).resolve()
+            if header.is_file() and header not in seen:
+                seen.append(header)
+    return seen
+
+
 def _target(name: str) -> tuple[pathlib.Path, pathlib.Path]:
     src = _CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return src, build_dir() / f"lib{name}-{digest}.so"
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in _sources_of(src):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return src, build_dir() / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str):

@@ -1,10 +1,19 @@
-"""Householder panel factorization as a hand-written CUDA kernel
-(``csrc/panel_qr.cu``): one block per panel, the panel in shared memory.
+"""Householder panel factorization as hand-written CUDA kernels
+(``csrc/panel_qr.cu``), one block per panel, in two variants:
 
-`panel_qr` checks its inputs, refuses a panel too large for one block's
-shared memory, allocates the outputs with ``torch.empty`` and launches on
-the current stream through the ctypes binding. It takes CUDA tensors only;
-the wrapper in ``ops.py`` decides between it and the plain version.
+  ``smem``  the panel in shared memory (``panel_qr_kernel``), for every panel
+            whose footprint fits one block's 227 KiB;
+  ``gmem``  the panel in a device-memory scratch buffer
+            (``panel_qr_gmem_kernel``), for wider ones.
+
+`variant` picks one from the panel's size alone (`smem_bytes` and
+`SMEM_LIMIT` mirror the source's ``smem_bytes`` and ``kMaxSmem``), so the
+choice is visible without the library.
+`panel_qr` checks its inputs, allocates the outputs (and the scratch) with
+``torch.empty`` and launches on the current stream through the ctypes
+binding. Both variants count as ``panel_qr`` launches; the device-memory one
+also counts as ``panel_qr_gmem``. It takes CUDA tensors only; the wrapper in
+``ops.py`` decides between it and the plain version.
 """
 
 from __future__ import annotations
@@ -16,6 +25,8 @@ import torch
 from repro_torch.kernels import _build, _platform
 
 NAME = "panel_qr"
+GMEM_NAME = "panel_qr_gmem"
+SMEM_LIMIT = 232_448  # bytes one block may opt into on sm_90 (kMaxSmem)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
@@ -27,12 +38,26 @@ def _lib():
         for fn in (lib.pq_launch_f32, lib.pq_launch_f64):
             fn.argtypes = [_P] * 4 + [_I] * 3 + [_P]
             fn.restype = ctypes.c_int
-        lib.pq_smem_bytes.argtypes = [_I] * 3
-        lib.pq_smem_bytes.restype = _I
-        lib.pq_smem_limit.argtypes = []
-        lib.pq_smem_limit.restype = _I
+        for fn in (lib.pq_launch_gmem_f32, lib.pq_launch_gmem_f64):
+            fn.argtypes = [_P] * 5 + [_I] * 3 + [_P]
+            fn.restype = ctypes.c_int
+        lib.pq_gmem_scratch_elems.argtypes = [_I] * 2
+        lib.pq_gmem_scratch_elems.restype = _I
         lib._repro_bound = True
     return lib
+
+
+def smem_bytes(m: int, nb: int, itemsize: int) -> int:
+    """Shared memory the ``smem`` variant needs for one [m, nb] panel: the
+    panel (nb columns of m + 1), the reflector (m), the reduction scratch
+    (33) and w = v'A (nb) — ``smem_bytes`` of the source."""
+    return (nb * (m + 1) + m + 33 + nb) * itemsize
+
+
+def variant(m: int, nb: int, itemsize: int) -> str:
+    """``"smem"`` when an [m, nb] panel fits one block's shared memory,
+    else ``"gmem"``."""
+    return "smem" if smem_bytes(m, nb, itemsize) <= SMEM_LIMIT else "gmem"
 
 
 def panel_qr(a: torch.Tensor):
@@ -44,24 +69,28 @@ def panel_qr(a: torch.Tensor):
     m, nb = a.shape[-2:]
     lead = a.shape[:-2]
     batch = a.numel() // max(m * nb, 1)
-    lib = _lib()
-    need = lib.pq_smem_bytes(m, nb, a.element_size())
-    if need > lib.pq_smem_limit():
-        raise ValueError(
-            f"panel [{m}, {nb}] of {a.dtype} needs {need} bytes of shared "
-            f"memory, more than the {lib.pq_smem_limit()} one block may use; "
-            "use a narrower panel or fewer TSQR leaf rows")
     a = a.contiguous()
     v = torch.empty_like(a)
     r = torch.empty_like(a)
     beta = torch.empty(lead + (nb,), dtype=a.dtype, device=a.device)
     if a.numel() == 0:
         return v, beta, r
-    fn = lib.pq_launch_f64 if a.dtype == torch.float64 else lib.pq_launch_f32
+    lib = _lib()
+    f64 = a.dtype == torch.float64
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = fn(a.data_ptr(), v.data_ptr(), beta.data_ptr(), r.data_ptr(),
-             batch, m, nb, stream)
+    ptrs = (a.data_ptr(), v.data_ptr(), beta.data_ptr(), r.data_ptr())
+    kind = variant(m, nb, a.element_size())
+    if kind == "smem":
+        fn = lib.pq_launch_f64 if f64 else lib.pq_launch_f32
+        err = fn(*ptrs, batch, m, nb, stream)
+    else:
+        scratch = torch.empty(batch * lib.pq_gmem_scratch_elems(m, nb),
+                              dtype=a.dtype, device=a.device)
+        fn = lib.pq_launch_gmem_f64 if f64 else lib.pq_launch_gmem_f32
+        err = fn(*ptrs, scratch.data_ptr(), batch, m, nb, stream)
     if err != 0:
         raise RuntimeError(f"panel_qr launch failed with CUDA error {err}")
     _platform.count_launch(NAME)
+    if kind == "gmem":
+        _platform.count_launch(GMEM_NAME)
     return v, beta, r

@@ -1,0 +1,291 @@
+"""Shared neural layers of the LM: norms, RoPE, GQA attention, the dense MLP.
+
+The port of the JAX package's ``models/layers.py``. Its ``init_*`` /
+``apply_*`` pairs become modules (`RMSNorm`, `LayerNorm`, `Attention`,
+`MLP`) whose parameters keep the JAX shapes (``wq [d, Hq, hd]``,
+``wo [Hq, hd, d]``, ``w_gate [d, ff]``, …) so a JAX parameter tree loads as
+it is (`models.weights.params_from_jax`). A module's ``init_`` fills its
+parameters from an explicit `torch.Generator`; the constructor leaves them
+uninitialized. Weights are cast to the compute dtype at the call, as JAX
+casts them. Attention is ported in its train branch (no cache): the
+cross-attention and cache branches raise `NotImplementedError`.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .config import ModelConfig
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16, "float64": torch.float64}
+
+_PAD_POS = 2**31 - 1  # int32 max: a padded key slot
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+def dense_init_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """Truncated normal on [−2, 2] scaled by 1/√fan_in, fan_in = shape[0]
+    (the JAX package's ``dense_init``, ``wo`` included)."""
+    fan_in = w.shape[0] if w.ndim >= 2 else 1
+    tmp = torch.empty(w.shape, dtype=torch.float32, device=w.device) \
+        if w.dtype != torch.float32 else w
+    nn.init.trunc_normal_(tmp, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    tmp.mul_(1.0 / math.sqrt(fan_in))
+    if tmp is not w:
+        w.copy_(tmp)
+    return w
+
+
+def _param(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+class RMSNorm(nn.Module):
+    """RMS norm in float32, cast back to the input dtype (``norm="rms"``)."""
+
+    def __init__(self, d: int, dtype: torch.dtype, device=None):
+        super().__init__()
+        self.scale = _param((d,), dtype, device)
+
+    @torch.no_grad()
+    def init_(self, generator=None):
+        self.scale.fill_(1.0)
+
+    def forward(self, x):
+        xf = x.float()
+        var = (xf * xf).mean(-1, keepdim=True)
+        return (xf * torch.rsqrt(var + 1e-6) * self.scale.float()).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """Layer norm with scale and bias in float32 (``norm="layer"``)."""
+
+    def __init__(self, d: int, dtype: torch.dtype, device=None):
+        super().__init__()
+        self.scale = _param((d,), dtype, device)
+        self.bias = _param((d,), dtype, device)
+
+    @torch.no_grad()
+    def init_(self, generator=None):
+        self.scale.fill_(1.0)
+        self.bias.zero_()
+
+    def forward(self, x):
+        xf = x.float()
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + 1e-6)
+        return (y * self.scale.float() + self.bias.float()).to(x.dtype)
+
+
+def make_norm(cfg: ModelConfig, d: int | None = None, device=None):
+    cls = LayerNorm if cfg.norm == "layer" else RMSNorm
+    return cls(d or cfg.d_model, dtype_of(cfg.param_dtype), device)
+
+
+def rms_norm_vec(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + 1e-6) * scale.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: [..., T, H, hd]; positions: broadcastable to [..., T]."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    ang = positions[..., None].float() * freqs  # [..., T, hd/2]
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA, optional qk-norm / sliding window)
+# ---------------------------------------------------------------------------
+
+
+def _mask_bias(q_pos, k_pos, causal: bool, window: int | None, dtype):
+    qp = q_pos[:, None]
+    kp = k_pos[None, :]
+    ok = (kp != _PAD_POS) & (kp >= 0)  # padded / unwritten cache slots
+    if causal:
+        ok = ok & (kp <= qp)
+    if window is not None:
+        ok = ok & (kp > qp - window)
+    zero = torch.zeros((), dtype=dtype, device=ok.device)
+    return torch.where(ok, zero, torch.finfo(dtype).min)
+
+
+def _sdpa(q, k, v, bias):
+    """q [B,Tq,Hq,hd], k/v [B,Tk,Hkv,hd] (GQA broadcast), bias [Tq,Tk]."""
+    b, tq, hq, hd = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, tq, hkv, hq // hkv, hd)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k).float()
+    logits = logits / math.sqrt(hd)
+    logits = logits + bias.float()
+    w = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", w, v)
+    return out.reshape(b, tq, hq, hd)
+
+
+def _sdpa_blockwise(q, k, v, q_pos, k_pos, causal, window, block_kv: int):
+    """Online softmax over KV blocks; activation memory O(Tq·block_kv)."""
+    b, tq, hq, hd = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    nb = -(-tk // block_kv)
+    pad = nb * block_kv - tk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = F.pad(k_pos, (0, pad), value=_PAD_POS)
+    kb = k.reshape(b, nb, block_kv, hkv, hd)
+    vb = v.reshape(b, nb, block_kv, hkv, hd)
+    pb = k_pos.reshape(nb, block_kv)
+    # As JAX: the scale is √hd rounded to q's dtype, divided in q's dtype.
+    qg = q.reshape(b, tq, hkv, g, hd) / torch.tensor(math.sqrt(hd),
+                                                     dtype=q.dtype)
+    m = torch.full((b, hkv, g, tq), float("-inf"), device=q.device)
+    l = torch.zeros((b, hkv, g, tq), device=q.device)
+    acc = torch.zeros((b, hkv, g, tq, hd), device=q.device)
+    for i in range(nb):
+        logits = torch.einsum("bqkgd,bskd->bkgqs", qg, kb[:, i]).float()
+        logits = logits + _mask_bias(q_pos, pb[i], causal, window,
+                                     torch.float32)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        p = torch.exp(logits - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgqs,bskd->bkgqd", p.to(q.dtype), vb[:, i]).float()
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.to(q.dtype).permute(0, 3, 1, 2, 4).reshape(b, tq, hq, hd)
+
+
+def _attend(q, k, v, q_pos, k_pos, causal, window, block_kv):
+    """Dispatch direct vs. blockwise (online-softmax) attention."""
+    if k.shape[1] > block_kv:
+        return _sdpa_blockwise(q, k, v, q_pos, k_pos, causal, window,
+                               block_kv)
+    bias = _mask_bias(q_pos, k_pos, causal, window, torch.float32)
+    return _sdpa(q, k, v, bias)
+
+
+def _proj(x, w):
+    """einsum("btd,dhk->bthk") as one matmul."""
+    b, t, d = x.shape
+    return (x.reshape(b * t, d) @ w.reshape(d, -1)).reshape(
+        (b, t) + tuple(w.shape[1:]))
+
+
+class Attention(nn.Module):
+    """GQA self-attention, train mode (no cache)."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        d, hd = cfg.d_model, cfg.resolved_head_dim
+        nq, nkv = cfg.n_heads, cfg.n_kv_heads
+        dt = dtype_of(cfg.param_dtype)
+        self.wq = _param((d, nq, hd), dt, device)
+        self.wk = _param((d, nkv, hd), dt, device)
+        self.wv = _param((d, nkv, hd), dt, device)
+        self.wo = _param((nq, hd, d), dt, device)
+        if cfg.qk_norm:
+            self.q_norm = _param((hd,), dt, device)
+            self.k_norm = _param((hd,), dt, device)
+
+    @torch.no_grad()
+    def init_(self, generator):
+        for w in (self.wq, self.wk, self.wv, self.wo):
+            dense_init_(w, generator)
+        if hasattr(self, "q_norm"):
+            self.q_norm.fill_(1.0)
+            self.k_norm.fill_(1.0)
+
+    def forward(self, x, cfg: ModelConfig, *, positions=None,
+                causal: bool = True, cross: bool = False, cache=None):
+        if cross:
+            raise NotImplementedError(
+                "cross-attention is not ported yet (ROADMAP A14.5, "
+                "encoder-decoder)")
+        if cache is not None:
+            raise NotImplementedError(
+                "attention with a KV cache (prefill, decode) is not ported "
+                "yet (ROADMAP A14.1)")
+        b, t, _ = x.shape
+        cdt = dtype_of(cfg.compute_dtype)
+        if positions is None:
+            positions = torch.arange(t, device=x.device)
+        xc = x.to(cdt)
+        q = _proj(xc, self.wq.to(cdt))
+        k = _proj(xc, self.wk.to(cdt))
+        v = _proj(xc, self.wv.to(cdt))
+        if cfg.qk_norm:
+            q = rms_norm_vec(q, self.q_norm)
+            k = rms_norm_vec(k, self.k_norm)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        if cfg.use_flash_kernel:
+            from repro_torch.kernels.flash_attn import ops as fa_ops
+            pos = positions.to(torch.int32)
+            out = fa_ops.flash_attention(q, k, v, pos, pos, causal=causal,
+                                         window=cfg.swa_window)
+        else:
+            out = _attend(q, k, v, positions, positions, causal,
+                          cfg.swa_window, cfg.attn_block_kv)
+        nq, hd, d = self.wo.shape
+        y = out.reshape(b * t, nq * hd) @ self.wo.to(cdt).reshape(nq * hd, d)
+        return y.reshape(b, t, d).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Dense MLP (SwiGLU)
+# ---------------------------------------------------------------------------
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        d, ff = cfg.d_model, cfg.d_ff
+        dt = dtype_of(cfg.param_dtype)
+        self.w_gate = _param((d, ff), dt, device)
+        self.w_up = _param((d, ff), dt, device)
+        self.w_down = _param((ff, d), dt, device)
+
+    @torch.no_grad()
+    def init_(self, generator):
+        for w in (self.w_gate, self.w_up, self.w_down):
+            dense_init_(w, generator)
+
+    def forward(self, x, cfg: ModelConfig):
+        cdt = dtype_of(cfg.compute_dtype)
+        xc = x.to(cdt)
+        h = F.silu(xc @ self.w_gate.to(cdt)) * (xc @ self.w_up.to(cdt))
+        return (h @ self.w_down.to(cdt)).to(x.dtype)

@@ -1,0 +1,186 @@
+"""Model assembly for the dense attention path: init, train-mode forward, loss.
+
+The port of the JAX package's ``models/transformer.py`` for configurations
+whose every layer is ``LayerSpec(mixer="attn", mlp="dense")`` (qwen3-8b,
+granite-3-8b, command-r-35b, minicpm-2b). `Transformer` holds the embedding,
+the stack and the head as modules whose parameters keep the JAX shapes; the
+depth is a `ModuleList` of super-blocks walked by a Python loop (JAX's
+``lax.scan``). ``forward`` and ``loss_fn`` return what JAX's return:
+``(logits, aux, offset)`` and ``(loss, {"ce", "aux", "zloss", "tokens"})``.
+
+On one card ``remat``, ``scan_layers``, ``dp_axes`` and the activation
+constraints (``_constrain_act``) have no effect: PyTorch runs the loop
+eagerly, nothing is sharded, and an eval forward keeps no activations for a
+backward pass. Everything else of the JAX module raises
+`NotImplementedError` naming its ROADMAP item: mamba, rwkv6 and moe layers,
+cross-attention and the encoder (``is_enc_dec``), patch positions, and
+prefill / decode with caches.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.kernels._platform import resolve_device
+from . import layers
+from .config import LayerSpec, ModelConfig
+from .layers import dtype_of
+
+# What a forward needs to agree on with the module it runs: the shapes and
+# the layout of the parameters.
+_SHAPE_FIELDS = ("d_model", "n_heads", "n_kv_heads", "d_ff", "vocab",
+                 "n_blocks", "block", "head_dim", "qk_norm", "norm",
+                 "tie_embeddings", "param_dtype")
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise `NotImplementedError` unless every layer is dense attention."""
+    for spec in cfg.block:
+        if spec.mixer in ("mamba", "rwkv6"):
+            raise NotImplementedError(
+                f"{cfg.name}: {spec.mixer} layers are not ported yet "
+                "(ROADMAP A14.4, ssm)")
+        if spec.mixer != "attn":
+            raise NotImplementedError(
+                f"{cfg.name}: mixer {spec.mixer!r} is not ported yet "
+                "(ROADMAP A14.4)")
+        if spec.mlp in ("moe", "dense+moe"):
+            raise NotImplementedError(
+                f"{cfg.name}: {spec.mlp} layers are not ported yet "
+                "(ROADMAP A14.3, moe)")
+        if spec.mlp != "dense":
+            raise NotImplementedError(
+                f"{cfg.name}: mlp {spec.mlp!r} is not ported yet "
+                "(ROADMAP A14.4, ssm)")
+        if spec.cross_attn:
+            raise NotImplementedError(
+                f"{cfg.name}: cross-attention is not ported yet "
+                "(ROADMAP A14.5, encoder-decoder)")
+    if cfg.is_enc_dec:
+        raise NotImplementedError(f"{cfg.name}: the encoder is not ported yet "
+                                  "(ROADMAP A14.5, encoder-decoder)")
+    if cfg.patch_positions:
+        raise NotImplementedError(f"{cfg.name}: patch positions are not "
+                                  "ported yet (ROADMAP A14.5, patches)")
+
+
+class Sublayer(nn.Module):
+    """One residual sub-layer: norm → attention → residual, norm → MLP →
+    residual (JAX's ``_init_sublayer`` / ``_apply_sublayer`` for
+    ``mixer="attn"``, ``mlp="dense"``)."""
+
+    def __init__(self, spec: LayerSpec, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.norm1 = layers.make_norm(cfg, device=device)
+        self.mixer = layers.Attention(cfg, device)
+        self.norm2 = layers.make_norm(cfg, device=device)
+        self.mlp = layers.MLP(cfg, device)
+
+    def init_(self, generator):
+        for child in self.children():
+            child.init_(generator)
+
+    def forward(self, x, cfg: ModelConfig, *, positions, causal: bool):
+        x = x + self.mixer(self.norm1(x), cfg, positions=positions,
+                           causal=causal)
+        return x + self.mlp(self.norm2(x), cfg)
+
+
+class Transformer(nn.Module):
+    """The decoder stack of a dense attention configuration.
+
+    The constructor allocates the parameters (uninitialized) on ``device``
+    (the card unless the caller names another, as every entry point);
+    `init` fills them from a `torch.Generator`, or
+    `repro_torch.models.weights.params_from_jax` loads a JAX tree.
+    """
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        check_supported(cfg)
+        device = resolve_device(device)
+        self.cfg = cfg
+        dt = dtype_of(cfg.param_dtype)
+        self.embed = nn.Parameter(torch.empty(cfg.padded_vocab, cfg.d_model,
+                                              dtype=dt, device=device))
+        self.blocks = nn.ModuleList(
+            nn.ModuleList(Sublayer(spec, cfg, device) for spec in cfg.block)
+            for _ in range(cfg.n_blocks))
+        self.final_norm = layers.make_norm(cfg, device=device)
+        if not cfg.tie_embeddings:
+            self.lm_head = nn.Parameter(torch.empty(
+                cfg.d_model, cfg.padded_vocab, dtype=dt, device=device))
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> "Transformer":
+        """Random init as JAX's ``init_params`` draws it (embedding N(0,
+        0.02²), dense weights truncated normal / √fan_in, norms 1), from
+        ``generator``: the numbers differ from JAX's PRNG."""
+        self.embed.normal_(0.0, 0.02, generator=generator)
+        for block in self.blocks:
+            for sub in block:
+                sub.init_(generator)
+        self.final_norm.init_(generator)
+        if not self.cfg.tie_embeddings:
+            layers.dense_init_(self.lm_head, generator)
+        return self
+
+    def _cfg(self, cfg: ModelConfig | None) -> ModelConfig:
+        if cfg is None:
+            return self.cfg
+        for f in _SHAPE_FIELDS:
+            if getattr(cfg, f) != getattr(self.cfg, f):
+                raise ValueError(f"config {cfg.name} differs from the "
+                                 f"module's in {f}")
+        return cfg
+
+    def _embed_inputs(self, cfg: ModelConfig, batch):
+        """Token embedding. Returns (x, positions, text_offset)."""
+        x = self.embed[batch["tokens"]].to(dtype_of(cfg.compute_dtype))
+        positions = torch.arange(x.shape[1], device=x.device)
+        return x, positions, 0
+
+    def _logits(self, cfg: ModelConfig, x):
+        head = self.embed.T if cfg.tie_embeddings else self.lm_head
+        logits = x.float() @ head.float()
+        if cfg.padded_vocab != cfg.vocab:  # mask the vocab-padding rows
+            pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab
+            logits = logits.masked_fill(pad, torch.finfo(torch.float32).min)
+        return logits
+
+    def forward(self, batch, cfg: ModelConfig | None = None):
+        """Logits over the sequence: ([B, S, padded_vocab] float32, aux,
+        offset). ``cfg`` (default: the module's) may differ from the
+        module's only in what does not shape the parameters, e.g.
+        ``use_flash_kernel`` or ``compute_dtype``."""
+        cfg = self._cfg(cfg)
+        x, positions, offset = self._embed_inputs(cfg, batch)
+        for block in self.blocks:
+            for sub in block:
+                x = sub(x, cfg, positions=positions, causal=True)
+        x = self.final_norm(x)
+        # aux is the MoE load-balancing loss; dense layers add none.
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return self._logits(cfg, x), aux, offset
+
+    def loss_fn(self, batch, cfg: ModelConfig | None = None):
+        """Next-token cross entropy (+ z-loss). Returns (loss, metrics)."""
+        logits, aux, offset = self.forward(batch, cfg)
+        tokens = batch["tokens"]
+        logits_text = logits[:, offset:][:, :-1]
+        targets = tokens[:, 1:]
+        mask = batch.get("loss_mask")
+        mask = torch.ones_like(targets, dtype=torch.float32) if mask is None \
+            else mask[:, 1:].float()
+        lse = torch.logsumexp(logits_text, dim=-1)
+        # A gather of the target logit: JAX's one-hot contraction adds zeros
+        # to the same value.
+        tgt_logit = logits_text.gather(-1, targets[..., None]).squeeze(-1)
+        del logits, logits_text
+        nll = (lse - tgt_logit) * mask
+        denom = torch.clamp(mask.sum(), min=1.0)
+        ce = nll.sum() / denom
+        zloss = 1e-4 * ((lse * mask) ** 2).sum() / denom
+        loss = ce + zloss + aux
+        return loss, {"ce": ce, "aux": aux, "zloss": zloss, "tokens": denom}

@@ -6,9 +6,14 @@ card, run them without the suite's conftest (which imports JAX)::
 
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Tolerances: float64 1e-9 and float32 1e-5 (node_fused) / 1e-4 (panel_qr),
-relative to max(1, |plain|) — the bounds the CPU suite holds the plain
-versions to against the JAX package.
+Tolerances, relative to max(1, |plain|): float64 1e-9 and float32 1e-5
+(node_fused, segmented_tail) / 1e-4 (panel_qr) — the bounds the CPU suite
+holds the plain versions to against the JAX package. flash_attention,
+elementwise: 2e-5 absolute in float32 and 1e-12 in float64 (the JAX
+package's own kernel-vs-oracle bound, tests/test_flash_kernel.py, and
+float64 rounding); in bfloat16 one bfloat16 step, |got − want| ≤
+2⁻⁷·|want| + 1e-3·rms(want), since the kernel and the plain version both
+round one float32 result.
 """
 
 import os
@@ -18,8 +23,11 @@ import pytest
 import torch
 
 from repro_torch import figaro
+from repro_torch.core import heads_tails
 from repro_torch.data.relational import yelp_like
 from repro_torch.kernels import _platform
+from repro_torch.kernels.flash_attn import kernel as fk, ref as fr
+from repro_torch.kernels.head_tail import kernel as hk, ref as hr
 from repro_torch.kernels.node_fused import kernel as nk, ref as nr
 from repro_torch.kernels.panel_qr import kernel as pk, ref as pr
 
@@ -38,6 +46,16 @@ def _need_card():
 def _rel(got, want):
     scale = max(1.0, float(want.double().abs().max()))
     return float((got.double() - want.double()).abs().max()) / scale
+
+
+def _flash_excess(got, want, tol):
+    """The largest |got − want| over the allowance a·|want| + r·rms(want)
+    + c, with (a, r, c) = ``tol``: at most 1 passes."""
+    a, r, c = tol
+    want = want.double()
+    diff = (got.double() - want).abs()
+    rms = float(want.square().mean().sqrt())
+    return float((diff / (a * want.abs() + (r * rms + c))).max())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -79,11 +97,111 @@ def test_panel_qr_kernel_matches_plain(dtype, b, m, nb):
         assert _rel(x, y) <= TOL[dtype]["pq"]
 
 
-def test_panel_qr_refuses_a_panel_too_large_for_shared_memory():
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b,m,nb", [(3, 1024, 32), (2, 4096, 32),
+                                    (2, 900, 7)])
+def test_panel_qr_wide_panel_uses_device_memory_kernel(dtype, b, m, nb):
+    """Panels over one block's shared memory go to the device-memory
+    variant and agree with the plain version (random full-rank panels)."""
     _need_card()
-    with pytest.raises(ValueError, match="shared memory"):
-        pk.panel_qr(torch.zeros(1, 2048, 32, device="cuda",
-                                dtype=torch.float64))
+    if pk.variant(m, nb, torch.empty((), dtype=dtype).element_size()) \
+            == "smem":
+        pytest.skip("fits shared memory in this dtype")
+    g = torch.Generator(device="cuda").manual_seed(m + nb)
+    a = torch.randn(b, m, nb, generator=g, device="cuda", dtype=dtype)
+    _platform.reset_launch_counts()
+    got = pk.panel_qr(a)
+    assert _platform.launch_counts() == {"panel_qr": 1, "panel_qr_gmem": 1}
+    want = pr.panel_qr_ref(a)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert _rel(x, y) <= TOL[dtype]["pq"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b,m,n", [(1, 100_003, 1), (2, 4_099, 3),
+                                   (1, 777, 40)])
+def test_segmented_tail_kernel_matches_plain(dtype, b, m, n):
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(m + n)
+    first = torch.rand(m, generator=g, device="cuda") < 0.05
+    first[0] = True
+    data = torch.randn(b, m, n, generator=g, device="cuda", dtype=dtype)
+    wa = data * (torch.rand(m, 1, generator=g, device="cuda", dtype=dtype)
+                 + 0.5)
+    ca = torch.rand(m, generator=g, device="cuda", dtype=dtype)
+    cb = -torch.rand(m, generator=g, device="cuda", dtype=dtype)
+    got = hk.segmented_tail(data, wa, first, ca, cb)
+    want = hr.segmented_tail_ref(data, wa, first, ca, cb)
+    torch.cuda.synchronize()
+    assert _rel(got, want) <= TOL[dtype]["nf"]
+
+
+def test_segmented_head_tail_kernel_path_launches_and_matches():
+    _need_card()
+    m, n = 50_000, 4
+    g = torch.Generator(device="cuda").manual_seed(0)
+    first = torch.rand(m, generator=g, device="cuda") < 0.01
+    first[0] = True
+    seg = torch.cumsum(first.long(), 0) - 1
+    starts = torch.nonzero(first).squeeze(1)
+    pos = torch.arange(m, device="cuda") - starts[seg]
+    data = torch.randn(m, n, generator=g, device="cuda", dtype=torch.float64)
+    w = torch.rand(m, generator=g, device="cuda", dtype=torch.float64) + 0.5
+    k = int(seg[-1]) + 1
+    _platform.reset_launch_counts()
+    got = heads_tails.segmented_head_tail(data, w, seg, pos, k,
+                                          use_kernel=True)
+    assert _platform.launch_counts() == {"segmented_tail": 1}
+    want = heads_tails.segmented_head_tail(data, w, seg, pos, k)
+    for x, y in zip(got, want):
+        assert _rel(x, y) <= 1e-9
+
+
+@pytest.mark.parametrize("dtype,tol", [
+    (torch.float32, (0.0, 0.0, 2e-5)),
+    (torch.bfloat16, (2.0 ** -7, 1e-3, 0.0)),
+    (torch.float64, (0.0, 0.0, 1e-12)),
+])
+@pytest.mark.parametrize("b,tq,tk,hq,hkv,hd,causal,window", [
+    (1, 8, 8, 2, 2, 128, True, None),
+    (2, 300, 300, 8, 2, 128, True, None),
+    (1, 100, 260, 4, 4, 64, True, None),    # unaligned; tk > tq
+    (2, 128, 384, 8, 2, 128, True, 96),     # GQA + sliding window
+    (1, 64, 64, 2, 1, 256, False, None),    # non-causal
+    (1, 70, 70, 4, 2, 32, True, None),
+])
+def test_flash_attention_kernel_matches_plain(dtype, tol, b, tq, tk, hq, hkv,
+                                              hd, causal, window):
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(tq * hd)
+    q = torch.randn(b, tq, hq, hd, generator=g, device="cuda").to(dtype)
+    k = torch.randn(b, tk, hkv, hd, generator=g, device="cuda").to(dtype)
+    v = torch.randn(b, tk, hkv, hd, generator=g, device="cuda").to(dtype)
+    qpos = torch.arange(tk - tq, tk, device="cuda", dtype=torch.int32)
+    kpos = torch.arange(tk, device="cuda", dtype=torch.int32)
+    got = fk.flash_attention(q, k, v, qpos, kpos, causal=causal,
+                             window=window)
+    want = fr.flash_attention_ref(q, k, v, qpos, kpos, causal=causal,
+                                  window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert _flash_excess(got, want, tol) <= 1.0
+
+
+def test_flash_attention_kernel_fully_masked_row_is_zero():
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn(1, 70, 2, 64, generator=g, device="cuda")
+               for _ in range(3))
+    qpos = torch.arange(70, device="cuda", dtype=torch.int32)
+    kpos = qpos.clone()
+    kpos[:10] = -1  # query rows 0..9 see no key
+    got = fk.flash_attention(q, k, v, qpos, kpos)
+    want = fr.flash_attention_ref(q, k, v, qpos, kpos)
+    torch.cuda.synchronize()
+    assert bool((got[:, :10] == 0).all())
+    assert float((got - want).abs().max()) < 2e-5
 
 
 def test_session_kernel_path_launches_and_matches_plain_path():

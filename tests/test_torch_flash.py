@@ -1,0 +1,140 @@
+"""The port's flash attention (its plain version, on the CPU) against the JAX
+package's Pallas kernel in interpret mode and its ``ref.py``.
+
+Tolerances are those of the JAX package's own kernel-vs-oracle test
+(tests/test_flash_kernel.py): 2e-5 absolute in float32, 2e-2 in bfloat16.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attn import ops as jfa_ops
+from repro.kernels.flash_attn import ref as jfa_ref
+from repro_torch.kernels import _platform
+from repro_torch.kernels.flash_attn import kernel as fa_kernel
+from repro_torch.kernels.flash_attn import ops as fa_ops
+from repro_torch.kernels.flash_attn import ref as fa_ref
+
+
+def _jax_ref_folded(q, k, v, qpos, kpos, causal, window):
+    """JAX's oracle on the kernel's folded [B·Hq, T, hd] layout."""
+    b, tq, hq, hd = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qh = (q.reshape(b, tq, hkv, g, hd).transpose(0, 2, 3, 1, 4)
+          .reshape(b * hkv * g, tq, hd))
+    kh = jnp.repeat(k.transpose(0, 2, 1, 3).reshape(b * hkv, tk, hd), g, 0)
+    vh = jnp.repeat(v.transpose(0, 2, 1, 3).reshape(b * hkv, tk, hd), g, 0)
+    qp = jnp.broadcast_to(qpos[None], (b * hkv * g, tq))
+    kp = jnp.broadcast_to(kpos[None], (b * hkv * g, tk))
+    out = jfa_ref.flash_attention_ref(qh, kh, vh, qp, kp, causal=causal,
+                                      window=window)
+    return (out.reshape(b, hkv, g, tq, hd).transpose(0, 3, 1, 2, 4)
+            .reshape(b, tq, hq, hd))
+
+
+def _inputs(rng, b, tq, tk, hq, hkv, hd):
+    q = rng.normal(size=(b, tq, hq, hd)).astype(np.float32)
+    k = rng.normal(size=(b, tk, hkv, hd)).astype(np.float32)
+    v = rng.normal(size=(b, tk, hkv, hd)).astype(np.float32)
+    qpos = np.arange(tk - tq, tk, dtype=np.int32)
+    kpos = np.arange(tk, dtype=np.int32)
+    return q, k, v, qpos, kpos
+
+
+@pytest.mark.parametrize("b,tq,tk,hq,hkv,hd,causal,window", [
+    (1, 8, 8, 2, 2, 128, True, None),
+    (2, 128, 128, 4, 2, 128, True, None),
+    (1, 100, 260, 4, 4, 128, True, None),   # unaligned; tk > tq
+    (2, 128, 384, 8, 2, 128, True, 96),     # GQA + sliding window
+    (1, 64, 64, 2, 1, 256, False, None),    # non-causal
+])
+def test_flash_plain_vs_pallas_and_oracle(b, tq, tk, hq, hkv, hd, causal,
+                                          window):
+    rng = np.random.default_rng(tq * tk + hq)
+    q, k, v, qpos, kpos = _inputs(rng, b, tq, tk, hq, hkv, hd)
+    jargs = [jnp.asarray(x) for x in (q, k, v, qpos, kpos)]
+    out_k = jfa_ops.flash_attention(*jargs, causal=causal, window=window,
+                                    block_q=64, block_kv=128)
+    out_r = _jax_ref_folded(*jargs, causal, window)
+    out_t = fa_ops.flash_attention(*[torch.from_numpy(x) for x in
+                                     (q, k, v, qpos, kpos)],
+                                   causal=causal, window=window)
+    assert out_t.shape == (b, tq, hq, hd) and out_t.dtype == torch.float32
+    assert float(np.abs(out_t.numpy() - np.asarray(out_k)).max()) < 2e-5
+    assert float(np.abs(out_t.numpy() - np.asarray(out_r)).max()) < 2e-5
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_dtypes(dtype):
+    rng = np.random.default_rng(0)
+    q, k, v, pos, _ = _inputs(rng, 1, 64, 64, 4, 4, 128)
+    jdt = jnp.dtype(dtype)
+    tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    jq, jk, jv = (jnp.asarray(x, jdt) for x in (q, k, v))
+    out_k = jfa_ops.flash_attention(jq, jk, jv, jnp.asarray(pos),
+                                    jnp.asarray(pos), block_q=64, block_kv=64)
+    tq, tk, tv = (torch.from_numpy(np.array(x.astype(jnp.float32)))
+                  .to(tdt) for x in (jq, jk, jv))
+    pos_t = torch.from_numpy(pos)
+    out_t = fa_ops.flash_attention(tq, tk, tv, pos_t, pos_t)
+    assert out_t.dtype == tdt
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    err = np.abs(out_t.float().numpy() - np.asarray(out_k.astype(jnp.float32)))
+    assert float(err.max()) < tol
+
+
+def test_flash_plain_float64_accumulates_in_float64():
+    rng = np.random.default_rng(1)
+    q, k, v, qpos, kpos = _inputs(rng, 1, 32, 48, 4, 2, 64)
+    args = [torch.from_numpy(x.astype(np.float64)) for x in (q, k, v)]
+    pos = [torch.from_numpy(x) for x in (qpos, kpos)]
+    out = fa_ops.flash_attention(*args, *pos, window=20)
+    want = _jax_ref_folded(*[jnp.asarray(x.numpy()) for x in args],
+                           jnp.asarray(qpos), jnp.asarray(kpos), True, 20)
+    assert out.dtype == torch.float64
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=1e-12)
+
+
+def test_flash_fully_masked_row_gives_zeros():
+    """A query row with no visible key (here: every key padded with
+    k_pos = −1 before the query's position) is zeros, by the port's pinned
+    rule; rows with a visible key are unaffected."""
+    rng = np.random.default_rng(2)
+    q, k, v, _, _ = _inputs(rng, 1, 6, 6, 2, 1, 32)
+    qpos = np.arange(6, dtype=np.int32)
+    kpos = np.array([-1, -1, 2, 3, 4, 5], dtype=np.int32)  # rows 0, 1 see none
+    args = [torch.from_numpy(x) for x in (q, k, v, qpos, kpos)]
+    out = fa_ops.flash_attention(*args).numpy()
+    assert np.all(out[:, :2] == 0.0)
+    assert np.all(np.isfinite(out))
+    want = _jax_ref_folded(*[jnp.asarray(x) for x in (q, k, v, qpos, kpos)],
+                           True, None)
+    np.testing.assert_allclose(out[:, 2:], np.asarray(want)[:, 2:],
+                               atol=2e-5)
+
+
+def test_flash_plain_needs_no_copies_of_kv_and_counts_no_launch():
+    """The plain version folds GQA by broadcasting, and a CPU call is not a
+    kernel launch."""
+    rng = np.random.default_rng(3)
+    q, k, v, qpos, kpos = _inputs(rng, 2, 16, 16, 8, 2, 32)
+    _platform.reset_launch_counts()
+    out = fa_ref.flash_attention_ref(*[torch.from_numpy(x) for x in
+                                       (q, k, v, qpos, kpos)])
+    assert out.shape == (2, 16, 8, 32)
+    assert _platform.launch_counts().get("flash_attention", 0) == 0
+
+
+def test_flash_kernel_wrapper_refuses_what_it_cannot_run():
+    q = torch.zeros(1, 4, 2, 64)
+    pos = torch.arange(4)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa_kernel.flash_attention(q, q, q, pos, pos)
+    with pytest.raises(TypeError):
+        fa_kernel.flash_attention(q.half(), q.half(), q.half(), pos, pos)
+    with pytest.raises(ValueError, match="no kernel"):
+        fa_ops.flash_attention(q.to("meta"), q.to("meta"), q.to("meta"),
+                               pos.to("meta"), pos.to("meta"))

@@ -32,7 +32,12 @@ def _port_modules() -> list[str]:
 
 def test_every_port_module_imports_with_jax_and_repro_blocked():
     mods = _port_modules()
-    assert "repro_torch.core.engine" in mods and "repro_torch.api" in mods
+    for name in ("repro_torch.core.engine", "repro_torch.api",
+                 "repro_torch.models.transformer", "repro_torch.models.weights",
+                 "repro_torch.configs", "repro_torch.configs.qwen3_8b",
+                 "repro_torch.train.step", "repro_torch.kernels.head_tail.ops",
+                 "repro_torch.kernels.flash_attn.kernel"):
+        assert name in mods, name
     code = (
         "import importlib, sys\n"
         "for name in ('jax', 'jaxlib', 'repro'):\n"

@@ -6,11 +6,13 @@ the CPU) and its XLA ``ref.py``. Tolerances:
 
   * float64: 1e-9 absolute, the reference's own kernel-vs-XLA bound
     (tests/test_kernel_path.py:30);
-  * node_fused in float32: 1e-5 (the recorded Pallas-vs-ref gap is 9.5e-7);
+  * node_fused and segmented_tail in float32: 1e-5 (the recorded
+    node_fused Pallas-vs-ref gap is 9.5e-7; segmented_tail is its subset);
   * panel_qr in float32: 1e-4 (the recorded gap is 2.5e-5).
 """
 
 import functools
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +20,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.head_tail import kernel as jht_kernel
+from repro.kernels.head_tail import ref as jht_ref
 from repro.kernels.node_fused import kernel as jnf_kernel
 from repro.kernels.node_fused import ops as jnf_ops
 from repro.kernels.node_fused import ref as jnf_ref
@@ -26,8 +30,11 @@ from repro.kernels.panel_qr import ref as jpq_ref
 from repro.core import heads_tails as jht
 from repro_torch.core import heads_tails as tht
 from repro_torch.kernels import _platform
+from repro_torch.kernels.head_tail import ops as ht_ops
+from repro_torch.kernels.head_tail import ref as ht_ref
 from repro_torch.kernels.node_fused import ops as nf_ops
 from repro_torch.kernels.node_fused import ref as nf_ref
+from repro_torch.kernels.panel_qr import kernel as pq_kernel
 from repro_torch.kernels.panel_qr import ops as pq_ops
 
 TOL = {np.float32: {"nf": 1e-5, "pq": 1e-4}, np.float64: {"nf": 1e-9,
@@ -163,6 +170,83 @@ def test_fused_node_pass_vs_jax(dtype, masked):
         assert np.all(heads_t.numpy()[~live] == 0.0)
 
 
+# -- segmented_tail (head_tail kernel) ----------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("m,n,block_rows", [(40, 1, 8), (129, 5, 32)])
+def test_segmented_tail_plain_vs_pallas(dtype, m, n, block_rows):
+    """Segments straddle the Pallas kernel's row blocks (short blocks, many
+    segments)."""
+    rng = np.random.default_rng(m * n)
+    first, _ = _segments(rng, m, p_dead=0.0)
+    data = rng.uniform(-1.0, 1.0, (m, n)).astype(dtype)
+    w = rng.uniform(0.5, 2.0, m).astype(dtype)
+    wa = (data * w[:, None]).astype(dtype)
+    ca, cb = (rng.uniform(-1.0, 1.0, m).astype(dtype) for _ in range(2))
+    col = lambda v: jnp.asarray(v)[:, None]
+    args_j = (jnp.asarray(data), jnp.asarray(wa), col(first.astype(dtype)),
+              col(ca), col(cb))
+    out_j = jht_kernel.segmented_tail_kernel(
+        *args_j, block_rows=block_rows, block_cols=128, interpret=True)
+    out_r = jht_ref.segmented_tail_ref(*args_j)
+    out_t = ht_ops.segmented_tail(_t(data), _t(wa), _t(first), _t(ca),
+                                  _t(cb))
+    assert out_t.dtype == DTYPES[dtype]
+    tol = TOL[dtype]["nf"]
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), atol=tol)
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_r), atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_segmented_tail_batched_columns(dtype):
+    """A [B, m, n] batch shares the row vectors: each batch element equals
+    its own single call."""
+    rng = np.random.default_rng(17)
+    m, n, b = 70, 3, 2
+    first, _ = _segments(rng, m, p_dead=0.0)
+    data = rng.normal(size=(b, m, n)).astype(dtype)
+    wa = rng.normal(size=(b, m, n)).astype(dtype)
+    rows = [_t(first)] + [_t(rng.normal(size=m).astype(dtype))
+                          for _ in range(2)]
+    out_b = ht_ops.segmented_tail(_t(data), _t(wa), *rows)
+    for i in range(b):
+        out_i = ht_ref.segmented_tail_ref(_t(data[i]), _t(wa[i]), *rows)
+        np.testing.assert_array_equal(out_b[i].numpy(), out_i.numpy())
+
+
+def _segment_layout(rng, m):
+    first = rng.random(m) < 0.2
+    first[0] = True
+    seg = np.cumsum(first) - 1
+    pos = np.arange(m) - np.flatnonzero(first)[seg]
+    return seg, pos, int(seg[-1]) + 1
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_segmented_head_tail_kernel_path_matches_jax(dtype):
+    """``use_kernel=True`` against JAX's ``use_kernel=True`` (its Pallas
+    kernel in interpret mode) and against the port's own unfused path."""
+    rng = np.random.default_rng(23)
+    m, n = 300, 3
+    seg, pos, k = _segment_layout(rng, m)
+    data = rng.normal(size=(m, n)).astype(dtype)
+    w = rng.uniform(0.5, 2.0, m).astype(dtype)
+    t_args = (_t(data), _t(w), _t(seg), _t(pos), k)
+    _platform.reset_launch_counts()
+    got = tht.segmented_head_tail(*t_args, use_kernel=True)
+    assert _platform.launch_counts().get("segmented_tail", 0) == 0  # CPU
+    unfused = tht.segmented_head_tail(*t_args)
+    want = jax.jit(functools.partial(jht.segmented_head_tail, num_segments=k,
+                                     use_kernel=True))(
+        jnp.asarray(data), jnp.asarray(w), jnp.asarray(seg), jnp.asarray(pos))
+    tol = TOL[dtype]["nf"]
+    for g, u, wnt in zip(got, unfused, want):
+        assert g.dtype == DTYPES[dtype]
+        np.testing.assert_allclose(g.numpy(), np.asarray(wnt), atol=tol)
+        np.testing.assert_allclose(g.numpy(), u.numpy(), atol=tol)
+
+
 # -- segmented scan and head/tail building blocks -----------------------------
 
 
@@ -249,6 +333,38 @@ def test_panel_qr_batched(dtype):
         np.testing.assert_allclose(r_b[i].numpy(), np.asarray(r_j), atol=tol)
 
 
+@pytest.mark.parametrize("m,nb,itemsize,want", [
+    (256, 32, 8, "smem"),    # TSQR leaves
+    (877, 32, 8, "smem"),    # the widest float64 panel one block holds
+    (878, 32, 8, "gmem"),
+    (1024, 32, 8, "gmem"),   # the TSQR combine at N = 512
+    (4096, 32, 8, "gmem"),
+    (1024, 32, 4, "smem"),   # float32 holds twice the rows
+    (4096, 32, 4, "gmem"),
+])
+def test_panel_qr_variant_by_size(m, nb, itemsize, want):
+    """The wrapper's choice between its two kernels, from the panel's size
+    alone: shared memory up to one block's 227 KiB, device memory above."""
+    assert pq_kernel.variant(m, nb, itemsize) == want
+    fits = pq_kernel.smem_bytes(m, nb, itemsize) <= pq_kernel.SMEM_LIMIT
+    assert fits == (want == "smem")
+
+
+def test_panel_qr_size_function_mirrors_the_cuda_source():
+    """`smem_bytes` and `SMEM_LIMIT` are the CUDA source's ``smem_bytes``
+    and ``kMaxSmem``, so the choice made here is the one the library would
+    make."""
+    src = (pathlib.Path(pq_kernel.__file__).resolve().parents[2] / "csrc"
+           / "panel_qr.cu").read_text()
+    assert "return (nb * (m + 1) + m + 33 + nb) * elem;" in src
+    assert f"kMaxSmem = {pq_kernel.SMEM_LIMIT};" in src
+    assert pq_kernel.smem_bytes(10, 3, 8) == (3 * 11 + 10 + 33 + 3) * 8
+
+
 def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="no kernel"):
         pq_ops.panel_qr(torch.zeros(4, 4, device="meta"))
+    z = torch.zeros(4, 2, device="meta")
+    v = torch.zeros(4, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        ht_ops.segmented_tail(z, z, v.bool(), v, v)
