@@ -12,7 +12,11 @@ result line):
   1. card     — the card's name and power limit (nvidia-smi), torch and CUDA
                 versions; TF32 off for matmuls and cuDNN.
   2. build    — builds every CUDA kernel from ``src/repro_torch/csrc`` (one
-                nvcc per source, all started together) and prints the time.
+                nvcc per source, all started together) and prints the time,
+                each kernel's registers and spills (ptxas), and the tensor-core
+                (HGMMA) and TMA (UTMALDG) instructions in the SASS of the
+                bfloat16 flash kernel (cuobjdump; it must hold HGMMA; without
+                cuobjdump that is logged and not checked).
   3. kernels  — each kernel against its plain PyTorch version on the card:
                 node_fused on random segments that straddle its tiles, with
                 dead rows; panel_qr's device-memory variant on random
@@ -24,8 +28,10 @@ result line):
                 version and, for panel_qr, beside ``torch.geqrf`` on the same
                 panels. panel_qr is held to its plain version on RᵀR and, for
                 V and beta, to the factorization they define (see
-                `reflector_error`). flash_attention at hd 64 and 256, with a
-                window and without causality, against its plain version.
+                `reflector_error`). flash_attention at hd 32, 64 and 256,
+                with a window, without causality, on two packed sequences
+                whose positions restart mid-tile, and in float32 and float64,
+                against its plain version.
   4. main     — ``yelp_like(scale=4_000_000, cols=16)``: Review 8 M rows,
                 N = 35 columns, R₀ ≈ 2.4·10⁷ rows at bucketed capacity. The
                 plan is built on the host (timed), then
@@ -42,7 +48,8 @@ result line):
                 share of the call.
   5. wide     — a float64 ``qr`` over a star of three wide relations
                 (N = 512 columns, a few thousand rows) through
-                ``Session(use_kernel=True)``: its TSQR combine panels
+                ``Session(use_kernel=True)``, timed as the median of 3 after
+                one warm-up and profiled once: its TSQR combine panels
                 [B, ≥ 878, 32] exceed one block's shared memory and go to
                 panel_qr's device-memory variant (counted apart as
                 ``panel_qr_gmem``). R against ``use_kernel=False`` at 1e-9
@@ -60,10 +67,15 @@ result line):
                 ``use_flash_kernel=True``: one warm-up, then the median of 3
                 (tokens/s, loss, peak memory). Every flash_attention call of
                 one forward, captured, against the plain version (chunked
-                over KV heads) and ``scaled_dot_product_attention``; the
+                over KV heads) and ``scaled_dot_product_attention``, with the
+                kernel's TFLOP/s, share of its bound and ratio to SDPA; the
                 logits of one forward against ``use_flash_kernel=False``
                 (the ported ``_attend``) at 2e-2 of max |logits|; the device
-                time by kernel of one eval step.
+                time by kernel of one eval step. Then the float32 eval path,
+                which takes the scalar flash kernel: the same model cut to
+                two blocks, ``compute_dtype="float32"``, one eval step with
+                the counters zeroed, its flash calls against the plain
+                version.
   8. summary  — one ``{"kernels": [...]}`` line, then, last, the
                 ``{"ok": true, "device": {...}}`` line.
 
@@ -125,9 +137,15 @@ KERNELS = {
                       "src/repro/kernels/panel_qr/kernel.py:71"),
     "segmented_tail": ("src/repro_torch/csrc/head_tail.cu",
                        "src/repro/kernels/head_tail/kernel.py:68"),
-    "flash_attention": ("src/repro_torch/csrc/flash_attn.cu",
-                        "src/repro/kernels/flash_attn/kernel.py:84"),
+    "flash_attention_sm90": ("src/repro_torch/csrc/flash_attn_sm90.cu",
+                             "src/repro/kernels/flash_attn/kernel.py:84"),
+    "flash_attention_scalar": ("src/repro_torch/csrc/flash_attn.cu",
+                               "src/repro/kernels/flash_attn/kernel.py:84"),
 }
+# The dtypes each flash source serves (kernels/flash_attn/kernel.py:variant).
+FLASH_DTYPES = {"flash_attention_sm90": ["bfloat16"],
+                "flash_attention_scalar": ["float32", "float64"]}
+LM32_BLOCKS = 2  # depth of the float32 eval path (the scalar flash kernel)
 WIDE_COLS = (170, 171, 171)  # data columns of the wide star: N = 512
 LM_BATCH, LM_SEQ = 2, 4096  # SHAPES["train_4k"]'s sequence, batch cut to 2
 
@@ -202,16 +220,49 @@ def phase_card():
 
 # -- phase 2 ------------------------------------------------------------------
 
-def phase_build():
+def phase_build() -> dict:
+    """Build every source; log ptxas's registers and spills per kernel and
+    check the bfloat16 flash kernel's SASS for tensor-core instructions.
+    Returns {"spill_bytes": {kernel: bytes}, "hgmma": count or None}."""
+    import os
+    import re
+    import shutil
+
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
     _build.build_all()
     log(f"build: {time.perf_counter() - t0:.2f} s for {list(_build.SOURCES)}")
+    spills = {}
     for name, out in _build.BUILD_LOG.items():
+        entry = name
         for line in out.splitlines():
+            if "Compiling entry function" in line:
+                m = re.search(r"flash_fwd_sm90ILi(\d+)E", line)
+                entry = (f"flash_fwd_sm90<hd {m[1]}>" if m
+                         else line.split("'")[1][:60])
             if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+                log(f"  {name} {entry}: {line.strip()}")
+            sm = re.search(r"(\d+) bytes spill stores", line)
+            if sm:
+                spills[entry] = spills.get(entry, 0) + int(sm[1])
+    hgmma = None
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    lib = _build.library_path("flash_attn_sm90")
+    if os.path.exists(cuobjdump):
+        sass = subprocess.run([cuobjdump, "-sass", str(lib)],
+                              capture_output=True, text=True, timeout=300)
+        check(sass.returncode == 0, f"cuobjdump -sass: {sass.stderr[-500:]}")
+        hgmma = sass.stdout.count("HGMMA")
+        log(f"  flash_attn_sm90 SASS: {hgmma} HGMMA, "
+            f"{sass.stdout.count('UTMALDG')} UTMALDG, "
+            f"{sass.stdout.count('SYNCS')} SYNCS (mbarrier) instructions")
+        check(hgmma > 0, "flash_attn_sm90 runs on the tensor cores (HGMMA)")
+    else:
+        log(f"  cuobjdump not found ({cuobjdump}): the SASS of "
+            "flash_attn_sm90 is not checked for HGMMA in this run")
+    return {"spill_bytes": spills, "hgmma": hgmma}
 
 
 # -- phase 3 ------------------------------------------------------------------
@@ -589,31 +640,37 @@ def flash_plain(q, k, v, q_pos, k_pos, causal=True, window=None):
 
 
 def check_flash_cases() -> float:
-    """flash_attention at hd 64 and 256, with a window, without causality
-    and in float32 and float64, against its plain version on random
-    inputs; the worst `flash_compare` ratio (≤ 1 passes)."""
+    """flash_attention at hd 32, 64 and 256, with a window, without
+    causality, on two packed sequences (positions restarting at 0 inside a
+    128-key tile) and in float32 and float64, against its plain version on
+    random inputs; the worst `flash_compare` ratio (≤ 1 passes)."""
     import torch
     from repro_torch.kernels.flash_attn import kernel as fk
 
     worst = 0.0
-    for (b, t, hq, hkv, hd, causal, window, dt) in (
-            (1, 2048, 8, 2, 64, True, None, torch.bfloat16),
-            (1, 1024, 4, 4, 256, True, None, torch.bfloat16),
-            (2, 2048, 8, 2, 128, True, 512, torch.bfloat16),
-            (1, 1000, 8, 8, 128, False, None, torch.float32),
-            (1, 300, 4, 2, 128, True, 100, torch.float64)):
+    for (b, t, hq, hkv, hd, causal, window, dt, packed) in (
+            (1, 2048, 8, 2, 64, True, None, torch.bfloat16, False),
+            (1, 1024, 4, 4, 256, True, None, torch.bfloat16, False),
+            (2, 2048, 8, 2, 128, True, 512, torch.bfloat16, False),
+            (1, 1000, 8, 8, 128, False, None, torch.float32, False),
+            (1, 300, 4, 2, 128, True, 100, torch.float64, False),
+            (2, 1500, 8, 2, 32, True, None, torch.bfloat16, False),
+            (1, 2000, 8, 2, 128, True, 700, torch.bfloat16, True)):
         g = torch.Generator(device="cuda").manual_seed(t + hd)
         q = torch.randn(b, t, hq, hd, generator=g, device="cuda").to(dt)
         k = torch.randn(b, t, hkv, hd, generator=g, device="cuda").to(dt)
         v = torch.randn(b, t, hkv, hd, generator=g, device="cuda").to(dt)
         pos = torch.arange(t, device="cuda", dtype=torch.int32)
+        if packed:  # sequences of 1,234 and 766 tokens in one row
+            pos[1234:] -= 1234
         name = str(dt).split(".")[1]
         res = measure([((q, k, v, pos, pos),
                         {"causal": causal, "window": window})],
                       fk.flash_attention, flash_plain, flash_cost,
                       flash_compare, name, reps=3)
-        report(f"flash_attention {name} [B={b}, T={t}, Hq={hq}, Hkv={hkv}, "
-               f"hd={hd}] causal={causal} window={window}", res,
+        report(f"flash_attention ({fk.variant(dt)}) {name} [B={b}, T={t}, "
+               f"Hq={hq}, Hkv={hkv}, hd={hd}] causal={causal} "
+               f"window={window}{' packed' if packed else ''}", res,
                {"bound_ratio": 1.0})
         worst = max(worst, res["bound_ratio"])
     return worst
@@ -655,16 +712,14 @@ def phase_wide() -> dict:
     check(n >= 512, "the wide tree has N >= 512 columns")
     sess = figaro.Session(use_kernel=True, assembly="band", device="cuda")
     plain = figaro.Session(use_kernel=False, device="cuda")
-    sess.qr(plan, dtype=torch.float64)  # warm-up: plan to the card
-    torch.cuda.synchronize()
     _platform.reset_launch_counts()
-    t0 = time.perf_counter()
-    r_k = sess.qr(plan, dtype=torch.float64)
-    torch.cuda.synchronize()
-    t_qr = time.perf_counter() - t0
+    r_k, t_qr, ts, warm = wall(lambda: sess.qr(plan, dtype=torch.float64),
+                               REPS)
     launches = _platform.launch_counts()
     log(f"wide tree: N = {n}, exact R0 rows {plan.spec.r0_rows}; float64 qr "
-        f"(kernel path) {t_qr * 1e3:.1f} ms; launches {launches}")
+        f"(kernel path) median {t_qr * 1e3:.1f} ms of "
+        f"{[round(x * 1e3, 1) for x in ts]} ms (warm-up {warm * 1e3:.1f} ms, "
+        f"plan to the card); launches {launches} over {REPS + 1} calls")
     for kname in ("panel_qr", "panel_qr_gmem"):
         check(launches.get(kname, 0) > 0, f"{kname} launched on the wide path")
     r_p = plain.qr(plan, dtype=torch.float64)
@@ -674,6 +729,7 @@ def phase_wide() -> dict:
     check(r_k.shape == (n, n) and bool(torch.isfinite(r_k).all()),
           "wide qr shape/finite")
     check(err_rel <= 1e-9, "wide kernel-path R matches the unfused path")
+    profile_once("wide qr float64", lambda: sess.qr(plan, dtype=torch.float64))
     with Capture() as cap:
         sess.qr(plan, dtype=torch.float64)
         torch.cuda.synchronize()
@@ -812,8 +868,9 @@ def phase_lm(seed: int) -> dict:
         f"{float(metrics['ce']):.4f}, zloss {float(metrics['zloss']):.3e}, "
         f"tokens {float(metrics['tokens']):.0f}); peak device memory "
         f"{peak:.2f} GiB; launches {launches} over {REPS + 1} steps")
-    check(launches.get("flash_attention", 0) == (REPS + 1) * cfg.n_blocks,
-          "flash_attention launched once per layer on the LM path")
+    check(launches.get("flash_attention_sm90", 0) == (REPS + 1) * cfg.n_blocks
+          and launches.get("flash_attention_scalar", 0) == 0,
+          "the bfloat16 flash kernel launched once per layer on the LM path")
     check(math.isfinite(loss), "LM loss finite")
 
     with torch.inference_mode():
@@ -848,6 +905,15 @@ def phase_lm(seed: int) -> dict:
            library="scaled_dot_product_attention")
     log(f"flash_attention bound: {flash['flops']:.3e} flops at 989 TFLOP/s, "
         f"{flash['bytes']:.3e} bytes at 3.35 TB/s")
+    flash["tflops"] = flash["flops"] / flash["ms"] / 1e9
+    flash["bound_share"] = flash["bound_ms"] / flash["ms"]
+    flash["vs_library"] = flash["ms"] / flash["library_ms"]
+    log(f"flash_attention_sm90 over one forward: {flash['ms']:.3f} ms, "
+        f"{flash['tflops']:.1f} TFLOP/s (4·hd flops per visible pair), "
+        f"{100 * flash['bound_share']:.1f}% of the bound, "
+        f"{flash['vs_library']:.3f}x scaled_dot_product_attention "
+        f"({flash['library_ms']:.3f} ms); eval step {tok_s:.0f} tokens/s, "
+        f"peak device memory {peak:.2f} GiB")
     with torch.inference_mode():
         profile_once("qwen3-8b eval step (flash kernel)",
                      lambda: eval_fn(model, batch))
@@ -859,7 +925,61 @@ def phase_lm(seed: int) -> dict:
             "tokens_per_s": tok_s, "loss": loss, "peak_gib": peak,
             "logits_rel_err": err / scale, "flash": flash,
             "launches_per_forward":
-                launches.get("flash_attention", 0) // (REPS + 1)}
+                launches.get("flash_attention_sm90", 0) // (REPS + 1)}
+
+
+def phase_lm32(seed: int) -> dict:
+    """The float32 eval path, which takes the scalar flash kernel: qwen3-8b
+    at full width cut to `LM32_BLOCKS` blocks, ``compute_dtype="float32"``,
+    one eval step on 2 × 4096 tokens with the counters zeroed around it;
+    then its flash calls, captured, against the plain version and SDPA."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _platform
+    from repro_torch.kernels.flash_attn import kernel as fk, ops as fa_ops
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.train import make_eval_step
+
+    cfg = dataclasses.replace(get_config("qwen3-8b"), use_flash_kernel=True,
+                              compute_dtype="float32", n_blocks=LM32_BLOCKS)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = Transformer(cfg, device="cuda").init(gen)
+    tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_SEQ), generator=gen,
+                           device="cuda")
+    eval_fn = make_eval_step(cfg)
+    _platform.reset_launch_counts()
+    with Capture([(fa_ops, "flash_attention")]) as cap:
+        t0 = time.perf_counter()
+        metrics = eval_fn(model, {"tokens": tokens})
+        torch.cuda.synchronize()
+        t_step = time.perf_counter() - t0
+    launches = _platform.launch_counts()
+    loss = float(metrics["loss"])
+    log(f"float32 eval step, {cfg.n_blocks} blocks of qwen3-8b, "
+        f"{LM_BATCH} x {LM_SEQ} tokens: {t_step * 1e3:.1f} ms (first call), "
+        f"loss {loss:.4f}; launches {launches}")
+    check(launches.get("flash_attention_scalar", 0) == cfg.n_blocks
+          and launches.get("flash_attention_sm90", 0) == 0,
+          "the scalar flash kernel launched once per layer on the float32 "
+          "path")
+    check(math.isfinite(loss), "float32 LM loss finite")
+    del model, metrics
+    torch.cuda.empty_cache()
+    calls = cap.calls["flash_attention"]
+    del cap
+    with torch.inference_mode():
+        flash = measure(calls, fk.flash_attention, flash_plain, flash_cost,
+                        flash_compare, "float32", library=sdpa, reps=3)
+    del calls
+    torch.cuda.empty_cache()
+    report(f"flash_attention_scalar float32 over one {cfg.n_blocks}-block "
+           f"forward of [{LM_BATCH}, {LM_SEQ}, {cfg.n_heads}, "
+           f"{cfg.resolved_head_dim}]", flash, {"bound_ratio": 1.0},
+           library="scaled_dot_product_attention")
+    return {"launches": launches, "flash": flash, "step_ms": t_step * 1e3,
+            "loss": loss}
 
 
 def main(argv=None) -> int:
@@ -887,7 +1007,7 @@ def main(argv=None) -> int:
     log("== phase 1: card")
     phase_card()
     log("== phase 2: build")
-    phase_build()
+    build = phase_build()
 
     log("== phase 3: kernels against their plain versions")
     check_random_segments()
@@ -1007,6 +1127,9 @@ def main(argv=None) -> int:
     log("== phase 7: qwen3-8b eval forward")
     lm = phase_lm(args.seed)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    log("== phase 7b: float32 eval forward (scalar flash kernel)")
+    lm32 = phase_lm32(args.seed)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
     log("== phase 8: summary")
     measured = {
@@ -1017,7 +1140,10 @@ def main(argv=None) -> int:
         "panel_qr_gmem": (wide["launches"], wide["gmem"], None, "float64"),
         "segmented_tail": (tails["launches"], tails["float32"],
                            tails["float64"], "float32"),
-        "flash_attention": (lm["launches"], lm["flash"], None, "bfloat16"),
+        "flash_attention_sm90": (lm["launches"], lm["flash"], None,
+                                 "bfloat16"),
+        "flash_attention_scalar": (lm32["launches"], lm32["flash"], None,
+                                   "float32"),
     }
     kernels = []
     for kname, (source, replaces) in KERNELS.items():
@@ -1034,8 +1160,12 @@ def main(argv=None) -> int:
                                            "bound_ratio") if k in main})
         if kname in ("node_fused", "panel_qr"):
             entry["launches_per_qr"] = per_qr.get(kname, 0)
-        if kname == "flash_attention":
+        if kname in FLASH_DTYPES:
+            entry["dtypes"] = FLASH_DTYPES[kname]
+        if kname == "flash_attention_sm90":
             entry["launches_per_forward"] = lm["launches_per_forward"]
+            entry.update({k: lm["flash"][k] for k in (
+                "tflops", "bound_share", "vs_library")})
         if f64 is not None:
             entry["float64"] = {k: f64[k] for k in (
                 "max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms",
@@ -1056,6 +1186,10 @@ def main(argv=None) -> int:
                     "wide_r_rel_err_vs_unfused": wide["r_rel_err"],
                     "wide_panel_rel_err": wide_panel_err,
                     "flash_cases_bound_ratio": flash_case_err,
+                    "lm32_eval_step_ms": lm32["step_ms"],
+                    "lm32_loss": lm32["loss"],
+                    "build_spill_bytes": build["spill_bytes"],
+                    "flash_sm90_hgmma": build["hgmma"],
                     "small_gram_rel_err": gram_rel,
                     "elapsed_s": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": kernels}))

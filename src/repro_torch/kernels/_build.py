@@ -23,11 +23,12 @@ import shutil
 import subprocess
 import threading
 
-__all__ = ["SOURCES", "build_dir", "library", "build_all"]
+__all__ = ["SOURCES", "build_dir", "library", "library_path", "build_all"]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
-SOURCES = ("node_fused", "panel_qr", "head_tail", "flash_attn")
+SOURCES = ("node_fused", "panel_qr", "head_tail", "flash_attn",
+           "flash_attn_sm90")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -72,6 +73,11 @@ def _target(name: str) -> tuple[pathlib.Path, pathlib.Path]:
     for path in _sources_of(src):
         h.update(path.name.encode() + b"\0" + path.read_bytes())
     return src, build_dir() / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def library_path(name: str) -> pathlib.Path:
+    """Where the library of one source is (or will be) built."""
+    return _target(name)[1]
 
 
 def _start(name: str):

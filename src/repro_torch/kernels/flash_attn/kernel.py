@@ -1,11 +1,17 @@
-"""Fused attention forward as a hand-written CUDA kernel
-(``csrc/flash_attn.cu``): one block per (batch, query head, 64 query rows),
-online softmax over KV tiles in shared memory, GQA folded by indexing.
+"""Fused attention forward as hand-written CUDA kernels, chosen by dtype:
+
+- bfloat16: ``csrc/flash_attn_sm90.cu``, for Hopper's tensor cores — one
+  block per (batch, query head, 128 query rows), two consumer warpgroups
+  running wgmma on Q·Kᵀ and P·V, one producer warp feeding K and V tiles by
+  TMA through a two-stage ring;
+- float32 and float64: ``csrc/flash_attn.cu``, scalar FMAs from shared memory
+  (tensor cores would mean TF32 or DMMA there).
 
 `flash_attention` checks its inputs, allocates the output with
 ``torch.empty`` and launches on the current stream through the ctypes
 binding. It takes CUDA tensors only; the wrapper in ``ops.py`` decides
-between it and the plain version.
+between it and the plain version. A kernel that does not build or launch
+raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -16,24 +22,56 @@ import torch
 
 from repro_torch.kernels import _build, _platform
 
-NAME = "flash_attention"
+NAME = "flash_attention"  # counted for every launch, of either kernel
+SM90_NAME = "flash_attention_sm90"
+SCALAR_NAME = "flash_attention_scalar"
 SOURCE = "flash_attn"
-DTYPES = {torch.bfloat16: 0, torch.float32: 1, torch.float64: 2}
+SM90_SOURCE = "flash_attn_sm90"
+SCALAR_DTYPES = {torch.float32: 1, torch.float64: 2}  # fa_launch's codes
+DTYPES = (torch.bfloat16, *SCALAR_DTYPES)
 HEAD_DIMS = (32, 64, 128, 256)
+# flash_attn_sm90.cu's tiles per head dim: (query rows BQ, keys per tile BK),
+# and its ring of K/V stages.
+SM90_TILES = {32: (128, 128), 64: (128, 128), 128: (128, 128), 256: (128, 64)}
+SM90_STAGES = 2
+SMEM_LIMIT = 232_448  # shared memory one block may take on the H100
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
 _C = ctypes.c_int
 
 
-def _lib():
-    lib = _build.library(SOURCE)
+def _lib(source: str):
+    lib = _build.library(source)
     if not getattr(lib, "_repro_bound", False):
-        lib.fa_launch.argtypes = ([_C] + [_P] * 6 + [_I] * 6 + [_C, _C, _I]
-                                  + [_P])
-        lib.fa_launch.restype = _C
+        if source == SM90_SOURCE:
+            lib.fa_sm90_launch.argtypes = ([_P] * 6 + [_I] * 6 + [_C, _C, _I]
+                                           + [_P])
+            lib.fa_sm90_launch.restype = _C
+            lib.fa_sm90_smem_bytes.argtypes = [_I]
+            lib.fa_sm90_smem_bytes.restype = _C
+        else:
+            lib.fa_launch.argtypes = ([_C] + [_P] * 6 + [_I] * 6 + [_C, _C, _I]
+                                      + [_P])
+            lib.fa_launch.restype = _C
         lib._repro_bound = True
     return lib
+
+
+def variant(dtype: torch.dtype) -> str:
+    """``"sm90"`` (the tensor-core kernel) for bfloat16, ``"scalar"`` for
+    float32 and float64."""
+    if dtype not in DTYPES:
+        raise TypeError(f"flash_attention takes {list(DTYPES)}, got {dtype}")
+    return "sm90" if dtype == torch.bfloat16 else "scalar"
+
+
+def sm90_smem_bytes(hd: int) -> int:
+    """Shared memory one block of the sm90 kernel takes at head dim ``hd``:
+    1 KiB of alignment slack, the Q tile, two K and V tiles per stage and
+    64 bytes of barriers — ``Tile<HD>::kSmem`` of the source."""
+    bq, bk = SM90_TILES[hd]
+    return 1024 + bq * hd * 2 + SM90_STAGES * 2 * bk * hd * 2 + 64
 
 
 def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
@@ -42,8 +80,7 @@ def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
     Hq % Hkv == 0; q_pos [Tq] and k_pos [Tk] integer positions (−1 = padded
     key). Returns [B, Tq, Hq, hd] in q's dtype (bfloat16, float32 or
     float64; hd in `HEAD_DIMS`)."""
-    if q.dtype not in DTYPES:
-        raise TypeError(f"flash_attention takes {list(DTYPES)}, got {q.dtype}")
+    kind = variant(q.dtype)
     if q.device.type != "cuda" or q.ndim != 4 or k.ndim != 4:
         raise ValueError("flash_attention takes CUDA tensors q [B, Tq, Hq, hd] "
                          "and k, v [B, Tk, Hkv, hd]")
@@ -64,20 +101,34 @@ def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
     for t in (k, v, q_pos, k_pos):
         if t.device != q.device:
             raise ValueError(f"inputs span {q.device} and {t.device}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # TMA reads from 16-byte aligned addresses: a view at an odd offset is
+    # copied.
+    q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone()
+               for x in (q.contiguous(), k.contiguous(), v.contiguous()))
     q_pos = q_pos.to(torch.int32).contiguous()
     k_pos = k_pos.to(torch.int32).contiguous()
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
-    lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.fa_launch(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
-                        v.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(),
-                        out.data_ptr(), b, tq, tk, hq, hkv, hd, int(causal),
-                        int(window is not None),
-                        0 if window is None else int(window), stream)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
+            k_pos.data_ptr(), out.data_ptr(), b, tq, tk, hq, hkv, hd,
+            int(causal), int(window is not None),
+            0 if window is None else int(window), stream)
+    if kind == "sm90":
+        err = _lib(SM90_SOURCE).fa_sm90_launch(*args)
+    else:
+        err = _lib(SOURCE).fa_launch(SCALAR_DTYPES[q.dtype], *args)
     if err != 0:
-        raise RuntimeError(f"flash_attention launch failed with CUDA error {err}")
+        raise RuntimeError(f"flash_attention ({kind}) launch failed with "
+                           f"error {err} (a CUDA error code, or 10000 + a "
+                           "CUresult when a TMA tensor map was refused)")
     _platform.count_launch(NAME)
+    _platform.count_launch(SM90_NAME if kind == "sm90" else SCALAR_NAME)
     return out
+
+
+def smem_bytes_of_build(hd: int) -> int:
+    """The sm90 kernel's shared memory at ``hd`` as the built source states
+    it (loads the library; the card only)."""
+    return int(_lib(SM90_SOURCE).fa_sm90_smem_bytes(hd))

@@ -158,9 +158,34 @@ def test_segmented_head_tail_kernel_path_launches_and_matches():
         assert _rel(x, y) <= 1e-9
 
 
+BF16_TOL = (2.0 ** -7, 1e-3, 0.0)
+
+
+def _flash_run(q, k, v, qpos, kpos, causal=True, window=None):
+    """The kernel (asserting through the launch counts which one ran) and
+    the plain version on the same inputs."""
+    _platform.reset_launch_counts()
+    got = fk.flash_attention(q, k, v, qpos, kpos, causal=causal,
+                             window=window)
+    kind = fk.SM90_NAME if q.dtype == torch.bfloat16 else fk.SCALAR_NAME
+    assert _platform.launch_counts() == {fk.NAME: 1, kind: 1}
+    want = fr.flash_attention_ref(q, k, v, qpos, kpos, causal=causal,
+                                  window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and got.shape == q.shape
+    return got, want
+
+
+def _qkv(b, tq, tk, hq, hkv, hd, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randn(b, tq, hq, hd, generator=g, device="cuda").to(dtype),
+            torch.randn(b, tk, hkv, hd, generator=g, device="cuda").to(dtype),
+            torch.randn(b, tk, hkv, hd, generator=g, device="cuda").to(dtype))
+
+
 @pytest.mark.parametrize("dtype,tol", [
     (torch.float32, (0.0, 0.0, 2e-5)),
-    (torch.bfloat16, (2.0 ** -7, 1e-3, 0.0)),
+    (torch.bfloat16, BF16_TOL),
     (torch.float64, (0.0, 0.0, 1e-12)),
 ])
 @pytest.mark.parametrize("b,tq,tk,hq,hkv,hd,causal,window", [
@@ -170,38 +195,66 @@ def test_segmented_head_tail_kernel_path_launches_and_matches():
     (2, 128, 384, 8, 2, 128, True, 96),     # GQA + sliding window
     (1, 64, 64, 2, 1, 256, False, None),    # non-causal
     (1, 70, 70, 4, 2, 32, True, None),
+    (1, 77, 203, 4, 2, 64, True, None),     # Tq, Tk no multiple of any tile
+    (2, 130, 261, 4, 1, 256, True, 100),    # hd 256 (64-key tiles), window
+    (1, 333, 333, 2, 2, 32, False, 50),     # hd 32 (64-byte swizzle)
+    (1, 1, 129, 4, 2, 128, True, None),     # one query row
 ])
 def test_flash_attention_kernel_matches_plain(dtype, tol, b, tq, tk, hq, hkv,
                                               hd, causal, window):
     _need_card()
-    g = torch.Generator(device="cuda").manual_seed(tq * hd)
-    q = torch.randn(b, tq, hq, hd, generator=g, device="cuda").to(dtype)
-    k = torch.randn(b, tk, hkv, hd, generator=g, device="cuda").to(dtype)
-    v = torch.randn(b, tk, hkv, hd, generator=g, device="cuda").to(dtype)
+    q, k, v = _qkv(b, tq, tk, hq, hkv, hd, dtype, tq * hd)
     qpos = torch.arange(tk - tq, tk, device="cuda", dtype=torch.int32)
     kpos = torch.arange(tk, device="cuda", dtype=torch.int32)
-    got = fk.flash_attention(q, k, v, qpos, kpos, causal=causal,
-                             window=window)
-    want = fr.flash_attention_ref(q, k, v, qpos, kpos, causal=causal,
-                                  window=window)
-    torch.cuda.synchronize()
-    assert got.dtype == dtype
+    got, want = _flash_run(q, k, v, qpos, kpos, causal, window)
     assert _flash_excess(got, want, tol) <= 1.0
 
 
-def test_flash_attention_kernel_fully_masked_row_is_zero():
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 40),
+                                           (False, 40)])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attention_bf16_packed_sequences(causal, window, hd):
+    """Two sequences packed in one row of 300 tokens: the positions restart
+    at 0 in the middle of a 128-key tile, so tile skipping and the
+    fully-visible test must go by position extremes, not by row index."""
     _need_card()
-    g = torch.Generator(device="cuda").manual_seed(5)
-    q, k, v = (torch.randn(1, 70, 2, 64, generator=g, device="cuda")
-               for _ in range(3))
+    q, k, v = _qkv(1, 300, 300, 4, 2, hd, torch.bfloat16, hd + 7)
+    pos = torch.cat([torch.arange(170), torch.arange(130)]).to(
+        device="cuda", dtype=torch.int32)
+    got, want = _flash_run(q, k, v, pos, pos, causal, window)
+    assert _flash_excess(got, want, BF16_TOL) <= 1.0
+
+
+@pytest.mark.parametrize("hd", [32, 128, 256])
+def test_flash_attention_bf16_padded_key_block(hd):
+    """A block of padded keys (k_pos = −1) in the middle of the keys, across
+    a tile boundary."""
+    _need_card()
+    q, k, v = _qkv(2, 200, 400, 4, 2, hd, torch.bfloat16, hd)
+    qpos = torch.arange(200, 400, device="cuda", dtype=torch.int32)
+    kpos = torch.arange(400, device="cuda", dtype=torch.int32)
+    kpos[100:260] = -1
+    got, want = _flash_run(q, k, v, qpos, kpos)
+    assert _flash_excess(got, want, BF16_TOL) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_fully_masked_row_is_zero(dtype):
+    _need_card()
+    q, k, v = _qkv(1, 70, 70, 2, 2, 64, dtype, 5)
     qpos = torch.arange(70, device="cuda", dtype=torch.int32)
     kpos = qpos.clone()
     kpos[:10] = -1  # query rows 0..9 see no key
-    got = fk.flash_attention(q, k, v, qpos, kpos)
-    want = fr.flash_attention_ref(q, k, v, qpos, kpos)
-    torch.cuda.synchronize()
+    got, want = _flash_run(q, k, v, qpos, kpos)
     assert bool((got[:, :10] == 0).all())
-    assert float((got - want).abs().max()) < 2e-5
+    tol = BF16_TOL if dtype == torch.bfloat16 else (0.0, 0.0, 2e-5)
+    assert _flash_excess(got, want, tol) <= 1.0
+
+
+@pytest.mark.parametrize("hd", fk.HEAD_DIMS)
+def test_flash_sm90_shared_memory_mirror_matches_the_build(hd):
+    _need_card()
+    assert fk.smem_bytes_of_build(hd) == fk.sm90_smem_bytes(hd)
 
 
 def test_session_kernel_path_launches_and_matches_plain_path():

@@ -1,9 +1,17 @@
 """The port's flash attention (its plain version, on the CPU) against the JAX
-package's Pallas kernel in interpret mode and its ``ref.py``.
+package's Pallas kernel in interpret mode and its ``ref.py``; and, without a
+card, what can be checked of the CUDA kernels: which one each dtype takes,
+the bfloat16 kernel's shared memory per head dim, and an emulation of its
+arithmetic.
 
 Tolerances are those of the JAX package's own kernel-vs-oracle test
 (tests/test_flash_kernel.py): 2e-5 absolute in float32, 2e-2 in bfloat16.
+The emulation is held to the bound the card's checks use for bfloat16: one
+bfloat16 step, |got − want| ≤ 2⁻⁷·|want| + 1e-3·rms(want).
 """
+
+import pathlib
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -138,3 +146,92 @@ def test_flash_kernel_wrapper_refuses_what_it_cannot_run():
     with pytest.raises(ValueError, match="no kernel"):
         fa_ops.flash_attention(q.to("meta"), q.to("meta"), q.to("meta"),
                                pos.to("meta"), pos.to("meta"))
+
+
+def test_flash_kernel_choice_follows_the_dtype():
+    """bfloat16 goes to the tensor-core kernel, float32 and float64 to the
+    scalar one; other dtypes are refused."""
+    assert fa_kernel.variant(torch.bfloat16) == "sm90"
+    assert fa_kernel.variant(torch.float32) == "scalar"
+    assert fa_kernel.variant(torch.float64) == "scalar"
+    with pytest.raises(TypeError):
+        fa_kernel.variant(torch.float16)
+
+
+_SM90_SOURCE = (pathlib.Path(fa_kernel.__file__).resolve().parents[2] / "csrc"
+                / "flash_attn_sm90.cu")
+
+
+@pytest.mark.parametrize("hd", fa_kernel.HEAD_DIMS)
+def test_flash_sm90_shared_memory_fits_and_matches_the_source(hd):
+    """The Python mirror of the bfloat16 kernel's shared memory fits one
+    block and agrees with the tile table of the source's note."""
+    nbytes = fa_kernel.sm90_smem_bytes(hd)
+    assert nbytes <= fa_kernel.SMEM_LIMIT
+    bq, bk = fa_kernel.SM90_TILES[hd]
+    row = re.search(rf"^//\s+{hd}\s+(\d+)\s+(\d+)\s+\d+ B\s+([\d,]+)",
+                    _SM90_SOURCE.read_text(), re.MULTILINE)
+    assert row is not None, f"no row for hd {hd} in the source's tile table"
+    assert (int(row[1]), int(row[2])) == (bq, bk)
+    assert int(row[3].replace(",", "")) == nbytes
+
+
+def _emulate_sm90(q, k, v, qpos, kpos, split: bool, bk: int = 128):
+    """The bfloat16 kernel's arithmetic on the CPU, one KV tile of ``bk`` keys
+    at a time: bfloat16 operands, float32 scores and sums, the online
+    softmax in base 2, and P·V with P either split into bfloat16 hi and lo
+    parts (two products into one float32 sum, as the kernel does) or rounded
+    once to bfloat16. Causal masks only."""
+    b, tq, hq, hd = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    c = hd ** -0.5 * 1.4426950408889634
+    out = torch.zeros(b, tq, hq, hd)
+    for h in range(hq):
+        hk = h // (hq // hkv)
+        m = torch.full((b, tq, 1), -float("inf"))
+        l = torch.zeros(b, tq, 1)
+        acc = torch.zeros(b, tq, hd)
+        for k0 in range(0, tk, bk):
+            kt, vt = kf[:, k0:k0 + bk, hk], vf[:, k0:k0 + bk, hk]
+            s = qf[:, :, h] @ kt.transpose(1, 2)
+            kp = kpos[k0:k0 + bk][None, None, :]
+            ok = (kp >= 0) & (kp <= qpos[None, :, None])
+            s = s.masked_fill(~ok, -float("inf"))
+            mx = torch.maximum(m, s.amax(-1, keepdim=True))
+            base = torch.where(torch.isinf(mx), torch.zeros_like(mx), mx * c)
+            corr = torch.exp2(m * c - base)
+            p = torch.exp2(s * c - base)
+            l = l * corr + p.sum(-1, keepdim=True)
+            hi = p.bfloat16().float()
+            pv = hi @ vt
+            if split:
+                pv = pv + (p - hi).bfloat16().float() @ vt
+            acc = acc * corr + pv
+            m = mx
+        out[:, :, h] = acc / l.clamp_min(1e-30)
+    return out.bfloat16()
+
+
+def _bf16_step_ratio(got, want):
+    """Largest |got − want| over 2⁻⁷·|want| + 1e-3·rms(want) (≤ 1 passes)."""
+    want = want.double()
+    rms = float(want.square().mean().sqrt())
+    diff = (got.double() - want).abs()
+    return float((diff / (2.0 ** -7 * want.abs() + 1e-3 * rms)).max())
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_flash_sm90_p_split_keeps_one_bf16_step(seed):
+    """Why the kernel splits P: with P = hi + lo the emulated kernel stays
+    within one bfloat16 step of the plain version; with P rounded once to
+    bfloat16 the short rows at the top of the causal triangle exceed it."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, 256, 4, 64))
+                                .astype(np.float32)).bfloat16()
+               for _ in range(3))
+    k, v = k[:, :, :2].contiguous(), v[:, :, :2].contiguous()  # GQA 4 / 2
+    pos = torch.arange(256, dtype=torch.int32)
+    want = fa_ref.flash_attention_ref(q, k, v, pos, pos)
+    assert _bf16_step_ratio(_emulate_sm90(q, k, v, pos, pos, True), want) <= 1
+    assert _bf16_step_ratio(_emulate_sm90(q, k, v, pos, pos, False), want) > 2

@@ -3,7 +3,7 @@
 A subprocess blocks ``jax`` and ``repro`` in ``sys.modules`` (an import of
 either then raises) and imports every module of ``repro_torch``; a text check
 finds no ``import jax`` / ``from repro`` / ``import repro`` (other than
-``repro_torch``) in the port's sources or in ``chip_smoke.py``.
+``repro_torch``) in the port's sources, in ``chip_smoke.py`` or in ``tools/``.
 """
 
 import pathlib
@@ -57,7 +57,8 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
 
 
 def test_no_jax_or_repro_imports_in_port_sources():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+             + sorted((REPO / "tools").glob("*.py")))
     assert (REPO / "chip_smoke.py").exists()
     offenders = [f"{p.relative_to(REPO)}: {m.group(0).strip()}"
                  for p in files
