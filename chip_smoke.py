@@ -13,25 +13,27 @@ result line):
                 versions; TF32 off for matmuls and cuDNN.
   2. build    — builds every CUDA kernel from ``src/repro_torch/csrc`` (one
                 nvcc per source, all started together) and prints the time,
-                each kernel's registers and spills (ptxas), and the tensor-core
-                (HGMMA) and TMA (UTMALDG) instructions in the SASS of the
-                bfloat16 flash kernel (cuobjdump; it must hold HGMMA; without
-                cuobjdump that is logged and not checked).
+                each kernel instance's registers and spills (ptxas), and the
+                tensor-core (HGMMA) and TMA (UTMALDG) instructions in the
+                SASS of the bfloat16 flash kernel (cuobjdump; it must hold
+                HGMMA; without cuobjdump that is logged and not checked).
   3. kernels  — each kernel against its plain PyTorch version on the card:
                 node_fused on random segments that straddle its tiles, with
-                dead rows; panel_qr's device-memory variant on random
-                full-rank float64 panels [4, 1024, 32] and [2, 4096, 32];
-                then every node_fused and panel_qr call of one ``qr``
-                dispatch of the configuration below, captured with its real
-                inputs (the TSQR leaf panels [B, 256, 32] cut from that
-                configuration's R₀ among them), each timed beside its plain
-                version and, for panel_qr, beside ``torch.geqrf`` on the same
-                panels. panel_qr is held to its plain version on RᵀR and, for
-                V and beta, to the factorization they define (see
-                `reflector_error`). flash_attention at hd 32, 64 and 256,
-                with a window, without causality, on two packed sequences
-                whose positions restart mid-tile, and in float32 and float64,
-                against its plain version.
+                dead rows; panel_qr's cluster variant on random full-rank
+                float64 panels [4, 1024, 32] and [2, 4096, 32] and its
+                device-memory variant on [1, 8192, 32], elementwise; then
+                every node_fused and panel_qr call of one ``qr`` dispatch of
+                the configuration below, captured with its real inputs (the
+                TSQR leaf panels [B, 256, 32], strided column blocks of the
+                leaves, among them), each timed beside its plain version
+                and, for panel_qr, beside ``torch.geqrf`` on the same panels.
+                panel_qr is held to its plain version on RᵀR, for V and beta
+                to the factorization they define (see `reflector_error`),
+                and T to `_panel_to_wy` of its own V and beta.
+                flash_attention at hd 32, 64 and 256, with a window, without
+                causality, on two packed sequences whose positions restart
+                mid-tile, and in float32 and float64, against its plain
+                version.
   4. main     — ``yelp_like(scale=4_000_000, cols=16)``: Review 8 M rows,
                 N = 35 columns, R₀ ≈ 2.4·10⁷ rows at bucketed capacity. The
                 plan is built on the host (timed), then
@@ -39,22 +41,32 @@ result line):
                 runs qr (float32) and svd, pca(k=8), least_squares (float64),
                 each timed as the median of 3 after one warm-up. The launch
                 counters are zeroed just before and read just after; every
-                kernel must have launched. R is checked against the same
+                kernel must have launched, panel_qr only as its one-block
+                variant, and one ``qr`` must not call `_panel_to_wy` (T
+                comes from the kernel). R is checked against the same
                 session with ``use_kernel=False`` on the card (float64,
                 after normalize_sign), and R₀ᵀR₀ against AᵀA of the
                 materialized join of ``yelp_like(scale=400, cols=3)``.
                 Last, torch.profiler's device time by kernel for one call
                 each of qr, svd and the unfused qr, with the device's busy
-                share of the call.
+                share of the call and its count of kernels and copies.
   5. wide     — a float64 ``qr`` over a star of three wide relations
                 (N = 512 columns, a few thousand rows) through
                 ``Session(use_kernel=True)``, timed as the median of 3 after
-                one warm-up and profiled once: its TSQR combine panels
-                [B, ≥ 878, 32] exceed one block's shared memory and go to
-                panel_qr's device-memory variant (counted apart as
-                ``panel_qr_gmem``). R against ``use_kernel=False`` at 1e-9
-                relative; the variant's captured calls against the plain
-                version and ``torch.geqrf``.
+                one warm-up and profiled once: its TSQR panels [B, 288–1024,
+                32] are taller than one block's 256 rows and go to
+                panel_qr's cluster variant (counted apart as
+                ``panel_qr_cluster``). R against ``use_kernel=False`` at
+                1e-9 relative; the variant's captured calls against the
+                plain version and ``torch.geqrf``.
+  5b. tall    — a float64 ``qr`` with ``method="blocked"`` over
+                ``yelp_like(scale=40_000, cols=16)``: its panels are the
+                whole R₀ (3.4·10⁵ rows at capacity), taller than the largest
+                cluster,
+                and go to panel_qr's device-memory variant
+                (``panel_qr_gmem``); R against ``use_kernel=False`` at 1e-9
+                relative, the captured calls against the plain version and
+                ``torch.geqrf``.
   6. tails    — ``segmented_head_tail(use_kernel=True)`` at the two largest
                 node passes of the configuration above (Review's 8.4 M × 1
                 and User's 524 k × 18 at capacity), float32 and float64,
@@ -79,9 +91,9 @@ result line):
   8. summary  — one ``{"kernels": [...]}`` line, then, last, the
                 ``{"ok": true, "device": {...}}`` line.
 
-Each of phases 4–7 drives one path of the port with the launch counters
-zeroed just before and read just after, and fails if a kernel of that path
-did not launch.
+Each of phases 4–7 (and 5b) drives one path of the port with the launch
+counters zeroed just before and read just after, and fails if a kernel of
+that path did not launch.
 
 Tolerances (float64 against the plain version or the unfused path):
 relative 1e-9 of the largest magnitude compared — the JAX package's own
@@ -131,8 +143,11 @@ REPS = 3  # timed runs after one warm-up
 KERNELS = {
     "node_fused": ("src/repro_torch/csrc/node_fused.cu",
                    "src/repro/kernels/node_fused/kernel.py:130"),
+    # panel_qr: its one-block variant (panel_qr_reg) on the main path
     "panel_qr": ("src/repro_torch/csrc/panel_qr.cu",
                  "src/repro/kernels/panel_qr/kernel.py:71"),
+    "panel_qr_cluster": ("src/repro_torch/csrc/panel_qr.cu",
+                         "src/repro/kernels/panel_qr/kernel.py:71"),
     "panel_qr_gmem": ("src/repro_torch/csrc/panel_qr.cu",
                       "src/repro/kernels/panel_qr/kernel.py:71"),
     "segmented_tail": ("src/repro_torch/csrc/head_tail.cu",
@@ -147,6 +162,7 @@ FLASH_DTYPES = {"flash_attention_sm90": ["bfloat16"],
                 "flash_attention_scalar": ["float32", "float64"]}
 LM32_BLOCKS = 2  # depth of the float32 eval path (the scalar flash kernel)
 WIDE_COLS = (170, 171, 171)  # data columns of the wide star: N = 512
+TALL_SCALE = 40_000  # yelp_like scale of the method="blocked" path
 LM_BATCH, LM_SEQ = 2, 4096  # SHAPES["train_4k"]'s sequence, batch cut to 2
 
 
@@ -239,8 +255,18 @@ def phase_build() -> dict:
         for line in out.splitlines():
             if "Compiling entry function" in line:
                 m = re.search(r"flash_fwd_sm90ILi(\d+)E", line)
-                entry = (f"flash_fwd_sm90<hd {m[1]}>" if m
-                         else line.split("'")[1][:60])
+                pq = re.search(r"(panel_qr_(?:reg|gmem)_kernel)I([fd])"
+                               r"(?:Li(\d+)ELi(\d+)ELb([01])E)?", line)
+                if m:
+                    entry = f"flash_fwd_sm90<hd {m[1]}>"
+                elif pq:
+                    typ = "float" if pq[2] == "f" else "double"
+                    entry = f"{pq[1]}<{typ}" + (
+                        f", nb {pq[3]}, {pq[4]} rows/thread"
+                        f"{', cluster' if pq[5] == '1' else ''}>" if pq[3]
+                        else ">")
+                else:
+                    entry = line.split("'")[1][:60]
             if "registers" in line or "spill" in line:
                 log(f"  {name} {entry}: {line.strip()}")
             sm = re.search(r"(\d+) bytes spill stores", line)
@@ -278,16 +304,16 @@ def node_fused_cost(data, *rows) -> tuple[int, int]:
 
 
 def panel_qr_cost(a) -> tuple[int, int]:
-    """(bytes, flops) of one panel_qr call: A read once, V and R written
-    once, beta written once; per Householder step k on an m×nb panel, the
+    """(bytes, flops) of one panel_qr_wy call: A read once, R (over A), V, T
+    and beta written once; per Householder step k on an m×nb panel, the
     norm, the reflector and v'v (~5(m−k)), w = v'A and the rank-1 update
-    (4(m−k)(nb−k))."""
+    (4(m−k)(nb−k)), z = V[:, :k]'v (2(m−k)k) and T's column (2k²)."""
     m, nb = a.shape[-2:]
     batch = a.numel() // max(m * nb, 1)
     item = a.element_size()
-    flops = sum(5 * (m - k) + 4 * (m - k) * (nb - k)
-                for k in range(min(m, nb)))
-    return (3 * a.numel() + batch * nb) * item, batch * flops
+    flops = sum(5 * (m - k) + 4 * (m - k) * (nb - k) + 2 * (m - k) * k
+                + 2 * k * k for k in range(min(m, nb)))
+    return (3 * a.numel() + batch * (nb + nb * nb)) * item, batch * flops
 
 
 def bound_ms(nbytes: int, flops: int, dtype: str) -> tuple[float, str]:
@@ -328,26 +354,33 @@ def fold(acc: dict, errs: dict) -> None:
 
 
 def measure(calls, kernel, plain, cost, compare, dtype: str, library=None,
-            reps: int = 5) -> dict:
+            reps: int = 5, fresh=None) -> dict:
     """A kernel against its plain version over captured calls ``[(args,
     kwargs), ...]``: the worst of each error ``compare(args, got, want)``
     gives, the summed device times of the kernel, the plain version and
     ``library`` (one PyTorch call of the same function, or None), and the
-    summed bound from ``cost(*args, **kwargs)`` -> (bytes, flops)."""
+    summed bound from ``cost(*args, **kwargs)`` -> (bytes, flops). For a
+    kernel that works in place, ``fresh(args)`` gives each of the kernel,
+    the plain version and the timings its own copy of the inputs."""
     import torch
+
+    def use(args):
+        return fresh(args) if fresh is not None else args
 
     res = {}
     ms = plain_ms = lib_ms = b_ms = 0.0
     nbytes = flops = 0
     shapes = []
     for args, kw in calls:
-        got = kernel(*args, **kw)
-        want = plain(*args, **kw)
+        got = kernel(*use(args), **kw)
+        want = plain(*use(args), **kw)
         torch.cuda.synchronize()
         fold(res, compare(args, got, want))
         del got, want
-        ms += cuda_ms(lambda: kernel(*args, **kw), reps)
-        plain_ms += cuda_ms(lambda: plain(*args, **kw), 1)
+        k_args, p_args = use(args), use(args)
+        ms += cuda_ms(lambda: kernel(*k_args, **kw), reps)
+        plain_ms += cuda_ms(lambda: plain(*p_args, **kw), 1)
+        del k_args, p_args
         if library is not None:
             lib_ms += cuda_ms(lambda: library(*args, **kw), reps)
         cb, cf = cost(*args, **kw)
@@ -363,8 +396,8 @@ def measure(calls, kernel, plain, cost, compare, dtype: str, library=None,
     return res
 
 
-ERROR_KEYS = ("max_abs_err", "max_rel_err", "reflectors", "min_rms",
-              "bound_ratio")
+ERROR_KEYS = ("max_abs_err", "max_rel_err", "reflectors", "t_rel_err",
+              "min_rms", "bound_ratio")
 
 
 def report(label: str, res: dict, limits: dict, library: str = "") -> None:
@@ -428,13 +461,16 @@ def check_random_segments():
 
 class Capture:
     """Records the inputs of every call of the named kernel wrappers while
-    active (default: the FiGaRo main path's two)."""
+    active (default: the FiGaRo main path's two, node_fused and the
+    in-place panel_qr_wy). A tensor argument is recorded as a copy with the
+    same strides within its rows, so a column block of a wider matrix is
+    replayed as one (`strided_copy`)."""
 
     def __init__(self, wrappers=None):
         if wrappers is None:
             from repro_torch.kernels.node_fused import ops as nf_ops
             from repro_torch.kernels.panel_qr import ops as pq_ops
-            wrappers = [(nf_ops, "node_fused"), (pq_ops, "panel_qr")]
+            wrappers = [(nf_ops, "node_fused"), (pq_ops, "panel_qr_wy")]
         self._mods = wrappers
         self.calls: dict[str, list] = {name: [] for _, name in wrappers}
 
@@ -445,7 +481,8 @@ class Capture:
             self._saved.append((mod, name, real))
 
             def hook(*args, _real=real, _name=name, **kwargs):
-                self.calls[_name].append(([a.clone() for a in args], kwargs))
+                self.calls[_name].append(([strided_copy(a) for a in args],
+                                          kwargs))
                 return _real(*args, **kwargs)
 
             setattr(mod, name, hook)
@@ -454,6 +491,17 @@ class Capture:
     def __exit__(self, *exc):
         for mod, name, real in self._saved:
             setattr(mod, name, real)
+
+
+def strided_copy(a):
+    """A copy of ``a`` that keeps its row stride: a column block of a fresh
+    [B, m, stride] buffer when ``a`` [B, m, nb] is one, else a clone."""
+    if a.ndim != 3 or a.stride(-1) != 1 or a.stride(-2) <= a.shape[-1]:
+        return a.clone()
+    buf = a.new_empty(a.shape[:-1] + (a.stride(-2),))
+    view = buf[..., :a.shape[-1]]
+    view.copy_(a)
+    return view
 
 
 def reflector_error(a, v, beta, r, chunk: int = 8192) -> float:
@@ -485,41 +533,86 @@ def gram(r):
     return r.mT @ r
 
 
+def wy_kernel(a):
+    """panel_qr_wy on the card as (V, beta, R, T): R is ``a`` after the
+    call."""
+    from repro_torch.kernels.panel_qr import kernel as pk
+
+    v, beta, t = pk.panel_qr_wy(a)
+    return v, beta, a, t
+
+
+def wy_plain(a):
+    from repro_torch.kernels.panel_qr import ref as pr
+
+    v, beta, t = pr.panel_qr_wy_ref(a)
+    return v, beta, a, t
+
+
+def wy_fresh(args):
+    return [strided_copy(args[0])]
+
+
+def geqrf(a):
+    import torch
+
+    return torch.geqrf(a)
+
+
+def t_error(v, beta, t) -> float:
+    """T against `_panel_to_wy` of the kernel's own V and beta (unique even
+    where V and beta are not), in float64, relative to max(1, max |T|)."""
+    from repro_torch.core.postprocess import _panel_to_wy
+
+    m, nb = v.shape[-2:]
+    want = _panel_to_wy(v.reshape(-1, m, nb).double(),
+                        beta.reshape(-1, nb).double())
+    return rel_err(t.reshape(-1, nb, nb), want)[1]
+
+
 def panel_qr_compare(args, got, want) -> dict:
-    """panel_qr: RᵀR against the plain version's, and V and beta by
-    `reflector_error`. R, V and beta are not compared elementwise at the
-    main path's inputs: R is unique only for a panel of full column rank,
-    and TSQR leaves are not (one user's carried head repeats over all of
-    that user's review rows, so a leaf's user block has rank ≤ the users in
-    it). There a reflector is formed from roundoff and two correct
-    factorizations differ in V, beta and whole rows of R, while RᵀR = AᵀA
-    holds for both."""
-    errs = elementwise(args, gram(got[2]), gram(want[2]))
-    errs["reflectors"] = reflector_error(args[0], *got)
+    """panel_qr_wy: RᵀR against the plain version's, V and beta by
+    `reflector_error`, and T by `t_error`. R, V and beta are not compared
+    elementwise at the main path's inputs: R is unique only for a panel of
+    full column rank, and TSQR leaves are not (one user's carried head
+    repeats over all of that user's review rows, so a leaf's user block has
+    rank ≤ the users in it). There a reflector is formed from roundoff and
+    two correct factorizations differ in V, beta and whole rows of R, while
+    RᵀR = AᵀA holds for both, and T is a function of V and beta."""
+    v, beta, r, t = got
+    errs = elementwise(args, gram(r), gram(want[2]))
+    errs["reflectors"] = reflector_error(args[0], v, beta, r)
+    errs["t_rel_err"] = t_error(v, beta, t)
+    return errs
+
+
+def panel_qr_full_compare(args, got, want) -> dict:
+    """On random full-rank panels V, beta and R are unique: elementwise
+    against the plain version, and T by `t_error`."""
+    errs = elementwise(args, got[:3], want[:3])
+    errs["t_rel_err"] = t_error(got[0], got[1], got[3])
     return errs
 
 
 def measure_path_kernels(calls, dtype: str, label: str = "qr dispatch",
                          names=("node_fused", "panel_qr")) -> dict:
-    """`measure` and `report` of node_fused and panel_qr over the captured
-    calls of one dispatch."""
-    import torch
+    """`measure` and `report` of node_fused and panel_qr (its in-place form,
+    as the path calls it) over the captured calls of one dispatch."""
     from repro_torch.kernels.node_fused import kernel as nk, ref as nr
-    from repro_torch.kernels.panel_qr import kernel as pk, ref as pr
 
-    parts = {"node_fused": (nk.node_fused, nr.node_fused_ref,
-                            node_fused_cost, elementwise, None),
-             "panel_qr": (pk.panel_qr, pr.panel_qr_ref, panel_qr_cost,
-                          panel_qr_compare, torch.geqrf)}
+    parts = {"node_fused": ("node_fused", nk.node_fused, nr.node_fused_ref,
+                            node_fused_cost, elementwise, None, None),
+             "panel_qr": ("panel_qr_wy", wy_kernel, wy_plain, panel_qr_cost,
+                          panel_qr_compare, geqrf, wy_fresh)}
     out = {}
     for name in names:
-        kernel, plain, cost, compare, library = parts[name]
-        out[name] = measure(calls[name], kernel, plain, cost, compare, dtype,
-                            library=library)
+        key, kernel, plain, cost, compare, library, fresh = parts[name]
+        out[name] = measure(calls[key], kernel, plain, cost, compare, dtype,
+                            library=library, fresh=fresh)
         tol = TOL[(name, dtype)]
         limits = {"max_rel_err": tol}
         if name == "panel_qr":
-            limits["reflectors"] = tol
+            limits.update(reflectors=tol, t_rel_err=tol)
         report(f"{name} {dtype} over one {label} (panel_qr: R'R)", out[name],
                limits, library="torch.geqrf")
     return out
@@ -527,10 +620,11 @@ def measure_path_kernels(calls, dtype: str, label: str = "qr dispatch",
 
 # -- phase 4 ------------------------------------------------------------------
 
-def profile_once(label: str, fn) -> None:
+def profile_once(label: str, fn) -> dict:
     """Device time by kernel over one call of ``fn`` (torch.profiler), and
     the device's busy share of that call's wall time (kernels and copies on
-    the one stream, summed; they do not overlap)."""
+    the one stream, summed; they do not overlap). Returns the wall and busy
+    ms, the busy share and the count of kernels and copies."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -556,6 +650,8 @@ def profile_once(label: str, fn) -> None:
     for e in sorted(kernels, key=lambda e: -getattr(e, attr))[:12]:
         log(f"  {getattr(e, attr) / 1e3:9.3f} ms  {e.count:6d}x  "
             f"{e.key[:90]}")
+    return {"wall_ms": wall_us / 1e3, "busy_ms": device_us / 1e3,
+            "busy_share": device_us / wall_us, "kernels_and_copies": launches}
 
 
 def gram_check_small(torch_dtype):
@@ -580,24 +676,28 @@ def gram_check_small(torch_dtype):
 # -- phase 3 (wide panels, flash cases) ----------------------------------------
 
 def check_wide_panels() -> float:
-    """panel_qr's device-memory variant on random full-rank float64 panels,
-    elementwise (V, beta, R) against the plain version."""
+    """panel_qr's cluster and device-memory variants on random full-rank
+    float64 panels, elementwise (V, beta, R) against the plain version and
+    T against `_panel_to_wy` of the kernel's own V and beta."""
     import torch
-    from repro_torch.kernels.panel_qr import kernel as pk, ref as pr
+    from repro_torch.kernels.panel_qr import kernel as pk
 
     worst = 0.0
-    for shape in ((4, 1024, 32), (2, 4096, 32)):
+    for shape, kind in (((4, 1024, 32), "cluster"), ((2, 4096, 32), "cluster"),
+                        ((1, 8192, 32), "gmem")):
         g = torch.Generator(device="cuda").manual_seed(shape[1])
         a = torch.randn(*shape, generator=g, device="cuda",
                         dtype=torch.float64)
-        check(pk.variant(shape[1], shape[2], 8) == "gmem",
-              f"panel {shape} takes the device-memory variant")
-        res = measure([((a,), {})], pk.panel_qr, pr.panel_qr_ref,
-                      panel_qr_cost, elementwise, "float64", reps=3)
-        report(f"panel_qr (device-memory variant) random float64 "
-               f"{list(shape)}, V, beta, R", res,
-               {"max_rel_err": TOL[("panel_qr", "float64")]})
-        worst = max(worst, res["max_rel_err"])
+        check(pk.variant(shape[1]) == kind,
+              f"panel {shape} takes the {kind} variant")
+        tol = TOL[("panel_qr", "float64")]
+        res = measure([((a,), {})], wy_kernel, wy_plain, panel_qr_cost,
+                      panel_qr_full_compare, "float64", library=geqrf,
+                      reps=3, fresh=wy_fresh)
+        report(f"panel_qr ({kind} variant) random float64 {list(shape)}, "
+               f"V, beta, R, T", res, {"max_rel_err": tol, "t_rel_err": tol},
+               library="torch.geqrf")
+        worst = max(worst, res["max_rel_err"], res["t_rel_err"])
     return worst
 
 
@@ -676,7 +776,7 @@ def check_flash_cases() -> float:
     return worst
 
 
-# -- phase 5: wide N -----------------------------------------------------------
+# -- phases 5 and 5b: wide N, and method="blocked" -----------------------------
 
 def wide_tree(seed: int = 0):
     """A star of three relations whose data columns total N = 512: S1
@@ -699,49 +799,94 @@ def wide_tree(seed: int = 0):
     return JoinTree.from_edges(db, "S1", edges)
 
 
-def phase_wide() -> dict:
+class CountCalls:
+    """Counts the calls of ``module.name`` while active."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.calls = module, name, 0
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+
+        def counting(*args, **kwargs):
+            self.calls += 1
+            return self.real(*args, **kwargs)
+
+        setattr(self.module, self.name, counting)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def per_call_launches(label: str, fn) -> dict:
+    """The launch counters over one call of ``fn``, and the calls of
+    `_panel_to_wy` in it (0 on the card: T comes from the kernel)."""
+    import torch
+    from repro_torch.core import postprocess
+    from repro_torch.kernels import _platform
+
+    _platform.reset_launch_counts()
+    with CountCalls(postprocess, "_panel_to_wy") as wy:
+        fn()
+        torch.cuda.synchronize()
+    counts = _platform.launch_counts()
+    log(f"launches per {label}: {counts}; _panel_to_wy calls {wy.calls}")
+    check(wy.calls == 0, f"{label} forms T in the kernel, not _panel_to_wy")
+    return counts
+
+
+def phase_panels(label: str, plan, kind: str, **opts) -> dict:
+    """A float64 ``qr`` whose panels take panel_qr's ``kind`` variant:
+    timed (median of 3 after a warm-up) with the counters zeroed around it,
+    R against ``use_kernel=False``, the launches of one call, one profiled
+    call, and the variant's captured calls against the plain version and
+    ``torch.geqrf``."""
     import torch
     from repro_torch import figaro
-    from repro_torch.core.join_tree import build_plan
     from repro_torch.core.postprocess import normalize_sign
     from repro_torch.kernels import _platform
     from repro_torch.kernels.panel_qr import kernel as pk
 
-    plan = build_plan(wide_tree())
     n = plan.spec.num_cols
-    check(n >= 512, "the wide tree has N >= 512 columns")
-    sess = figaro.Session(use_kernel=True, assembly="band", device="cuda")
-    plain = figaro.Session(use_kernel=False, device="cuda")
+    sess = figaro.Session(use_kernel=True, assembly="band", device="cuda",
+                          **opts)
+    plain = figaro.Session(use_kernel=False, device="cuda", **opts)
     _platform.reset_launch_counts()
     r_k, t_qr, ts, warm = wall(lambda: sess.qr(plan, dtype=torch.float64),
                                REPS)
     launches = _platform.launch_counts()
-    log(f"wide tree: N = {n}, exact R0 rows {plan.spec.r0_rows}; float64 qr "
+    log(f"{label}: N = {n}, exact R0 rows {plan.spec.r0_rows}; float64 qr "
         f"(kernel path) median {t_qr * 1e3:.1f} ms of "
         f"{[round(x * 1e3, 1) for x in ts]} ms (warm-up {warm * 1e3:.1f} ms, "
         f"plan to the card); launches {launches} over {REPS + 1} calls")
-    for kname in ("panel_qr", "panel_qr_gmem"):
-        check(launches.get(kname, 0) > 0, f"{kname} launched on the wide path")
+    check(launches.get(pk.kernel_name(kind), 0) > 0,
+          f"{pk.kernel_name(kind)} launched on the {label} path")
+    per_qr = per_call_launches(f"{label} qr", lambda: sess.qr(
+        plan, dtype=torch.float64))
     r_p = plain.qr(plan, dtype=torch.float64)
     err_abs, err_rel = rel_err(normalize_sign(r_k), normalize_sign(r_p))
-    log(f"wide R (kernel path) vs R (use_kernel=False), float64: max abs "
+    log(f"{label} R (kernel path) vs R (use_kernel=False), float64: max abs "
         f"err {err_abs:.3e}, relative {err_rel:.3e} (tol 1e-9)")
     check(r_k.shape == (n, n) and bool(torch.isfinite(r_k).all()),
-          "wide qr shape/finite")
-    check(err_rel <= 1e-9, "wide kernel-path R matches the unfused path")
-    profile_once("wide qr float64", lambda: sess.qr(plan, dtype=torch.float64))
+          f"{label} qr shape/finite")
+    check(err_rel <= 1e-9, f"{label} kernel-path R matches the unfused path")
+    prof = profile_once(f"{label} qr float64",
+                        lambda: sess.qr(plan, dtype=torch.float64))
     with Capture() as cap:
         sess.qr(plan, dtype=torch.float64)
         torch.cuda.synchronize()
-    gmem = [(args, kw) for args, kw in cap.calls["panel_qr"]
-            if pk.variant(*args[0].shape[-2:], 8) == "gmem"]
-    log(f"wide qr: {len(cap.calls['panel_qr'])} panel_qr calls, {len(gmem)} "
-        f"of them on the device-memory variant")
+    calls = cap.calls["panel_qr_wy"]
+    mine = [(args, kw) for args, kw in calls
+            if pk.variant(args[0].shape[-2]) == kind]
+    del cap
+    log(f"{label} qr: {len(calls)} panel_qr calls, {len(mine)} of them on "
+        f"the {kind} variant")
     measured = measure_path_kernels(
-        {"panel_qr": gmem}, "float64", names=("panel_qr",),
-        label="wide qr dispatch, device-memory variant")["panel_qr"]
-    return {"launches": launches, "r_rel_err": err_rel, "qr_ms": t_qr * 1e3,
-            "gmem": measured, "n": n}
+        {"panel_qr_wy": mine}, "float64", names=("panel_qr",),
+        label=f"{label} qr dispatch, {kind} variant")["panel_qr"]
+    return {"launches": launches, "per_qr": per_qr, "r_rel_err": err_rel,
+            "qr_ms": t_qr * 1e3, "panels": measured, "profile": prof, "n": n}
 
 
 # -- phase 6: segmented tails --------------------------------------------------
@@ -1061,13 +1206,11 @@ def main(argv=None) -> int:
         lambda: sess.least_squares(plan, 0), REPS)
     launches = _platform.launch_counts()
     log(f"launch counts over the main path: {launches}")
-    for kname in ("node_fused", "panel_qr"):
+    for kname in ("node_fused", "panel_qr", "panel_qr_reg"):
         check(launches.get(kname, 0) > 0, f"{kname} launched on the path")
-    _platform.reset_launch_counts()
-    sess.qr(plan)
-    torch.cuda.synchronize()
-    per_qr = _platform.launch_counts()
-    log(f"launches per qr dispatch: {per_qr}")
+    check(launches["panel_qr"] == launches["panel_qr_reg"],
+          "the main path's panels all take panel_qr's one-block variant")
+    per_qr = per_call_launches("float32 qr dispatch", lambda: sess.qr(plan))
     n = spec.num_cols
     for label, tm, ts, w in (("qr float32", t_qr, ts_qr, w_qr),
                              ("svd float64", t_svd, ts_svd, w_svd),
@@ -1105,7 +1248,7 @@ def main(argv=None) -> int:
     log(f"singular values vs unfused path: relative {s_rel:.3e}")
     check(s_rel <= 1e-9, "singular values match the unfused path")
     gram_rel = gram_check_small(torch.float64)
-    profile_once("qr float32", lambda: sess.qr(plan))
+    prof_qr = profile_once("qr float32", lambda: sess.qr(plan))
     profile_once("svd float64", lambda: sess.svd(plan))
     profile_once("qr float64, use_kernel=False",
                  lambda: plain.qr(plan, dtype=torch.float64))
@@ -1116,7 +1259,14 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     log("== phase 5: wide N")
-    wide = phase_wide()
+    wide = phase_panels("wide", build_plan(wide_tree()), "cluster")
+    check(wide["n"] >= 512, "the wide tree has N >= 512 columns")
+    torch.cuda.empty_cache()
+
+    log("== phase 5b: method=\"blocked\" (tall panels)")
+    tall = phase_panels("tall", build_plan(yelp_like(scale=TALL_SCALE,
+                                                     cols=16)),
+                        "gmem", method="blocked")
     torch.cuda.empty_cache()
 
     log("== phase 6: segmented tails")
@@ -1137,7 +1287,9 @@ def main(argv=None) -> int:
                        per_dtype["float64"]["node_fused"], "float32"),
         "panel_qr": (launches, per_dtype["float32"]["panel_qr"],
                      per_dtype["float64"]["panel_qr"], "float32"),
-        "panel_qr_gmem": (wide["launches"], wide["gmem"], None, "float64"),
+        "panel_qr_cluster": (wide["launches"], wide["panels"], None,
+                             "float64"),
+        "panel_qr_gmem": (tall["launches"], tall["panels"], None, "float64"),
         "segmented_tail": (tails["launches"], tails["float32"],
                            tails["float64"], "float32"),
         "flash_attention_sm90": (lm["launches"], lm["flash"], None,
@@ -1156,10 +1308,16 @@ def main(argv=None) -> int:
                  "ms": main["ms"], "plain_ms": main["plain_ms"],
                  "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
                  "library_ms": main["library_ms"]}
-        entry.update({k: main[k] for k in ("reflectors", "min_rms",
-                                           "bound_ratio") if k in main})
+        entry.update({k: main[k] for k in ("reflectors", "t_rel_err",
+                                           "min_rms", "bound_ratio")
+                      if k in main})
         if kname in ("node_fused", "panel_qr"):
             entry["launches_per_qr"] = per_qr.get(kname, 0)
+        if kname == "panel_qr":
+            entry["variant"] = "reg"
+        if kname in ("panel_qr_cluster", "panel_qr_gmem"):
+            entry["launches_per_qr"] = (wide if kname == "panel_qr_cluster"
+                                        else tall)["per_qr"].get(kname, 0)
         if kname in FLASH_DTYPES:
             entry["dtypes"] = FLASH_DTYPES[kname]
         if kname == "flash_attention_sm90":
@@ -1177,6 +1335,7 @@ def main(argv=None) -> int:
                                      "pca_f64": t_pca * 1e3,
                                      "lsq_f64": t_lsq * 1e3,
                                      "wide_qr_f64": wide["qr_ms"],
+                                     "tall_blocked_qr_f64": tall["qr_ms"],
                                      "lm_eval_step": lm["step_ms"]},
                     "lm_tokens_per_s": lm["tokens_per_s"],
                     "lm_loss": lm["loss"], "lm_peak_gib": lm["peak_gib"],
@@ -1184,6 +1343,12 @@ def main(argv=None) -> int:
                     "plan_build_s": t_plan, "scale": args.scale,
                     "r_rel_err_vs_unfused": err_rel,
                     "wide_r_rel_err_vs_unfused": wide["r_rel_err"],
+                    "tall_r_rel_err_vs_unfused": tall["r_rel_err"],
+                    "launches_per_qr": {"qr_f32": per_qr,
+                                        "wide_qr_f64": wide["per_qr"]},
+                    "profile_per_qr": {"qr_f32": prof_qr,
+                                       "wide_qr_f64": wide["profile"],
+                                       "tall_blocked_qr_f64": tall["profile"]},
                     "wide_panel_rel_err": wide_panel_err,
                     "flash_cases_bound_ratio": flash_case_err,
                     "lm32_eval_step_ms": lm32["step_ms"],

@@ -136,7 +136,9 @@ def blocked_qr_r(a: torch.Tensor, panel: int = 32, *,
                  use_kernel: bool = False) -> torch.Tensor:
     """Blocked Householder QR (panel + compact-WY trailing update) ->
     R [..., n, n]. With ``use_kernel`` the panels go to the `panel_qr`
-    kernel (the plain version for CPU tensors)."""
+    kernel's in-place form (the plain version for CPU tensors), which
+    factors the strided column block where it lies and returns T with V.
+    T is formed only where a trailing update follows."""
     m, n = a.shape[-2:]
     lead = a.shape[:-2]
     a = a.reshape(-1, m, n)
@@ -150,14 +152,14 @@ def blocked_qr_r(a: torch.Tensor, panel: int = 32, *,
     pos = 0
     while pos < n:
         nb = min(panel, n - pos)
-        block = a[:, pos:, pos:pos + nb]
+        trailing = pos + nb < n
         if use_kernel:
-            v, beta, rp = pq_ops.panel_qr(block)
+            v, beta, t = pq_ops.panel_qr_wy(a[:, pos:, pos:pos + nb])
         else:
-            v, beta, rp = householder_panel(block)
-        t = _panel_to_wy(v, beta)
-        a[:, pos:, pos:pos + nb] = rp
-        if pos + nb < n:
+            v, beta, rp = householder_panel(a[:, pos:, pos:pos + nb])
+            a[:, pos:, pos:pos + nb] = rp
+            t = _panel_to_wy(v, beta) if trailing else None
+        if trailing:
             a[:, pos:, pos + nb:] = _apply_wy(a[:, pos:, pos + nb:], v, t)
         pos += nb
     return torch.triu(a[:, :n]).reshape(lead + (n, n))

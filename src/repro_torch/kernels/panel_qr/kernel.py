@@ -1,19 +1,28 @@
-"""Householder panel factorization as hand-written CUDA kernels
-(``csrc/panel_qr.cu``), one block per panel, in two variants:
+"""Householder panel factorization with the compact-WY factor T, as
+hand-written CUDA kernels (``csrc/panel_qr.cu``) in three variants, chosen
+from the panel's height alone:
 
-  ``smem``  the panel in shared memory (``panel_qr_kernel``), for every panel
-            whose footprint fits one block's 227 KiB;
-  ``gmem``  the panel in a device-memory scratch buffer
-            (``panel_qr_gmem_kernel``), for wider ones.
+  ``reg``      one block per panel, two rows per thread in registers
+               (``panel_qr_reg_kernel``), for m <= `CTA_ROWS`;
+  ``cluster``  the same kernel on a thread-block cluster of
+               ceil(m / `CTA_ROWS`) CTAs per panel, the partial sums crossing
+               it through distributed shared memory, for m <=
+               `CTA_ROWS` · `MAX_CLUSTER`;
+  ``gmem``     the panel in a device-memory scratch buffer
+               (``panel_qr_gmem_kernel``), for taller ones.
 
-`variant` picks one from the panel's size alone (`smem_bytes` and
-`SMEM_LIMIT` mirror the source's ``smem_bytes`` and ``kMaxSmem``), so the
-choice is visible without the library.
-`panel_qr` checks its inputs, allocates the outputs (and the scratch) with
-``torch.empty`` and launches on the current stream through the ctypes
-binding. Both variants count as ``panel_qr`` launches; the device-memory one
-also counts as ``panel_qr_gmem``. It takes CUDA tensors only; the wrapper in
-``ops.py`` decides between it and the plain version.
+`variant` mirrors the source's ``pq_variant_of`` (`CTA_ROWS` and
+`MAX_CLUSTER` are its ``kCtaRows`` and ``kMaxCluster``), so the choice is
+visible without the library; `VARIANTS` is indexed by the library's
+``pq_variant``. Panels are at most `MAX_NB` columns wide.
+
+`panel_qr_wy` factors a batch of panels in place: it reads the panel through
+its row and batch strides (a column block of a larger matrix needs no copy),
+writes R over it and returns (V, beta, T). `panel_qr` keeps the plain
+contract — (V, beta, R) with its input untouched — by factoring a copy.
+Every launch counts as ``panel_qr`` and under its variant's name. Both take
+CUDA tensors only; the wrappers in ``ops.py`` decide between them and the
+plain versions.
 """
 
 from __future__ import annotations
@@ -25,8 +34,11 @@ import torch
 from repro_torch.kernels import _build, _platform
 
 NAME = "panel_qr"
-GMEM_NAME = "panel_qr_gmem"
-SMEM_LIMIT = 232_448  # bytes one block may opt into on sm_90 (kMaxSmem)
+VARIANTS = ("reg", "cluster", "gmem")  # by pq_variant's return value
+CTA_ROWS = 256     # rows of one CTA (kCtaRows)
+MAX_CLUSTER = 16   # CTAs of one panel (kMaxCluster)
+MAX_NB = 32        # widest panel (kMaxNb)
+NO_CLUSTER_FITS = -1
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
@@ -35,62 +47,90 @@ _I = ctypes.c_int64
 def _lib():
     lib = _build.library(NAME)
     if not getattr(lib, "_repro_bound", False):
-        for fn in (lib.pq_launch_f32, lib.pq_launch_f64):
-            fn.argtypes = [_P] * 4 + [_I] * 3 + [_P]
+        for fn in (lib.pq_wy_launch_f32, lib.pq_wy_launch_f64):
+            fn.argtypes = [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P]
             fn.restype = ctypes.c_int
-        for fn in (lib.pq_launch_gmem_f32, lib.pq_launch_gmem_f64):
-            fn.argtypes = [_P] * 5 + [_I] * 3 + [_P]
-            fn.restype = ctypes.c_int
-        lib.pq_gmem_scratch_elems.argtypes = [_I] * 2
+        lib.pq_gmem_scratch_elems.argtypes = [_I, _I]
         lib.pq_gmem_scratch_elems.restype = _I
+        lib.pq_variant.argtypes = [_I]
+        lib.pq_variant.restype = ctypes.c_int
         lib._repro_bound = True
     return lib
 
 
-def smem_bytes(m: int, nb: int, itemsize: int) -> int:
-    """Shared memory the ``smem`` variant needs for one [m, nb] panel: the
-    panel (nb columns of m + 1), the reflector (m), the reduction scratch
-    (33) and w = v'A (nb) — ``smem_bytes`` of the source."""
-    return (nb * (m + 1) + m + 33 + nb) * itemsize
+def kernel_name(kind: str) -> str:
+    """The launch-count name of one variant: ``panel_qr_<kind>``."""
+    return f"{NAME}_{kind}"
 
 
-def variant(m: int, nb: int, itemsize: int) -> str:
-    """``"smem"`` when an [m, nb] panel fits one block's shared memory,
-    else ``"gmem"``."""
-    return "smem" if smem_bytes(m, nb, itemsize) <= SMEM_LIMIT else "gmem"
+def variant_of_build(m: int) -> str:
+    """The variant the built library picks for a panel of ``m`` rows."""
+    return VARIANTS[_lib().pq_variant(m)]
 
 
-def panel_qr(a: torch.Tensor):
-    """(V [..., m, nb], beta [..., nb], R_panel [..., m, nb]) for CUDA panels."""
+def variant(m: int) -> str:
+    """``"reg"``, ``"cluster"`` or ``"gmem"`` for a panel of ``m`` rows."""
+    if m <= CTA_ROWS:
+        return "reg"
+    return "cluster" if m <= CTA_ROWS * MAX_CLUSTER else "gmem"
+
+
+def cluster_size(m: int) -> int:
+    """CTAs per panel of the ``reg`` and ``cluster`` variants."""
+    return -(-m // CTA_ROWS)
+
+
+def panel_qr_wy(a: torch.Tensor):
+    """Factor CUDA panels ``a`` [B, m, nb] (last dimension contiguous,
+    nb <= 32) in place: R is written over ``a``, zero below the diagonal.
+    Returns (V [B, m, nb] unit-diagonal, beta [B, nb], T [B, nb, nb]) with
+    H_1 … H_nb = I − V·T·Vᵀ."""
     if a.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"panel_qr takes float32 or float64, got {a.dtype}")
-    if a.device.type != "cuda" or a.ndim < 2:
-        raise ValueError("panel_qr takes a CUDA tensor [..., m, nb]")
-    m, nb = a.shape[-2:]
-    lead = a.shape[:-2]
-    batch = a.numel() // max(m * nb, 1)
-    a = a.contiguous()
-    v = torch.empty_like(a)
-    r = torch.empty_like(a)
-    beta = torch.empty(lead + (nb,), dtype=a.dtype, device=a.device)
+    if a.device.type != "cuda" or a.ndim != 3:
+        raise ValueError("panel_qr takes a CUDA tensor [B, m, nb]")
+    batch, m, nb = a.shape
+    if nb > MAX_NB:
+        raise ValueError(f"panel_qr takes panels at most {MAX_NB} columns "
+                         f"wide, got {nb}")
+    if nb > 1 and a.stride(2) != 1:
+        raise ValueError("panel_qr needs the panel's columns contiguous "
+                         "(stride 1 in the last dimension)")
+    v = torch.empty((batch, m, nb), dtype=a.dtype, device=a.device)
+    beta = torch.empty((batch, nb), dtype=a.dtype, device=a.device)
+    t = torch.empty((batch, nb, nb), dtype=a.dtype, device=a.device)
     if a.numel() == 0:
-        return v, beta, r
+        return v, beta.zero_(), t.zero_()
     lib = _lib()
-    f64 = a.dtype == torch.float64
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    ptrs = (a.data_ptr(), v.data_ptr(), beta.data_ptr(), r.data_ptr())
-    kind = variant(m, nb, a.element_size())
-    if kind == "smem":
-        fn = lib.pq_launch_f64 if f64 else lib.pq_launch_f32
-        err = fn(*ptrs, batch, m, nb, stream)
-    else:
+    kind = variant(m)
+    scratch = None
+    if kind == "gmem":
         scratch = torch.empty(batch * lib.pq_gmem_scratch_elems(m, nb),
                               dtype=a.dtype, device=a.device)
-        fn = lib.pq_launch_gmem_f64 if f64 else lib.pq_launch_gmem_f32
-        err = fn(*ptrs, scratch.data_ptr(), batch, m, nb, stream)
+    fn = lib.pq_wy_launch_f64 if a.dtype == torch.float64 \
+        else lib.pq_wy_launch_f32
+    err = fn(a.data_ptr(), a.stride(1), a.stride(0), v.data_ptr(),
+             beta.data_ptr(), t.data_ptr(),
+             0 if scratch is None else scratch.data_ptr(), batch, m, nb,
+             torch.cuda.current_stream(a.device).cuda_stream)
+    if err == NO_CLUSTER_FITS:
+        raise RuntimeError(f"panel_qr: no cluster of {cluster_size(m)} CTAs "
+                           f"fits the card for a panel of {m} rows")
     if err != 0:
         raise RuntimeError(f"panel_qr launch failed with CUDA error {err}")
     _platform.count_launch(NAME)
-    if kind == "gmem":
-        _platform.count_launch(GMEM_NAME)
-    return v, beta, r
+    _platform.count_launch(kernel_name(kind))
+    return v, beta, t
+
+
+def panel_qr(a: torch.Tensor):
+    """(V [..., m, nb], beta [..., nb], R_panel [..., m, nb]) for CUDA
+    panels, ``a`` untouched (the kernel factors a contiguous copy)."""
+    if a.ndim < 2:
+        raise ValueError("panel_qr takes a CUDA tensor [..., m, nb]")
+    m, nb = a.shape[-2:]
+    lead = a.shape[:-2]
+    r = a.reshape((-1, m, nb)).clone(memory_format=torch.contiguous_format)
+    v, beta, _ = panel_qr_wy(r)
+    return (v.reshape(lead + (m, nb)), beta.reshape(lead + (nb,)),
+            r.reshape(lead + (m, nb)))

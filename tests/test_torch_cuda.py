@@ -7,8 +7,10 @@ card, run them without the suite's conftest (which imports JAX)::
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Tolerances, relative to max(1, |plain|): float64 1e-9 and float32 1e-5
-(node_fused, segmented_tail) / 1e-4 (panel_qr) — the bounds the CPU suite
-holds the plain versions to against the JAX package. flash_attention,
+(node_fused, segmented_tail) / 1e-4 (panel_qr, its T held to `_panel_to_wy`
+of the kernel's own V and beta) — the bounds the CPU suite holds the plain
+versions to against the JAX package. The panel_qr tests assert through the
+launch counts which variant (``panel_qr_reg``, ``_cluster``, ``_gmem``) ran. flash_attention,
 elementwise: 2e-5 absolute in float32 and 1e-12 in float64 (the JAX
 package's own kernel-vs-oracle bound, tests/test_flash_kernel.py, and
 float64 rounding); in bfloat16 one bfloat16 step, |got − want| ≤
@@ -23,7 +25,7 @@ import pytest
 import torch
 
 from repro_torch import figaro
-from repro_torch.core import heads_tails
+from repro_torch.core import heads_tails, postprocess
 from repro_torch.data.relational import yelp_like
 from repro_torch.kernels import _platform
 from repro_torch.kernels.flash_attn import kernel as fk, ref as fr
@@ -83,39 +85,114 @@ def test_node_fused_kernel_matches_plain(dtype, b, m, n):
     assert bool((e_k[:, dead] == 0).all())
 
 
+def _panel_counts(m):
+    kind = pk.variant(m)
+    return {"panel_qr": 1, pk.kernel_name(kind): 1}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("b,m,nb", [(7, 256, 32), (5, 70, 32), (3, 10, 16),
-                                    (2, 5, 8)])
+                                    (2, 5, 8), (6, 224, 3), (4, 38, 3)])
 def test_panel_qr_kernel_matches_plain(dtype, b, m, nb):
     _need_card()
     g = torch.Generator(device="cuda").manual_seed(m * nb)
     a = torch.randn(b, m, nb, generator=g, device="cuda", dtype=dtype)
+    keep = a.clone()
+    _platform.reset_launch_counts()
     got = pk.panel_qr(a)
+    assert _platform.launch_counts() == _panel_counts(m)
     want = pr.panel_qr_ref(a)
     torch.cuda.synchronize()
+    assert torch.equal(a, keep)  # panel_qr leaves its input as it is
     for x, y in zip(got, want):
         assert _rel(x, y) <= TOL[dtype]["pq"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("b,m,nb", [(3, 1024, 32), (2, 4096, 32),
-                                    (2, 900, 7)])
-def test_panel_qr_wide_panel_uses_device_memory_kernel(dtype, b, m, nb):
-    """Panels over one block's shared memory go to the device-memory
-    variant and agree with the plain version (random full-rank panels)."""
+@pytest.mark.parametrize("b,m,nb,lda", [(7, 256, 32, 35), (6, 224, 3, 3),
+                                        (5, 70, 32, 35), (4, 38, 3, 35),
+                                        (3, 1024, 32, 512), (2, 4096, 32, 33),
+                                        (1, 544, 32, 32), (2, 5000, 32, 35)])
+def test_panel_qr_wy_kernel_matches_plain(dtype, b, m, nb, lda):
+    """The in-place form on a strided column block of a wider matrix: R
+    left in the block (the other columns untouched), V and beta as the
+    plain version's (random full-rank panels, so they are unique), T equal
+    to `_panel_to_wy` of the kernel's own V and beta, and the variant the
+    size picks, by the launch counts."""
     _need_card()
-    if pk.variant(m, nb, torch.empty((), dtype=dtype).element_size()) \
-            == "smem":
-        pytest.skip("fits shared memory in this dtype")
+    g = torch.Generator(device="cuda").manual_seed(m + lda)
+    full = torch.randn(b, m, lda, generator=g, device="cuda", dtype=dtype)
+    orig = full.clone()
+    _platform.reset_launch_counts()
+    v, beta, t = pk.panel_qr_wy(full[:, :, :nb])
+    assert _platform.launch_counts() == _panel_counts(m)
+    v_p, beta_p, r_p = pr.panel_qr_ref(orig[:, :, :nb])
+    torch.cuda.synchronize()
+    tol = TOL[dtype]["pq"]
+    assert _rel(full[:, :, :nb], r_p) <= tol
+    assert torch.equal(full[:, :, nb:], orig[:, :, nb:])
+    assert _rel(v, v_p) <= tol and _rel(beta, beta_p) <= tol
+    t_own = postprocess._panel_to_wy(v.double(), beta.double())
+    assert _rel(t, t_own) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b,m,nb", [(3, 1024, 32), (2, 4096, 32),
+                                    (2, 900, 7), (1, 4500, 32)])
+def test_panel_qr_wide_panel_uses_device_memory_kernel(dtype, b, m, nb):
+    """Panels taller than one block's 256 rows go to the cluster variant,
+    those taller than a 16-CTA cluster's 4,096 rows to the device-memory
+    variant (by the launch counts), and agree with the plain version
+    (random full-rank panels)."""
+    _need_card()
     g = torch.Generator(device="cuda").manual_seed(m + nb)
     a = torch.randn(b, m, nb, generator=g, device="cuda", dtype=dtype)
     _platform.reset_launch_counts()
     got = pk.panel_qr(a)
-    assert _platform.launch_counts() == {"panel_qr": 1, "panel_qr_gmem": 1}
+    want_kind = "cluster" if m <= 4096 else "gmem"
+    assert _platform.launch_counts() == {"panel_qr": 1,
+                                         f"panel_qr_{want_kind}": 1}
     want = pr.panel_qr_ref(a)
     torch.cuda.synchronize()
     for x, y in zip(got, want):
         assert _rel(x, y) <= TOL[dtype]["pq"]
+
+
+@pytest.mark.parametrize("m", [1, 38, 256, 257, 1024, 4096, 4097, 100_000])
+def test_panel_qr_variant_mirror_matches_the_build(m):
+    _need_card()
+    assert pk.variant_of_build(m) == pk.variant(m)
+
+
+def _no_panel_to_wy(*args):
+    raise AssertionError("_panel_to_wy called on the card path")
+
+
+def test_card_qr_forms_t_in_the_kernel(monkeypatch):
+    """A card ``qr`` and a wide ``blocked_qr_r`` take T from the kernel:
+    `_panel_to_wy` is patched to raise, and the launch counts show the
+    one-block and the cluster variants."""
+    _need_card()
+    tree = yelp_like(scale=400, cols=3)
+    r_p = figaro.Session(device="cuda").qr(tree, dtype=torch.float64)
+    monkeypatch.setattr(postprocess, "_panel_to_wy", _no_panel_to_wy)
+    _platform.reset_launch_counts()
+    r_k = figaro.Session(use_kernel=True, assembly="band").qr(
+        tree, dtype=torch.float64)
+    counts = _platform.launch_counts()
+    assert counts.get("panel_qr_reg", 0) > 0
+    assert counts.get("panel_qr", 0) == counts["panel_qr_reg"]
+    assert _rel(r_k, r_p) <= 1e-9
+    g = torch.Generator(device="cuda").manual_seed(3)
+    a = torch.randn(1, 1024, 64, generator=g, device="cuda",
+                    dtype=torch.float64)
+    _platform.reset_launch_counts()
+    r_w = postprocess.blocked_qr_r(a, use_kernel=True)
+    assert _platform.launch_counts() == {"panel_qr": 2, "panel_qr_cluster": 2}
+    monkeypatch.undo()
+    r_plain = postprocess.blocked_qr_r(a)
+    assert _rel(postprocess.normalize_sign(r_w),
+                postprocess.normalize_sign(r_plain)) <= 1e-9
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

@@ -198,3 +198,42 @@ def test_postprocess_batched_equals_single():
                                        atol=1e-12)
     with pytest.raises(ValueError, match="unknown postprocess"):
         tpp.postprocess_r0(a, method="cholesky")
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-9), (np.float32, 1e-4)])
+def test_blocked_qr_r_kernel_path_matches_jax(dtype, tol):
+    """``blocked_qr_r(use_kernel=True)`` on a batch of TSQR-like leaves with
+    N = 35 (two panels, 32 + 3, each a strided column block factored in
+    place) against JAX's ``blocked_qr_r(use_kernel=True)``, its Pallas
+    kernel in interpret mode; and against the port's plain path."""
+    rng = np.random.default_rng(35)
+    a = rng.normal(size=(2, 64, 35)).astype(dtype)
+    got = tpp.blocked_qr_r(torch.as_tensor(a), use_kernel=True)
+    plain = tpp.blocked_qr_r(torch.as_tensor(a))
+    assert got.dtype == torch.as_tensor(a).dtype
+    for i in range(a.shape[0]):
+        want = np.asarray(jax.jit(functools.partial(
+            jpp.blocked_qr_r, use_kernel=True))(jnp.asarray(a[i])))
+        np.testing.assert_allclose(got[i].numpy(), want, atol=tol)
+        np.testing.assert_allclose(plain[i].numpy(), want, atol=tol)
+
+
+@pytest.mark.parametrize("n,panel,formed", [(35, 32, 1), (12, 4, 2),
+                                            (8, 8, 0)])
+def test_blocked_qr_r_forms_t_only_before_a_trailing_update(monkeypatch, n,
+                                                           panel, formed):
+    """The plain path forms a panel's T only when a trailing update follows
+    it: never for the last panel."""
+    calls = []
+    real = tpp._panel_to_wy
+
+    def counting(v, beta):
+        calls.append(v.shape)
+        return real(v, beta)
+
+    monkeypatch.setattr(tpp, "_panel_to_wy", counting)
+    a = torch.as_tensor(np.random.default_rng(n).normal(size=(40, n)))
+    r = tpp.blocked_qr_r(a, panel=panel)
+    assert len(calls) == formed
+    np.testing.assert_allclose(r.numpy().T @ r.numpy(), a.numpy().T @ a.numpy(),
+                               atol=1e-9)

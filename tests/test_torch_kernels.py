@@ -28,7 +28,9 @@ from repro.kernels.node_fused import ref as jnf_ref
 from repro.kernels.panel_qr import kernel as jpq_kernel
 from repro.kernels.panel_qr import ref as jpq_ref
 from repro.core import heads_tails as jht
+from repro.core import postprocess as jpp
 from repro_torch.core import heads_tails as tht
+from repro_torch.core import postprocess as tpp
 from repro_torch.kernels import _platform
 from repro_torch.kernels.head_tail import ops as ht_ops
 from repro_torch.kernels.head_tail import ref as ht_ref
@@ -36,6 +38,7 @@ from repro_torch.kernels.node_fused import ops as nf_ops
 from repro_torch.kernels.node_fused import ref as nf_ref
 from repro_torch.kernels.panel_qr import kernel as pq_kernel
 from repro_torch.kernels.panel_qr import ops as pq_ops
+from repro_torch.kernels.panel_qr import ref as pq_ref
 
 TOL = {np.float32: {"nf": 1e-5, "pq": 1e-4}, np.float64: {"nf": 1e-9,
                                                           "pq": 1e-9}}
@@ -333,37 +336,141 @@ def test_panel_qr_batched(dtype):
         np.testing.assert_allclose(r_b[i].numpy(), np.asarray(r_j), atol=tol)
 
 
-@pytest.mark.parametrize("m,nb,itemsize,want", [
-    (256, 32, 8, "smem"),    # TSQR leaves
-    (877, 32, 8, "smem"),    # the widest float64 panel one block holds
-    (878, 32, 8, "gmem"),
-    (1024, 32, 8, "gmem"),   # the TSQR combine at N = 512
-    (4096, 32, 8, "gmem"),
-    (1024, 32, 4, "smem"),   # float32 holds twice the rows
-    (4096, 32, 4, "gmem"),
+def _kernel_order_panel(a: torch.Tensor):
+    """The CUDA kernel's arithmetic order on one [m, nb] panel, in the I/O
+    type: the panel in LAPACK's compact storage (R on and above the
+    diagonal, the earlier reflectors below it), so one product u = vᵀP per
+    step gives z = V[:, :k]ᵀv (u[:k]) for T's column and w = vᵀA (u[k:]) for
+    the update; v'v reduced beside it; R[k, k] by the update; T[:k, k] =
+    −β·T[:k, :k]·z. Returns (V, beta, R, T)."""
+    p = a.clone()
+    m, nb = p.shape
+    steps = min(m, nb)
+    rows = torch.arange(m)
+    zero = torch.zeros((), dtype=a.dtype)
+    t = torch.zeros((nb, nb), dtype=a.dtype)
+    betas = torch.zeros(nb, dtype=a.dtype)
+    diag = torch.zeros(nb, dtype=a.dtype)
+    for k in range(steps):
+        x = p[:, k].clone()
+        below = torch.where(rows >= k, x, zero)
+        sigma = torch.sqrt((below * below).sum())
+        xk = x[k]
+        sgn = 1.0 if bool(xk >= 0) else -1.0
+        vk = xk - (-sgn * sigma)
+        v = torch.where(rows > k, x, torch.where(rows == k, vk, zero))
+        safe = bool(vk.abs() > 0)
+        if safe:
+            v = v / vk
+        u = v @ p
+        vv = (v * v).sum()
+        beta = 2.0 / vv if bool(vv > 0) else zero
+        t[:k, k] = -beta * (t[:k, :k] @ u[:k])
+        t[k, k] = beta
+        betas[k] = beta
+        diag[k] = 1.0 if safe else 0.0
+        c = beta * v
+        p[:, k + 1:] -= c[:, None] * u[None, k + 1:]
+        p[k, k] -= c[k] * u[k]
+        p[k + 1:, k] = v[k + 1:]
+    v_out = torch.tril(p, -1)
+    v_out[:, steps:] = 0
+    v_out[:steps, :steps] += torch.diag(diag[:steps])
+    return v_out, betas, torch.triu(p), t
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("m,nb", [(256, 32), (224, 3), (70, 32), (38, 3),
+                                  (5, 8)])
+def test_panel_qr_kernel_order_matches_pallas(dtype, m, nb):
+    """The kernel's order of arithmetic (T built from z, v'v reduced with w,
+    R's diagonal by the update), emulated on the CPU, against the Pallas
+    kernel (V, beta, R) and the plain T, at the panel tolerance."""
+    rng = np.random.default_rng(m + nb)
+    a = rng.normal(size=(m, nb)).astype(dtype)
+    v_j, b_j, r_j = jpq_kernel.panel_qr_kernel(jnp.asarray(a), interpret=True)
+    v_e, b_e, r_e, t_e = _kernel_order_panel(_t(a))
+    a_p = _t(a).clone()
+    _, _, t_p = pq_ops.panel_qr_wy(a_p)
+    tol = TOL[dtype]["pq"]
+    for g, want in zip((v_e, b_e, r_e), (v_j, b_j, r_j)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(want), atol=tol)
+    np.testing.assert_allclose(t_e.numpy(), t_p.numpy(), atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("m,nb,lda", [(70, 32, 35), (38, 3, 3), (40, 16, 20),
+                                      (5, 8, 8)])
+def test_panel_qr_wy_ref_writes_r_and_forms_t(dtype, m, nb, lda):
+    """`panel_qr_wy_ref` on a strided column block: V and beta as
+    `panel_qr_ref`, R left in the block (the rest of the matrix untouched),
+    and T = `_panel_to_wy` (V, beta), which equals the JAX package's T of
+    its Pallas kernel's reflectors."""
+    rng = np.random.default_rng(m * lda)
+    full = _t(rng.normal(size=(2, m, lda)).astype(dtype))
+    orig = full.clone()
+    block = full[:, :, :nb]
+    v_w, b_w, t_w = pq_ops.panel_qr_wy(block)
+    v_r, b_r, r_r = pq_ref.panel_qr_ref(orig[:, :, :nb])
+    np.testing.assert_array_equal(v_w.numpy(), v_r.numpy())
+    np.testing.assert_array_equal(b_w.numpy(), b_r.numpy())
+    np.testing.assert_array_equal(full[:, :, :nb].numpy(), r_r.numpy())
+    np.testing.assert_array_equal(full[:, :, nb:].numpy(),
+                                  orig[:, :, nb:].numpy())
+    np.testing.assert_array_equal(
+        t_w.numpy(), tpp._panel_to_wy(v_r, b_r).numpy())
+    tol = TOL[dtype]["pq"]
+    for i in range(2):
+        v_j, b_j, _ = jpq_kernel.panel_qr_kernel(
+            jnp.asarray(orig[i, :, :nb].numpy()), interpret=True)
+        np.testing.assert_allclose(t_w[i].numpy(), np.asarray(
+            jpp._panel_to_wy(v_j, b_j)), atol=tol)
+
+
+@pytest.mark.parametrize("m,want", [
+    (38, "reg"),        # TSQR combine remainder panels
+    (256, "reg"),       # TSQR leaves: one block, one row per thread
+    (257, "cluster"),
+    (1024, "cluster"),  # the TSQR combine at N = 512: four CTAs
+    (4096, "cluster"),  # sixteen CTAs, the largest cluster
+    (4097, "gmem"),
+    (24_117_248, "gmem"),  # a whole R0 (method="blocked")
 ])
-def test_panel_qr_variant_by_size(m, nb, itemsize, want):
-    """The wrapper's choice between its two kernels, from the panel's size
-    alone: shared memory up to one block's 227 KiB, device memory above."""
-    assert pq_kernel.variant(m, nb, itemsize) == want
-    fits = pq_kernel.smem_bytes(m, nb, itemsize) <= pq_kernel.SMEM_LIMIT
-    assert fits == (want == "smem")
+def test_panel_qr_variant_by_size(m, want):
+    """The wrapper's choice between its kernels, from the panel's height
+    alone: one block up to 256 rows, a cluster of up to 16 blocks up to
+    4,096, device memory above."""
+    assert pq_kernel.variant(m) == want
+    cs = pq_kernel.cluster_size(m)
+    assert (cs == 1) == (want == "reg")
+    assert (cs <= pq_kernel.MAX_CLUSTER) == (want != "gmem")
+    assert pq_kernel.kernel_name(want) == f"panel_qr_{want}"
 
 
 def test_panel_qr_size_function_mirrors_the_cuda_source():
-    """`smem_bytes` and `SMEM_LIMIT` are the CUDA source's ``smem_bytes``
-    and ``kMaxSmem``, so the choice made here is the one the library would
-    make."""
+    """`variant`, `CTA_ROWS`, `MAX_CLUSTER` and `MAX_NB` are the CUDA
+    source's ``pq_variant_of``, ``kCtaRows``, ``kMaxCluster`` and
+    ``kMaxNb``, and `cluster_size` its launch's CTA count, so the choice
+    made here is the one the library makes."""
     src = (pathlib.Path(pq_kernel.__file__).resolve().parents[2] / "csrc"
            / "panel_qr.cu").read_text()
-    assert "return (nb * (m + 1) + m + 33 + nb) * elem;" in src
-    assert f"kMaxSmem = {pq_kernel.SMEM_LIMIT};" in src
-    assert pq_kernel.smem_bytes(10, 3, 8) == (3 * 11 + 10 + 33 + 3) * 8
+    assert f"kCtaRows = {pq_kernel.CTA_ROWS};" in src
+    assert f"kMaxCluster = {pq_kernel.MAX_CLUSTER};" in src
+    assert f"kMaxNb = {pq_kernel.MAX_NB};" in src
+    assert "if (m <= kCtaRows) return kReg;" in src
+    assert ("if (m <= (int64_t)kCtaRows * kMaxCluster) return kCluster;"
+            in src)
+    assert "const int cs = (m + kCtaRows - 1) / kCtaRows;" in src
+    assert f"constexpr int kNoClusterFits = {pq_kernel.NO_CLUSTER_FITS};" \
+        in src
+    assert pq_kernel.cluster_size(1024) == 4
 
 
 def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="no kernel"):
         pq_ops.panel_qr(torch.zeros(4, 4, device="meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        pq_ops.panel_qr_wy(torch.zeros(4, 4, device="meta"))
     z = torch.zeros(4, 2, device="meta")
     v = torch.zeros(4, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
