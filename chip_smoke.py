@@ -20,8 +20,12 @@ result line):
   3. kernels  — each kernel against its plain PyTorch version on the card:
                 node_fused on random segments that straddle its tiles, with
                 dead rows; panel_qr's cluster variant on random full-rank
-                float64 panels [4, 1024, 32] and [2, 4096, 32] and its
-                device-memory variant on [1, 8192, 32], elementwise; then
+                float64 panels [4, 1024, 32] and [2, 4096, 32] and its grid
+                variant on [1, 8192, 32], [3, 5000, 32] and
+                [1, 1,048,579, 32] in float64 and float32, elementwise, and
+                on a rank-deficient [1, 6000, 32] panel (repeated columns,
+                zero rows) held on RᵀR and `reflector_error`, each beside
+                ``torch.geqrf``; then
                 every node_fused and panel_qr call of one ``qr`` dispatch of
                 the configuration below, captured with its real inputs (the
                 TSQR leaf panels [B, 256, 32], strided column blocks of the
@@ -59,14 +63,14 @@ result line):
                 ``panel_qr_cluster``). R against ``use_kernel=False`` at
                 1e-9 relative; the variant's captured calls against the
                 plain version and ``torch.geqrf``.
-  5b. tall    — a float64 ``qr`` with ``method="blocked"`` over
-                ``yelp_like(scale=40_000, cols=16)``: its panels are the
-                whole R₀ (3.4·10⁵ rows at capacity), taller than the largest
-                cluster,
-                and go to panel_qr's device-memory variant
-                (``panel_qr_gmem``); R against ``use_kernel=False`` at 1e-9
-                relative, the captured calls against the plain version and
-                ``torch.geqrf``.
+  5b. tall    — a float64 ``qr`` with ``method="blocked"`` over the
+                configuration of phase 4 (``--scale``): its two panels (32
+                and 3 columns) are the whole R₀ (2.4·10⁷ rows at capacity),
+                taller than the largest cluster, and go to panel_qr's grid
+                variant (``panel_qr_grid``); R against ``use_kernel=False``
+                at 1e-9 relative, the captured calls against the plain
+                version and ``torch.geqrf``, and the phase's peak device
+                memory.
   6. tails    — ``segmented_head_tail(use_kernel=True)`` at the two largest
                 node passes of the configuration above (Review's 8.4 M × 1
                 and User's 524 k × 18 at capacity), float32 and float64,
@@ -148,7 +152,7 @@ KERNELS = {
                  "src/repro/kernels/panel_qr/kernel.py:71"),
     "panel_qr_cluster": ("src/repro_torch/csrc/panel_qr.cu",
                          "src/repro/kernels/panel_qr/kernel.py:71"),
-    "panel_qr_gmem": ("src/repro_torch/csrc/panel_qr.cu",
+    "panel_qr_grid": ("src/repro_torch/csrc/panel_qr.cu",
                       "src/repro/kernels/panel_qr/kernel.py:71"),
     "segmented_tail": ("src/repro_torch/csrc/head_tail.cu",
                        "src/repro/kernels/head_tail/kernel.py:68"),
@@ -162,7 +166,6 @@ FLASH_DTYPES = {"flash_attention_sm90": ["bfloat16"],
                 "flash_attention_scalar": ["float32", "float64"]}
 LM32_BLOCKS = 2  # depth of the float32 eval path (the scalar flash kernel)
 WIDE_COLS = (170, 171, 171)  # data columns of the wide star: N = 512
-TALL_SCALE = 40_000  # yelp_like scale of the method="blocked" path
 LM_BATCH, LM_SEQ = 2, 4096  # SHAPES["train_4k"]'s sequence, batch cut to 2
 
 
@@ -255,16 +258,19 @@ def phase_build() -> dict:
         for line in out.splitlines():
             if "Compiling entry function" in line:
                 m = re.search(r"flash_fwd_sm90ILi(\d+)E", line)
-                pq = re.search(r"(panel_qr_(?:reg|gmem)_kernel)I([fd])"
-                               r"(?:Li(\d+)ELi(\d+)ELb([01])E)?", line)
+                pq = re.search(r"panel_qr_reg_kernelI([fd])Li(\d+)ELi(\d+)"
+                               r"ELb([01])E", line)
+                grid = re.search(r"panel_qr_grid_kernelI([fd])Li(\d+)E", line)
                 if m:
                     entry = f"flash_fwd_sm90<hd {m[1]}>"
                 elif pq:
-                    typ = "float" if pq[2] == "f" else "double"
-                    entry = f"{pq[1]}<{typ}" + (
-                        f", nb {pq[3]}, {pq[4]} rows/thread"
-                        f"{', cluster' if pq[5] == '1' else ''}>" if pq[3]
-                        else ">")
+                    typ = "float" if pq[1] == "f" else "double"
+                    cluster = ", cluster" if pq[4] == "1" else ""
+                    entry = (f"panel_qr_reg_kernel<{typ}, nb {pq[2]}, "
+                             f"{pq[3]} rows/thread{cluster}>")
+                elif grid:
+                    typ = "float" if grid[1] == "f" else "double"
+                    entry = f"panel_qr_grid_kernel<{typ}, nb {grid[2]}>"
                 else:
                     entry = line.split("'")[1][:60]
             if "registers" in line or "spill" in line:
@@ -504,26 +510,35 @@ def strided_copy(a):
     return view
 
 
-def reflector_error(a, v, beta, r, chunk: int = 8192) -> float:
+def reflector_error(a, v, beta, r, elems: int = 2 ** 26) -> float:
     """How far the kernel's reflectors are from a valid factorization of
     ``a``: the larger of max |Qᵀ·A − R| / max(1, max |A|), with Q = H₁…H_nb
     rebuilt from (V, beta) in compact-WY form, and max |β·vᵀv − 2| over the
-    reflectors with β ≠ 0 (each H = I − β·v·vᵀ orthogonal). In float64,
-    over the batch in chunks."""
-    from repro_torch.core.postprocess import _apply_wy, _panel_to_wy
+    reflectors with β ≠ 0 (each H = I − β·v·vᵀ orthogonal). In float64, in
+    chunks of panels and of rows of about ``elems`` elements, so a whole R₀
+    needs no copy of its size."""
+    from repro_torch.core.postprocess import _panel_to_wy
 
     m, nb = a.shape[-2:]
     a, v, r = (x.reshape(-1, m, nb) for x in (a, v, r))
     beta = beta.reshape(-1, nb)
+    panels = max(1, min(8192, elems // (m * nb)))
+    rows = max(1, elems // (panels * nb))
     worst = 0.0
-    for lo in range(0, a.shape[0], chunk):
-        sl = slice(lo, lo + chunk)
-        ac, vc, bc, rc = (x[sl].double() for x in (a, v, beta, r))
-        qa = _apply_wy(ac, vc, _panel_to_wy(vc, bc))
-        scale = max(1.0, float(ac.abs().max()))
-        orth = (bc * (vc * vc).sum(dim=-2) - 2).abs() * (bc != 0)
-        worst = max(worst, float((qa - rc).abs().max()) / scale,
-                    float(orth.max()))
+    for lo in range(0, a.shape[0], panels):
+        sl = slice(lo, lo + panels)
+        bc = beta[sl].double()
+        parts = [(a[sl, i:i + rows].double(), v[sl, i:i + rows].double(),
+                  r[sl, i:i + rows]) for i in range(0, m, rows)]
+        w = sum(vc.mT @ ac for ac, vc, _ in parts)  # VᵀA
+        tw = _panel_to_wy(v[sl].double(), bc).mT @ w
+        vv = sum((vc * vc).sum(dim=-2) for _, vc, _ in parts)
+        scale = max(1.0, max(float(ac.abs().max()) for ac, _, _ in parts))
+        err = max(float((ac - vc @ tw - rc.double()).abs().max())
+                  for ac, vc, rc in parts)
+        orth = (bc * vv - 2).abs() * (bc != 0)
+        worst = max(worst, err / scale, float(orth.max()))
+        del parts
     return worst
 
 
@@ -673,32 +688,53 @@ def gram_check_small(torch_dtype):
     return rel
 
 
-# -- phase 3 (wide panels, flash cases) ----------------------------------------
+# -- phase 3 (random panels, flash cases) --------------------------------------
 
-def check_wide_panels() -> float:
-    """panel_qr's cluster and device-memory variants on random full-rank
-    float64 panels, elementwise (V, beta, R) against the plain version and
-    T against `_panel_to_wy` of the kernel's own V and beta."""
+def check_random_panels() -> dict:
+    """panel_qr's cluster and grid variants on random full-rank panels,
+    elementwise (V, beta, R) against the plain version and T against
+    `_panel_to_wy` of the kernel's own V and beta (the cluster cases in
+    float64, the grid ones in float64 and float32), and the grid variant on
+    a rank-deficient panel (repeated columns, zero rows), held on RᵀR and
+    `reflector_error`; each beside ``torch.geqrf``. Returns the `measure`
+    result of each case by label."""
     import torch
     from repro_torch.kernels.panel_qr import kernel as pk
 
-    worst = 0.0
-    for shape, kind in (((4, 1024, 32), "cluster"), ((2, 4096, 32), "cluster"),
-                        ((1, 8192, 32), "gmem")):
+    f32, f64 = torch.float32, torch.float64
+    cases = [((4, 1024, 32), f64, False), ((2, 4096, 32), f64, False)]
+    cases += [(shape, dt, False) for dt in (f64, f32)
+              for shape in ((1, 8192, 32), (3, 5000, 32), (1, 1_048_579, 32))]
+    cases += [((1, 6000, 32), dt, True) for dt in (f64, f32)]
+    out = {}
+    for shape, dt, deficient in cases:
         g = torch.Generator(device="cuda").manual_seed(shape[1])
-        a = torch.randn(*shape, generator=g, device="cuda",
-                        dtype=torch.float64)
-        check(pk.variant(shape[1]) == kind,
-              f"panel {shape} takes the {kind} variant")
-        tol = TOL[("panel_qr", "float64")]
+        a = torch.randn(*shape, generator=g, device="cuda", dtype=dt)
+        if deficient:
+            a[:, :, 16:] = a[:, :, :16]
+            a[:, 100:300] = 0
+        kind = pk.variant(shape[1])
+        name = str(dt).split(".")[1]
+        tol = TOL[("panel_qr", name)]
+        compare, limits = panel_qr_full_compare, {"max_rel_err": tol,
+                                                  "t_rel_err": tol}
+        if deficient:
+            compare = panel_qr_compare
+            limits = dict(limits, reflectors=tol)
         res = measure([((a,), {})], wy_kernel, wy_plain, panel_qr_cost,
-                      panel_qr_full_compare, "float64", library=geqrf,
-                      reps=3, fresh=wy_fresh)
-        report(f"panel_qr ({kind} variant) random float64 {list(shape)}, "
-               f"V, beta, R, T", res, {"max_rel_err": tol, "t_rel_err": tol},
-               library="torch.geqrf")
-        worst = max(worst, res["max_rel_err"], res["t_rel_err"])
-    return worst
+                      compare, name, library=geqrf, reps=3, fresh=wy_fresh)
+        label = (f"panel_qr ({kind} variant) "
+                 f"{'rank-deficient' if deficient else 'random'} {name} "
+                 f"{list(shape)}")
+        report(label + (", R'R, reflectors, T" if deficient
+                        else ", V, beta, R, T"),
+               res, limits, library="torch.geqrf")
+        out[label] = {k: res[k] for k in ("max_rel_err", "t_rel_err",
+                                          "reflectors", "ms", "library_ms")
+                      if k in res}
+        del a
+        torch.cuda.empty_cache()
+    return out
 
 
 def visible_pairs(q_pos, k_pos, causal: bool, window) -> int:
@@ -1156,7 +1192,7 @@ def main(argv=None) -> int:
 
     log("== phase 3: kernels against their plain versions")
     check_random_segments()
-    wide_panel_err = check_wide_panels()
+    random_panels = check_random_panels()
     flash_case_err = check_flash_cases()
     t0 = time.perf_counter()
     tree = yelp_like(scale=args.scale, cols=16)
@@ -1255,7 +1291,7 @@ def main(argv=None) -> int:
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB; elapsed {time.perf_counter() - t_start:.1f} s")
 
-    del sess, plain, plan, tree, cap_plan, r32, r_k, r_p
+    del sess, plain, tree, cap_plan, r32, r_k, r_p
     torch.cuda.empty_cache()
 
     log("== phase 5: wide N")
@@ -1264,9 +1300,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     log("== phase 5b: method=\"blocked\" (tall panels)")
-    tall = phase_panels("tall", build_plan(yelp_like(scale=TALL_SCALE,
-                                                     cols=16)),
-                        "gmem", method="blocked")
+    torch.cuda.reset_peak_memory_stats()
+    tall = phase_panels("tall", plan, "grid", method="blocked")
+    tall["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"tall phase: peak device memory {tall['peak_gib']:.2f} GiB")
+    del plan
     torch.cuda.empty_cache()
 
     log("== phase 6: segmented tails")
@@ -1289,7 +1327,7 @@ def main(argv=None) -> int:
                      per_dtype["float64"]["panel_qr"], "float32"),
         "panel_qr_cluster": (wide["launches"], wide["panels"], None,
                              "float64"),
-        "panel_qr_gmem": (tall["launches"], tall["panels"], None, "float64"),
+        "panel_qr_grid": (tall["launches"], tall["panels"], None, "float64"),
         "segmented_tail": (tails["launches"], tails["float32"],
                            tails["float64"], "float32"),
         "flash_attention_sm90": (lm["launches"], lm["flash"], None,
@@ -1315,7 +1353,7 @@ def main(argv=None) -> int:
             entry["launches_per_qr"] = per_qr.get(kname, 0)
         if kname == "panel_qr":
             entry["variant"] = "reg"
-        if kname in ("panel_qr_cluster", "panel_qr_gmem"):
+        if kname in ("panel_qr_cluster", "panel_qr_grid"):
             entry["launches_per_qr"] = (wide if kname == "panel_qr_cluster"
                                         else tall)["per_qr"].get(kname, 0)
         if kname in FLASH_DTYPES:
@@ -1345,11 +1383,13 @@ def main(argv=None) -> int:
                     "wide_r_rel_err_vs_unfused": wide["r_rel_err"],
                     "tall_r_rel_err_vs_unfused": tall["r_rel_err"],
                     "launches_per_qr": {"qr_f32": per_qr,
-                                        "wide_qr_f64": wide["per_qr"]},
+                                        "wide_qr_f64": wide["per_qr"],
+                                        "tall_blocked_qr_f64": tall["per_qr"]},
+                    "tall_peak_gib": tall["peak_gib"],
                     "profile_per_qr": {"qr_f32": prof_qr,
                                        "wide_qr_f64": wide["profile"],
                                        "tall_blocked_qr_f64": tall["profile"]},
-                    "wide_panel_rel_err": wide_panel_err,
+                    "random_panels": random_panels,
                     "flash_cases_bound_ratio": flash_case_err,
                     "lm32_eval_step_ms": lm32["step_ms"],
                     "lm32_loss": lm32["loss"],

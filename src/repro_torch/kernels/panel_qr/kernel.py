@@ -8,8 +8,11 @@ from the panel's height alone:
                ceil(m / `CTA_ROWS`) CTAs per panel, the partial sums crossing
                it through distributed shared memory, for m <=
                `CTA_ROWS` · `MAX_CLUSTER`;
-  ``gmem``     the panel in a device-memory scratch buffer
-               (``panel_qr_gmem_kernel``), for taller ones.
+  ``grid``     a cooperative grid of every co-resident CTA, each owning a
+               contiguous range of a panel's rows, one grid-wide reduction
+               per Householder step (``panel_qr_grid_kernel``), for taller
+               ones, up to a whole R₀; it works on the panel in place and
+               takes only a small workspace of partial sums (`grid_shape`).
 
 `variant` mirrors the source's ``pq_variant_of`` (`CTA_ROWS` and
 `MAX_CLUSTER` are its ``kCtaRows`` and ``kMaxCluster``), so the choice is
@@ -34,7 +37,7 @@ import torch
 from repro_torch.kernels import _build, _platform
 
 NAME = "panel_qr"
-VARIANTS = ("reg", "cluster", "gmem")  # by pq_variant's return value
+VARIANTS = ("reg", "cluster", "grid")  # by pq_variant's return value
 CTA_ROWS = 256     # rows of one CTA (kCtaRows)
 MAX_CLUSTER = 16   # CTAs of one panel (kMaxCluster)
 MAX_NB = 32        # widest panel (kMaxNb)
@@ -48,10 +51,13 @@ def _lib():
     lib = _build.library(NAME)
     if not getattr(lib, "_repro_bound", False):
         for fn in (lib.pq_wy_launch_f32, lib.pq_wy_launch_f64):
-            fn.argtypes = [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P]
+            fn.argtypes = [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P]
             fn.restype = ctypes.c_int
-        lib.pq_gmem_scratch_elems.argtypes = [_I, _I]
-        lib.pq_gmem_scratch_elems.restype = _I
+        lib.pq_grid_shape.argtypes = [_I, _I, _I, ctypes.c_int,
+                                      ctypes.POINTER(_I)]
+        lib.pq_grid_shape.restype = ctypes.c_int
+        lib.pq_error_name.argtypes = [ctypes.c_int]
+        lib.pq_error_name.restype = ctypes.c_char_p
         lib.pq_variant.argtypes = [_I]
         lib.pq_variant.restype = ctypes.c_int
         lib._repro_bound = True
@@ -69,15 +75,32 @@ def variant_of_build(m: int) -> str:
 
 
 def variant(m: int) -> str:
-    """``"reg"``, ``"cluster"`` or ``"gmem"`` for a panel of ``m`` rows."""
+    """``"reg"``, ``"cluster"`` or ``"grid"`` for a panel of ``m`` rows."""
     if m <= CTA_ROWS:
         return "reg"
-    return "cluster" if m <= CTA_ROWS * MAX_CLUSTER else "gmem"
+    return "cluster" if m <= CTA_ROWS * MAX_CLUSTER else "grid"
 
 
 def cluster_size(m: int) -> int:
     """CTAs per panel of the ``reg`` and ``cluster`` variants."""
     return -(-m // CTA_ROWS)
+
+
+def grid_shape(batch: int, m: int, nb: int, dtype: torch.dtype) -> dict:
+    """How the built ``grid`` variant lays ``batch`` panels [m, nb] over the
+    current card: its co-resident CTAs (``resident``), CTAs per panel
+    (``per``), panels at once (``wave``), rounds inside the launch
+    (``waves``) and the workspace it takes (``work_elems``, of ``dtype``)."""
+    out = (_I * 5)()
+    err = _lib().pq_grid_shape(batch, m, nb, int(dtype == torch.float64), out)
+    if err != 0:
+        raise RuntimeError(f"panel_qr (grid): {_error(err)}")
+    return dict(zip(("resident", "per", "wave", "waves", "work_elems"), out))
+
+
+def _error(err: int) -> str:
+    name = _lib().pq_error_name(err)
+    return f"CUDA error {err} ({name.decode() if name else 'unknown'})"
 
 
 def panel_qr_wy(a: torch.Tensor):
@@ -103,21 +126,22 @@ def panel_qr_wy(a: torch.Tensor):
         return v, beta.zero_(), t.zero_()
     lib = _lib()
     kind = variant(m)
-    scratch = None
-    if kind == "gmem":
-        scratch = torch.empty(batch * lib.pq_gmem_scratch_elems(m, nb),
-                              dtype=a.dtype, device=a.device)
+    work = None
+    if kind == "grid":
+        work = torch.empty(grid_shape(batch, m, nb, a.dtype)["work_elems"],
+                           dtype=a.dtype, device=a.device)
     fn = lib.pq_wy_launch_f64 if a.dtype == torch.float64 \
         else lib.pq_wy_launch_f32
     err = fn(a.data_ptr(), a.stride(1), a.stride(0), v.data_ptr(),
              beta.data_ptr(), t.data_ptr(),
-             0 if scratch is None else scratch.data_ptr(), batch, m, nb,
+             0 if work is None else work.data_ptr(),
+             0 if work is None else work.numel(), batch, m, nb,
              torch.cuda.current_stream(a.device).cuda_stream)
     if err == NO_CLUSTER_FITS:
         raise RuntimeError(f"panel_qr: no cluster of {cluster_size(m)} CTAs "
                            f"fits the card for a panel of {m} rows")
     if err != 0:
-        raise RuntimeError(f"panel_qr launch failed with CUDA error {err}")
+        raise RuntimeError(f"panel_qr ({kind}) launch failed: {_error(err)}")
     _platform.count_launch(NAME)
     _platform.count_launch(kernel_name(kind))
     return v, beta, t

@@ -10,7 +10,7 @@ Tolerances, relative to max(1, |plain|): float64 1e-9 and float32 1e-5
 (node_fused, segmented_tail) / 1e-4 (panel_qr, its T held to `_panel_to_wy`
 of the kernel's own V and beta) — the bounds the CPU suite holds the plain
 versions to against the JAX package. The panel_qr tests assert through the
-launch counts which variant (``panel_qr_reg``, ``_cluster``, ``_gmem``) ran. flash_attention,
+launch counts which variant (``panel_qr_reg``, ``_cluster``, ``_grid``) ran. flash_attention,
 elementwise: 2e-5 absolute in float32 and 1e-12 in float64 (the JAX
 package's own kernel-vs-oracle bound, tests/test_flash_kernel.py, and
 float64 rounding); in bfloat16 one bfloat16 step, |got − want| ≤
@@ -112,13 +112,17 @@ def test_panel_qr_kernel_matches_plain(dtype, b, m, nb):
 @pytest.mark.parametrize("b,m,nb,lda", [(7, 256, 32, 35), (6, 224, 3, 3),
                                         (5, 70, 32, 35), (4, 38, 3, 35),
                                         (3, 1024, 32, 512), (2, 4096, 32, 33),
-                                        (1, 544, 32, 32), (2, 5000, 32, 35)])
+                                        (1, 544, 32, 32), (2, 5000, 32, 35),
+                                        (1, 4097, 32, 35), (3, 5000, 8, 35),
+                                        (1, 100_003, 32, 35), (2, 6000, 3, 3),
+                                        (1, 5000, 9, 35), (2, 4500, 17, 20),
+                                        (1, 4100, 16, 16), (1, 4200, 24, 24)])
 def test_panel_qr_wy_kernel_matches_plain(dtype, b, m, nb, lda):
     """The in-place form on a strided column block of a wider matrix: R
     left in the block (the other columns untouched), V and beta as the
     plain version's (random full-rank panels, so they are unique), T equal
     to `_panel_to_wy` of the kernel's own V and beta, and the variant the
-    size picks, by the launch counts."""
+    size picks, by the launch counts (``panel_qr_grid`` above 4,096 rows)."""
     _need_card()
     g = torch.Generator(device="cuda").manual_seed(m + lda)
     full = torch.randn(b, m, lda, generator=g, device="cuda", dtype=dtype)
@@ -139,9 +143,9 @@ def test_panel_qr_wy_kernel_matches_plain(dtype, b, m, nb, lda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("b,m,nb", [(3, 1024, 32), (2, 4096, 32),
                                     (2, 900, 7), (1, 4500, 32)])
-def test_panel_qr_wide_panel_uses_device_memory_kernel(dtype, b, m, nb):
+def test_panel_qr_wide_panel_uses_cluster_or_grid_kernel(dtype, b, m, nb):
     """Panels taller than one block's 256 rows go to the cluster variant,
-    those taller than a 16-CTA cluster's 4,096 rows to the device-memory
+    those taller than a 16-CTA cluster's 4,096 rows to the cooperative grid
     variant (by the launch counts), and agree with the plain version
     (random full-rank panels)."""
     _need_card()
@@ -149,7 +153,7 @@ def test_panel_qr_wide_panel_uses_device_memory_kernel(dtype, b, m, nb):
     a = torch.randn(b, m, nb, generator=g, device="cuda", dtype=dtype)
     _platform.reset_launch_counts()
     got = pk.panel_qr(a)
-    want_kind = "cluster" if m <= 4096 else "gmem"
+    want_kind = "cluster" if m <= 4096 else "grid"
     assert _platform.launch_counts() == {"panel_qr": 1,
                                          f"panel_qr_{want_kind}": 1}
     want = pr.panel_qr_ref(a)
@@ -158,10 +162,63 @@ def test_panel_qr_wide_panel_uses_device_memory_kernel(dtype, b, m, nb):
         assert _rel(x, y) <= TOL[dtype]["pq"]
 
 
-@pytest.mark.parametrize("m", [1, 38, 256, 257, 1024, 4096, 4097, 100_000])
+@pytest.mark.parametrize("m", [1, 38, 256, 257, 1024, 4096, 4097, 100_000,
+                               24_117_248])
 def test_panel_qr_variant_mirror_matches_the_build(m):
     _need_card()
     assert pk.variant_of_build(m) == pk.variant(m)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_panel_qr_grid_runs_batches_in_waves(dtype):
+    """A batch of 200 panels [4200, 8] is more than the card's co-resident
+    CTAs, so the grid variant factors it in waves inside its one launch;
+    every panel agrees with the plain version."""
+    _need_card()
+    b, m, nb = 200, 4200, 8
+    shape = pk.grid_shape(b, m, nb, dtype)
+    assert shape["per"] == 1 and shape["waves"] > 1
+    g = torch.Generator(device="cuda").manual_seed(b + m)
+    a = torch.randn(b, m, nb, generator=g, device="cuda", dtype=dtype)
+    orig = a.clone()
+    _platform.reset_launch_counts()
+    v, beta, t = pk.panel_qr_wy(a)
+    assert _platform.launch_counts() == {"panel_qr": 1, "panel_qr_grid": 1}
+    v_p, beta_p, r_p = pr.panel_qr_ref(orig)
+    torch.cuda.synchronize()
+    tol = TOL[dtype]["pq"]
+    assert _rel(a, r_p) <= tol
+    assert _rel(v, v_p) <= tol and _rel(beta, beta_p) <= tol
+    assert _rel(t, postprocess._panel_to_wy(v.double(), beta.double())) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_panel_qr_grid_rank_deficient_panel(dtype):
+    """A tall panel with repeated columns and zero rows: R, V and beta are
+    not unique there, so R is held on RᵀR against the plain version's and
+    (V, beta) on the factorization they define — Qᵀ·A = R with
+    Q = H₁…H_nb, and β·vᵀv = 2 for every reflector with β ≠ 0."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(6000)
+    full = torch.randn(1, 6000, 35, generator=g, device="cuda", dtype=dtype)
+    full[:, :, 16:32] = full[:, :, :16]
+    full[:, 100:300] = 0
+    a = full[:, :, :32]
+    orig = a.clone()
+    _platform.reset_launch_counts()
+    v, beta, t = pk.panel_qr_wy(a)
+    assert _platform.launch_counts() == {"panel_qr": 1, "panel_qr_grid": 1}
+    _, _, r_p = pr.panel_qr_ref(orig)
+    torch.cuda.synchronize()
+    tol = TOL[dtype]["pq"]
+    gram = lambda r: r.double().mT @ r.double()
+    assert _rel(gram(a), gram(r_p)) <= tol
+    x, vd, bd = orig.double(), v.double(), beta.double()
+    qa = postprocess._apply_wy(x, vd, postprocess._panel_to_wy(vd, bd))
+    assert _rel(qa, a) <= tol
+    orth = (bd * (vd * vd).sum(dim=-2) - 2).abs() * (bd != 0)
+    assert float(orth.max()) <= tol
+    assert _rel(t, postprocess._panel_to_wy(vd, bd)) <= tol
 
 
 def _no_panel_to_wy(*args):

@@ -218,6 +218,22 @@ def test_blocked_qr_r_kernel_path_matches_jax(dtype, tol):
         np.testing.assert_allclose(plain[i].numpy(), want, atol=tol)
 
 
+def test_blocked_qr_r_tall_panels_match_jax():
+    """``blocked_qr_r(use_kernel=True)`` on one R₀-like [4500, 35] float64
+    matrix — the tall path's two panels (32 + 3 columns), each taller than
+    4,096 rows, the height at which the card takes panel_qr's grid variant
+    — against JAX's ``blocked_qr_r(use_kernel=True)``, its Pallas kernel in
+    interpret mode: 1e-9 relative after ``normalize_sign``."""
+    rng = np.random.default_rng(4500)
+    a = rng.normal(size=(4500, 35)) * rng.uniform(0.5, 2.0, size=35)
+    got = tpp.normalize_sign(tpp.blocked_qr_r(torch.as_tensor(a),
+                                              use_kernel=True))
+    want = np.asarray(jpp.normalize_sign(jax.jit(functools.partial(
+        jpp.blocked_qr_r, use_kernel=True))(jnp.asarray(a))))
+    err = np.abs(got.numpy() - want).max() / np.abs(want).max()
+    assert err <= 1e-9
+
+
 @pytest.mark.parametrize("n,panel,formed", [(35, 32, 1), (12, 4, 2),
                                             (8, 8, 0)])
 def test_blocked_qr_r_forms_t_only_before_a_trailing_update(monkeypatch, n,

@@ -398,6 +398,106 @@ def test_panel_qr_kernel_order_matches_pallas(dtype, m, nb):
     np.testing.assert_allclose(t_e.numpy(), t_p.numpy(), atol=tol)
 
 
+def _grid_order_panel(a: torch.Tensor, per: int, inner: int = 8):
+    """The grid variant's arithmetic on one [m, nb] panel (m ≥ nb) spread
+    over ``per`` CTAs of contiguous row ranges, in the I/O type. Columns go
+    in inner blocks of ``inner``. Step k's tail sums h[j] = Σ_{i > k} x_i·P[i, j]
+    over the block's columns and its pivot row are summed over the CTAs in
+    order; α, v_p, v'v = h[k]/v_p² + 1 and u = h/v_p + P[k, :] come from them,
+    and the step updates the block's columns ≥ k only, column k keeping v
+    below the diagonal. A block's end sums V_bᵀ[V A] (V up to the block's
+    end, A right of it) over the CTAs: the block's rows of the Gram VᵀV and
+    V_bᵀA. It forms T_b and applies the block to the columns right of it,
+    A −= V_b·T_bᵀ·V_bᵀA. The last block's rows of VᵀV come from the last
+    step, and T from VᵀV. Returns (V, beta, R, T)."""
+    p = a.clone()
+    m, nb = p.shape
+    rows_per = -(-m // per)
+    ranges = [(min(m, r * rows_per), min(m, (r + 1) * rows_per))
+              for r in range(per)]
+    rows = torch.arange(m)
+    zero = torch.zeros((), dtype=a.dtype)
+
+    def over_ctas(f):
+        total = f(*ranges[0])
+        for lo, hi in ranges[1:]:
+            total = total + f(lo, hi)
+        return total
+
+    def sums(k, hi):
+        tail = torch.where(rows > k, p[:, k], zero)
+        h = torch.zeros(nb, dtype=a.dtype)
+        h[k:hi] = over_ctas(lambda lo, up: tail[lo:up] @ p[lo:up, k:hi])
+        return h, p[k].clone()
+
+    def t_of(gram, betas):
+        t = torch.zeros_like(gram)
+        for k in range(len(betas)):
+            t[:k, k] = -betas[k] * (t[:k, :k] @ gram[:k, k])
+            t[k, k] = betas[k]
+        return t
+
+    betas = torch.zeros(nb, dtype=a.dtype)
+    diag = torch.zeros(nb, dtype=a.dtype)
+    gram = torch.zeros((nb, nb), dtype=a.dtype)
+    blocks = [(j0, min(j0 + inner, nb)) for j0 in range(0, nb, inner)]
+    h, piv = sums(0, blocks[0][1])
+    for j0, hi in blocks:
+        for k in range(j0, hi):
+            xp, hk = piv[k], h[k]
+            sigma = torch.sqrt(hk + xp * xp)
+            sgn = 1.0 if bool(xp >= 0) else -1.0
+            vk = xp - (-sgn * sigma)
+            safe = bool(vk.abs() > 0)
+            inv = 1.0 / vk if safe else torch.ones((), dtype=a.dtype)
+            vv = hk * inv * inv + 1.0 if safe else hk + vk * vk
+            u = h * inv + piv if safe else h + vk * piv
+            betas[k] = 2.0 / vv if bool(vv > 0) else zero
+            diag[k] = 1.0 if safe else vk
+            vi = torch.where(rows > k, p[:, k] * inv,
+                             torch.where(rows == k, diag[k], zero))
+            bu = betas[k] * u
+            p[k:, k + 1:hi] -= vi[k:, None] * bu[None, k + 1:hi]
+            p[k, k] -= vi[k] * bu[k]
+            p[k + 1:, k] = vi[k + 1:]
+            if k + 1 < hi:
+                h, piv = sums(k + 1, hi)
+        v_left = torch.tril(p[:, :hi], -1)
+        v_left[:hi] += torch.diag(diag[:hi])
+        vb = v_left[:, j0:]
+        s = over_ctas(lambda lo, up: vb[lo:up].T @ torch.cat(
+            [v_left[lo:up], p[lo:up, hi:]], dim=1))
+        gram[j0:hi] = s[:, :nb]
+        if hi < nb:
+            t_b = t_of(s[:, j0:hi], betas[j0:hi])
+            p[j0:, hi:] -= vb[j0:] @ (t_b.T @ s[:, hi:])
+            h, piv = sums(hi, min(hi + inner, nb))
+    v_out = torch.tril(p, -1)
+    v_out[:nb] += torch.diag(diag)
+    return v_out, betas, torch.triu(p), t_of(gram.T, betas)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("m,nb,per", [(300, 32, 5), (131, 3, 4), (90, 16, 7),
+                                      (9, 9, 4)])
+def test_panel_qr_grid_order_matches_pallas(dtype, m, nb, per):
+    """The grid variant's order of arithmetic (look-ahead tail sums and
+    pivot row per CTA, added in order; u and v'v from them; inner blocks of
+    8 columns applied to the columns right of them in compact-WY form; T
+    from VᵀV, a block's rows at a time), emulated on the CPU, against the Pallas kernel (V, beta, R)
+    and the plain T, at the panel tolerance. (9, 9, 4) has a one-column
+    last block and a CTA without rows."""
+    rng = np.random.default_rng(m * per + nb)
+    a = rng.normal(size=(m, nb)).astype(dtype)
+    v_j, b_j, r_j = jpq_kernel.panel_qr_kernel(jnp.asarray(a), interpret=True)
+    v_e, b_e, r_e, t_e = _grid_order_panel(_t(a), per)
+    _, _, t_p = pq_ops.panel_qr_wy(_t(a).clone())
+    tol = TOL[dtype]["pq"]
+    for g, want in zip((v_e, b_e, r_e), (v_j, b_j, r_j)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(want), atol=tol)
+    np.testing.assert_allclose(t_e.numpy(), t_p.numpy(), atol=tol)
+
+
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("m,nb,lda", [(70, 32, 35), (38, 3, 3), (40, 16, 20),
                                       (5, 8, 8)])
@@ -433,25 +533,26 @@ def test_panel_qr_wy_ref_writes_r_and_forms_t(dtype, m, nb, lda):
     (257, "cluster"),
     (1024, "cluster"),  # the TSQR combine at N = 512: four CTAs
     (4096, "cluster"),  # sixteen CTAs, the largest cluster
-    (4097, "gmem"),
-    (24_117_248, "gmem"),  # a whole R0 (method="blocked")
+    (4097, "grid"),
+    (24_117_248, "grid"),  # a whole R0 (method="blocked")
 ])
 def test_panel_qr_variant_by_size(m, want):
     """The wrapper's choice between its kernels, from the panel's height
     alone: one block up to 256 rows, a cluster of up to 16 blocks up to
-    4,096, device memory above."""
+    4,096, a cooperative grid above."""
     assert pq_kernel.variant(m) == want
     cs = pq_kernel.cluster_size(m)
     assert (cs == 1) == (want == "reg")
-    assert (cs <= pq_kernel.MAX_CLUSTER) == (want != "gmem")
+    assert (cs <= pq_kernel.MAX_CLUSTER) == (want != "grid")
     assert pq_kernel.kernel_name(want) == f"panel_qr_{want}"
 
 
 def test_panel_qr_size_function_mirrors_the_cuda_source():
     """`variant`, `CTA_ROWS`, `MAX_CLUSTER` and `MAX_NB` are the CUDA
     source's ``pq_variant_of``, ``kCtaRows``, ``kMaxCluster`` and
-    ``kMaxNb``, and `cluster_size` its launch's CTA count, so the choice
-    made here is the one the library makes."""
+    ``kMaxNb``, `VARIANTS` is in the order of its ``Variant`` enum, and
+    `cluster_size` is its launch's CTA count, so the choice made here is
+    the one the library makes."""
     src = (pathlib.Path(pq_kernel.__file__).resolve().parents[2] / "csrc"
            / "panel_qr.cu").read_text()
     assert f"kCtaRows = {pq_kernel.CTA_ROWS};" in src
@@ -460,6 +561,9 @@ def test_panel_qr_size_function_mirrors_the_cuda_source():
     assert "if (m <= kCtaRows) return kReg;" in src
     assert ("if (m <= (int64_t)kCtaRows * kMaxCluster) return kCluster;"
             in src)
+    assert "  return kGrid;\n}" in src
+    assert pq_kernel.VARIANTS == ("reg", "cluster", "grid")
+    assert "enum Variant { kReg = 0, kCluster = 1, kGrid = 2 };" in src
     assert "const int cs = (m + kCtaRows - 1) / kCtaRows;" in src
     assert f"constexpr int kNoClusterFits = {pq_kernel.NO_CLUSTER_FITS};" \
         in src
