@@ -18,19 +18,25 @@ result line):
                 SASS of the bfloat16 flash kernel (cuobjdump; it must hold
                 HGMMA; without cuobjdump that is logged and not checked).
   3. kernels  — each kernel against its plain PyTorch version on the card:
-                node_fused on random segments that straddle its tiles, with
-                dead rows; panel_qr's cluster variant on random full-rank
+                node_fused's node pass (``fused_node_pass``: slab, heads,
+                norms) and its TPU-contract entry on random segments that
+                straddle its tiles, every row a segment start, and one
+                segment over hundreds of tiles, with dead rows and dead
+                segment slots (exactly zero); panel_qr's cluster variant on random full-rank
                 float64 panels [4, 1024, 32] and [2, 4096, 32] and its grid
                 variant on [1, 8192, 32], [3, 5000, 32] and
                 [1, 1,048,579, 32] in float64 and float32, elementwise, and
                 on a rank-deficient [1, 6000, 32] panel (repeated columns,
                 zero rows) held on RᵀR and `reflector_error`, each beside
                 ``torch.geqrf``; then
-                every node_fused and panel_qr call of one ``qr`` dispatch of
-                the configuration below, captured with its real inputs (the
-                TSQR leaf panels [B, 256, 32], strided column blocks of the
-                leaves, among them), each timed beside its plain version
-                and, for panel_qr, beside ``torch.geqrf`` on the same panels.
+                every node pass and panel_qr call of one ``qr`` dispatch of
+                the configuration below, captured with its real inputs (each
+                pass writing its slab as whole rows of R₀, zeros around its
+                band's columns; the TSQR leaf panels [B, 256, 32], strided column
+                blocks of the leaves, among them), each timed beside its
+                plain version and, for panel_qr, beside ``torch.geqrf`` on
+                the same panels; the node pass beside the bound of what it
+                now reads and writes and the bound of the TPU kernel's contract.
                 panel_qr is held to its plain version on RᵀR, for V and beta
                 to the factorization they define (see `reflector_error`),
                 and T to `_panel_to_wy` of its own V and beta.
@@ -52,8 +58,12 @@ result line):
                 after normalize_sign), and R₀ᵀR₀ against AᵀA of the
                 materialized join of ``yelp_like(scale=400, cols=3)``.
                 Last, torch.profiler's device time by kernel for one call
-                each of qr, svd and the unfused qr, with the device's busy
-                share of the call and its count of kernels and copies.
+                each of qr (float32 and float64), svd and the unfused qr,
+                with the device's busy share of the call, its count of
+                kernels and copies, and the device time of R₀'s assembly
+                (the ``figaro.r0_assembly`` range: its copies; none on the
+                kernel path with band assembly, where the passes write
+                whole rows of R₀ and nothing zero-fills it).
   5. wide     — a float64 ``qr`` over a star of three wide relations
                 (N = 512 columns, a few thousand rows) through
                 ``Session(use_kernel=True)``, timed as the median of 3 after
@@ -74,8 +84,9 @@ result line):
   6. tails    — ``segmented_head_tail(use_kernel=True)`` at the two largest
                 node passes of the configuration above (Review's 8.4 M × 1
                 and User's 524 k × 18 at capacity), float32 and float64,
-                against ``use_kernel=False``; the segmented_tail calls it
-                makes, captured, against the plain version.
+                against ``use_kernel=False``; the segmented_tail and
+                segmented_cumsum calls it makes, captured, against their
+                plain versions.
   7. lm       — the qwen3-8b eval forward at full width (36 blocks,
                 d_model 4096, 32/8 heads, hd 128, d_ff 12288, vocab 151,936;
                 float32 parameters, bfloat16 compute) on a batch of
@@ -97,7 +108,9 @@ result line):
 
 Each of phases 4–7 (and 5b) drives one path of the port with the launch
 counters zeroed just before and read just after, and fails if a kernel of
-that path did not launch.
+that path did not launch. After each phase the segmented-scan error word is
+read (`kernels/_seg_scan.py`): a look-back that ran out of its spin bound
+fails the run.
 
 Tolerances (float64 against the plain version or the unfused path):
 relative 1e-9 of the largest magnitude compared — the JAX package's own
@@ -137,12 +150,17 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12, "bfloat16": 989e12}
 TOL = {("node_fused", "float32"): 1e-5, ("node_fused", "float64"): 1e-9,
        ("panel_qr", "float32"): 1e-4, ("panel_qr", "float64"): 1e-9,
        ("segmented_tail", "float32"): 1e-5,
-       ("segmented_tail", "float64"): 1e-9}
+       ("segmented_tail", "float64"): 1e-9,
+       ("segmented_cumsum", "float32"): 1e-5,
+       ("segmented_cumsum", "float64"): 1e-9}
 # flash_attention, per dtype: (share of |want|, share of rms(want), absolute)
 # an element may differ by (`flash_compare`).
 FLASH_TOL = {"bfloat16": (2.0 ** -7, 1e-3, 0.0), "float32": (0.0, 0.0, 2e-5),
              "float64": (0.0, 0.0, 1e-12)}
 REPS = 3  # timed runs after one warm-up
+# Kernels and copies one float32 qr of the main path may issue (2,765 while
+# the node pass's wrapper scanned the weights eagerly; about 400 since).
+MAX_KERNELS_PER_QR = 1300
 # Every CUDA kernel: (source, the TPU kernel it replaces).
 KERNELS = {
     "node_fused": ("src/repro_torch/csrc/node_fused.cu",
@@ -156,6 +174,10 @@ KERNELS = {
                       "src/repro/kernels/panel_qr/kernel.py:71"),
     "segmented_tail": ("src/repro_torch/csrc/head_tail.cu",
                        "src/repro/kernels/head_tail/kernel.py:68"),
+    # the scan segmented_head_tail(use_kernel=True) forms its weight norms
+    # with; the JAX package runs XLA's associative scan there
+    "segmented_cumsum": ("src/repro_torch/csrc/head_tail.cu",
+                         "src/repro/core/heads_tails.py:82"),
     "flash_attention_sm90": ("src/repro_torch/csrc/flash_attn_sm90.cu",
                              "src/repro/kernels/flash_attn/kernel.py:84"),
     "flash_attention_scalar": ("src/repro_torch/csrc/flash_attn.cu",
@@ -300,13 +322,40 @@ def phase_build() -> dict:
 # -- phase 3 ------------------------------------------------------------------
 
 def node_fused_cost(data, *rows) -> tuple[int, int]:
-    """(bytes, flops) one node_fused call needs: data and five row vectors
-    (plus the 1-byte flags) read once, two outputs written once; ~8 flops
-    per element (mask, weight, scan add, two coefficient products, a
-    difference, a sum and the emit scale)."""
+    """(bytes, flops) of the TPU kernel's contract (``kernel.node_fused``),
+    which the node pass ran before it formed its coefficients: data and five
+    row vectors (plus the 1-byte flags) read once, two outputs written once;
+    ~8 flops per element (mask, weight, scan add, two coefficient products,
+    a difference, a sum and the emit scale)."""
     m = data.shape[-2]
     item = data.element_size()
     return 3 * data.numel() * item + m * (5 * item + 1), 8 * data.numel()
+
+
+def node_pass_cost(data, weights, pos, emit, last, live, ds, out, out_col=0):
+    """(bytes, flops) of one node pass as the kernel now runs it
+    (``kernel.fused_node_pass``): data, weights, emit_scale, data_scale
+    (when given) and pos_in_seg read once, last_of_seg and seg_live read
+    once, the destination rows (the slab and, with whole rows of R₀, the
+    zeros around it), the heads and the norms written once (heads and norms
+    of every slot); ~8 flops per element and ~8 per row (the squared
+    weight, its scan, the two coefficients)."""
+    item = data.element_size()
+    m, k = data.shape[-2], last.numel()
+    batch = data.numel() // max(data.shape[-2] * data.shape[-1], 1)
+    written = (out.numel() if out is not None else data.numel()) * item
+    rows = m * ((3 if ds is not None else 2) * item + pos.element_size())
+    slots = k * (last.element_size() + 1 + item
+                 + batch * data.shape[-1] * item)
+    return (data.numel() * item + written + rows + slots,
+            8 * data.numel() + 8 * m)
+
+
+def node_pass_old_cost(data, weights, pos, emit, last, live, ds, out,
+                       out_col=0):
+    """The TPU contract's bound for the same pass: `node_fused_cost` of its
+    shapes."""
+    return node_fused_cost(data)
 
 
 def panel_qr_cost(a) -> tuple[int, int]:
@@ -402,7 +451,8 @@ def measure(calls, kernel, plain, cost, compare, dtype: str, library=None,
     return res
 
 
-ERROR_KEYS = ("max_abs_err", "max_rel_err", "reflectors", "t_rel_err",
+ERROR_KEYS = ("max_abs_err", "max_rel_err", "dead_max", "reflectors",
+              "t_rel_err",
               "min_rms", "bound_ratio")
 
 
@@ -442,10 +492,114 @@ def random_segments(m, n, batch, dtype, seed):
     return [data, ds, w, first, ca, cb, es], dead
 
 
-def check_random_segments():
+def pass_case(m, n, batch, dtype, p_start, seed):
+    """node pass inputs: random segments (p_start 1.0: every row a start;
+    0.0: one segment), 10 % dead rows, the live slots' last rows and three
+    dead slots pointing at row 0, the last row and past the end, and a
+    destination like R₀'s rows (n + 7 wide, the slab at column 3). Returns
+    (args as `pass_kernel` takes them, dead rows, dead slots)."""
     import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+    first = torch.rand(m, generator=g, device=dev) < p_start
+    first[0] = True
+    dead = (torch.rand(m, generator=g, device=dev) < 0.1) & ~first
+    seg = torch.cumsum(first.long(), 0) - 1
+    starts = torch.nonzero(first).squeeze(1)
+    pos = torch.arange(m, device=dev) - starts[seg]
+    last = torch.cat([starts[1:], torch.tensor([m], device=dev)]) - 1
+    last = torch.cat([last, torch.tensor([0, m - 1, m + 5], device=dev)])
+    live = torch.ones(last.numel(), dtype=torch.bool, device=dev)
+    live[-3:] = False
+    w = torch.rand(m, generator=g, device=dev, dtype=dtype) + 0.5
+    w[dead] = 0
+    es = torch.rand(m, generator=g, device=dev, dtype=dtype) + 0.5
+    data = torch.rand(batch, m, n, generator=g, device=dev,
+                      dtype=dtype) * 2 - 1
+    out = torch.empty(batch, m, n + 7, device=dev, dtype=dtype)
+    return ([data, w, pos, es, last, live, (~dead).to(dtype), out, 3], dead,
+            ~live)
+
+
+def pass_kernel(data, weights, pos, emit, last, live, ds, out, out_col=0):
+    """`kernel.fused_node_pass` with its keywords as positions (so `measure`
+    can give each call its own destination)."""
+    from repro_torch.kernels.node_fused import kernel as nk
+
+    return nk.fused_node_pass(data, weights, pos, emit, last, live,
+                              data_scale=ds, out=out, out_col=out_col)
+
+
+def pass_plain(data, weights, pos, emit, last, live, ds, out, out_col=0):
+    """The plain version, `ref.fused_node_pass_ref`, the same way."""
+    from repro_torch.kernels.node_fused import ref as nr
+
+    return nr.fused_node_pass_ref(data, weights, pos, emit, last, live,
+                                  data_scale=ds, out=out, out_col=out_col)
+
+
+def fresh_out(out):
+    """An empty tensor of ``out``'s shape and row stride."""
+    buf = out.new_empty(out.shape[:-1] + (out.stride(-2),))
+    return buf[..., :out.shape[-1]]
+
+
+def pass_fresh(args):
+    """The same inputs with a destination of their own (same strides)."""
+    args = list(args)
+    if args[7] is not None:
+        args[7] = fresh_out(args[7])
+    return args
+
+
+def pass_compare(args, got, want) -> dict:
+    """`elementwise` over slab, heads and norms; dead rows (data_scale 0)
+    and dead slots (seg_live False) must come out exactly zero."""
+    import torch
+
+    errs = elementwise(args, got, want)
+    slab, heads, norms = got
+    ds, live = args[6], args[5]
+    dead_rows = float(slab[..., ds == 0, :].abs().max()) \
+        if ds is not None and bool((ds == 0).any()) else 0.0
+    dead_slots = max(float(heads[..., ~live, :].abs().max()),
+                     float(norms[~live].abs().max())) \
+        if bool((~live).any()) else 0.0
+    errs["dead_max"] = max(dead_rows, dead_slots)
+    check(torch.isfinite(slab).all() and torch.isfinite(heads).all(),
+          "node pass outputs finite")
+    return errs
+
+
+def check_random_segments() -> dict:
+    """The node pass (`kernel.fused_node_pass`) and the TPU kernel's contract
+    (`kernel.node_fused`) on random segments, against their plain versions;
+    dead rows and dead slots exactly zero."""
+    import torch
+    from repro_torch.kernels import _seg_scan
     from repro_torch.kernels.node_fused import kernel as nk, ref as nr
 
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[1]
+        tol = TOL[("node_fused", name)]
+        for (m, n, batch, p_start) in [(3_000_017, 1, 1, 0.02),
+                                       (1_000_003, 3, 2, 0.02),
+                                       (200_001, 35, 1, 0.02),
+                                       (1_048_576, 1, 1, 1.0),
+                                       (2_000_003, 1, 1, 0.0),
+                                       (300_007, 18, 1, 0.0)]:
+            args, dead, dead_slots = pass_case(m, n, batch, dtype, p_start,
+                                               seed=m + n)
+            res = measure([(args, {})], pass_kernel, pass_plain,
+                          node_pass_cost, pass_compare, name, reps=3,
+                          fresh=pass_fresh)
+            label = (f"node pass random segments {name} [{batch}, {m}, {n}]"
+                     f" starts {p_start:g}")
+            report(label, res, {"max_rel_err": tol, "dead_max": 0.0})
+            out[label] = res
+    _seg_scan.check()
     for dtype in (torch.float32, torch.float64):
         name = str(dtype).split(".")[1]
         for (m, n, batch) in [(3_000_017, 1, 1), (1_000_003, 3, 2),
@@ -458,25 +612,29 @@ def check_random_segments():
             dead_max = float(e_k[:, dead].abs().max()) if bool(dead.any()) \
                 else 0.0
             tol = TOL[("node_fused", name)]
-            log(f"node_fused random segments {name} [{batch}, {m}, {n}]: "
-                f"rel err {err:.3e} (tol {tol:g}), dead rows max "
-                f"{dead_max:g}")
+            log(f"node_fused contract entry, random segments {name} "
+                f"[{batch}, {m}, {n}]: rel err {err:.3e} (tol {tol:g}), dead "
+                f"rows max {dead_max:g}")
             check(err <= tol, f"node_fused {name} random segments")
             check(dead_max == 0.0, "node_fused dead rows exactly zero")
+    _seg_scan.check()
+    return out
 
 
 class Capture:
     """Records the inputs of every call of the named kernel wrappers while
-    active (default: the FiGaRo main path's two, node_fused and the
-    in-place panel_qr_wy). A tensor argument is recorded as a copy with the
-    same strides within its rows, so a column block of a wider matrix is
-    replayed as one (`strided_copy`)."""
+    active (default: the FiGaRo main path's two, the node pass
+    fused_node_pass and the in-place panel_qr_wy). A tensor argument is
+    recorded as a copy with the same strides within its rows, so a column
+    block of a wider matrix is replayed as one (`strided_copy`); a
+    destination (``out=``) as an empty one of its strides."""
 
     def __init__(self, wrappers=None):
         if wrappers is None:
             from repro_torch.kernels.node_fused import ops as nf_ops
             from repro_torch.kernels.panel_qr import ops as pq_ops
-            wrappers = [(nf_ops, "node_fused"), (pq_ops, "panel_qr_wy")]
+            wrappers = [(nf_ops, "fused_node_pass"),
+                        (pq_ops, "panel_qr_wy")]
         self._mods = wrappers
         self.calls: dict[str, list] = {name: [] for _, name in wrappers}
 
@@ -487,8 +645,11 @@ class Capture:
             self._saved.append((mod, name, real))
 
             def hook(*args, _real=real, _name=name, **kwargs):
+                kept = {k: (fresh_out(v) if k == "out" else strided_copy(v))
+                        if hasattr(v, "stride") else v
+                        for k, v in kwargs.items()}
                 self.calls[_name].append(([strided_copy(a) for a in args],
-                                          kwargs))
+                                          kept))
                 return _real(*args, **kwargs)
 
             setattr(mod, name, hook)
@@ -609,27 +770,43 @@ def panel_qr_full_compare(args, got, want) -> dict:
     return errs
 
 
+def pass_calls(calls):
+    """Captured fused_node_pass calls as `pass_kernel` arguments."""
+    return [(list(args) + [kw.get("data_scale"), kw.get("out"),
+                           kw.get("out_col", 0)], {})
+            for args, kw in calls]
+
+
 def measure_path_kernels(calls, dtype: str, label: str = "qr dispatch",
                          names=("node_fused", "panel_qr")) -> dict:
-    """`measure` and `report` of node_fused and panel_qr (its in-place form,
-    as the path calls it) over the captured calls of one dispatch."""
-    from repro_torch.kernels.node_fused import kernel as nk, ref as nr
+    """`measure` and `report` of the node pass and panel_qr (its in-place
+    form, as the path calls it) over the captured calls of one dispatch; the
+    node pass also beside the TPU contract's bound for the same passes."""
+    from repro_torch.kernels import _seg_scan
 
-    parts = {"node_fused": ("node_fused", nk.node_fused, nr.node_fused_ref,
-                            node_fused_cost, elementwise, None, None),
+    parts = {"node_fused": ("fused_node_pass", pass_kernel, pass_plain,
+                            node_pass_cost, pass_compare, None, pass_fresh),
              "panel_qr": ("panel_qr_wy", wy_kernel, wy_plain, panel_qr_cost,
                           panel_qr_compare, geqrf, wy_fresh)}
     out = {}
     for name in names:
         key, kernel, plain, cost, compare, library, fresh = parts[name]
-        out[name] = measure(calls[key], kernel, plain, cost, compare, dtype,
+        mine = pass_calls(calls[key]) if name == "node_fused" else calls[key]
+        out[name] = measure(mine, kernel, plain, cost, compare, dtype,
                             library=library, fresh=fresh)
         tol = TOL[(name, dtype)]
         limits = {"max_rel_err": tol}
         if name == "panel_qr":
             limits.update(reflectors=tol, t_rel_err=tol)
+        if name == "node_fused":
+            limits.update(dead_max=0.0)
+            out[name]["old_bound_ms"] = sum(
+                bound_ms(*node_pass_old_cost(*a), dtype)[0] for a, _ in mine)
+            log(f"node pass {dtype}: the TPU contract's bound for the same passes "
+                f"{out[name]['old_bound_ms']:.3f} ms")
         report(f"{name} {dtype} over one {label} (panel_qr: R'R)", out[name],
                limits, library="torch.geqrf")
+    _seg_scan.check()
     return out
 
 
@@ -652,21 +829,28 @@ def profile_once(label: str, fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and not e.key.startswith("Command Buffer")]
-    attr = "self_device_time_total" if kernels and hasattr(
-        kernels[0], "self_device_time_total") else "self_cuda_time_total"
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and not e.key.startswith("Command Buffer")]
+    attr = "self_device_time_total" if device and hasattr(
+        device[0], "self_device_time_total") else "self_cuda_time_total"
+    # R0's assembly (its copies): the device-side span of core/figaro.py's
+    # figaro.r0_assembly range, which the profiler records as a device event
+    # of its own (no kernel) when the range launched any kernel.
+    ranges = [e for e in device if e.key == "figaro.r0_assembly"]
+    kernels = [e for e in device if e.key != "figaro.r0_assembly"]
+    r0_ms = sum(getattr(e, attr) for e in ranges) / 1e3
     device_us = sum(getattr(e, attr) for e in kernels)
     launches = sum(e.count for e in kernels)
     log(f"profile {label}: wall {wall_us / 1e3:.1f} ms, device busy "
         f"{device_us / 1e3:.1f} ms ({100 * device_us / wall_us:.1f}%) over "
-        f"{launches} kernels and copies")
+        f"{launches} kernels and copies; R0 assembly {r0_ms:.3f} ms")
     for e in sorted(kernels, key=lambda e: -getattr(e, attr))[:12]:
         log(f"  {getattr(e, attr) / 1e3:9.3f} ms  {e.count:6d}x  "
             f"{e.key[:90]}")
     return {"wall_ms": wall_us / 1e3, "busy_ms": device_us / 1e3,
-            "busy_share": device_us / wall_us, "kernels_and_copies": launches}
+            "busy_share": device_us / wall_us, "kernels_and_copies": launches,
+            "r0_assembly_ms": r0_ms}
 
 
 def gram_check_small(torch_dtype):
@@ -909,7 +1093,8 @@ def phase_panels(label: str, plan, kind: str, **opts) -> dict:
     check(err_rel <= 1e-9, f"{label} kernel-path R matches the unfused path")
     prof = profile_once(f"{label} qr float64",
                         lambda: sess.qr(plan, dtype=torch.float64))
-    with Capture() as cap:
+    from repro_torch.kernels.panel_qr import ops as pq_ops
+    with Capture([(pq_ops, "panel_qr_wy")]) as cap:
         sess.qr(plan, dtype=torch.float64)
         torch.cuda.synchronize()
     calls = cap.calls["panel_qr_wy"]
@@ -946,12 +1131,20 @@ def segmented_tail_cost(data, *rows) -> tuple[int, int]:
     return 3 * data.numel() * item + m * (2 * item + 1), 5 * data.numel()
 
 
+def segmented_cumsum_cost(x, first) -> tuple[int, int]:
+    """(bytes, flops) of one segmented_cumsum call: x read once, the 1-byte
+    flags read once, the sums written once; one add per element."""
+    item = x.element_size()
+    return 2 * x.numel() * item + first.numel(), x.numel()
+
+
 def phase_tails(passes) -> dict:
     """``segmented_head_tail(use_kernel=True)`` on the captured node passes
     (per dtype: [(data·data_scale, weights, first), ...])."""
     import torch
-    from repro_torch.core.heads_tails import segmented_head_tail
-    from repro_torch.kernels import _platform
+    from repro_torch.core.heads_tails import segmented_cumsum, \
+        segmented_head_tail
+    from repro_torch.kernels import _platform, _seg_scan
     from repro_torch.kernels.head_tail import kernel as hk, ops as ht_ops, \
         ref as hr
 
@@ -959,7 +1152,8 @@ def phase_tails(passes) -> dict:
                for name, inputs in passes.items()}
     _platform.reset_launch_counts()
     outs = {}
-    with Capture([(ht_ops, "segmented_tail")]) as cap:
+    with Capture([(ht_ops, "segmented_tail"),
+                  (ht_ops, "segmented_cumsum")]) as cap:
         for name, inputs in passes.items():
             outs[name] = [segmented_head_tail(data, w, seg, pos, k,
                                               use_kernel=True)
@@ -968,8 +1162,8 @@ def phase_tails(passes) -> dict:
         torch.cuda.synchronize()
     launches = _platform.launch_counts()
     log(f"segmented_head_tail(use_kernel=True) path: launches {launches}")
-    check(launches.get("segmented_tail", 0) > 0,
-          "segmented_tail launched on its path")
+    for kname in ("segmented_tail", "segmented_cumsum"):
+        check(launches.get(kname, 0) > 0, f"{kname} launched on its path")
     result = {"launches": launches}
     for name, inputs in passes.items():
         tol = TOL[("segmented_tail", name)]
@@ -990,6 +1184,15 @@ def phase_tails(passes) -> dict:
                                elementwise, name)
         report(f"segmented_tail {name} over its path", result[name],
                {"max_rel_err": tol})
+        calls = [(args, kw) for args, kw in cap.calls["segmented_cumsum"]
+                 if str(args[0].dtype).split(".")[1] == name]
+        result[f"cumsum_{name}"] = measure(
+            calls, hk.segmented_cumsum, segmented_cumsum,
+            segmented_cumsum_cost, elementwise, name)
+        report(f"segmented_cumsum {name} over its path",
+               result[f"cumsum_{name}"],
+               {"max_rel_err": TOL[("segmented_cumsum", name)]})
+    _seg_scan.check()
     return result
 
 
@@ -1182,7 +1385,7 @@ def main(argv=None) -> int:
     from repro_torch.core.join_tree import build_plan
     from repro_torch.core.postprocess import normalize_sign
     from repro_torch.data.relational import yelp_like
-    from repro_torch.kernels import _platform
+    from repro_torch.kernels import _platform, _seg_scan
 
     t_start = time.perf_counter()
     log("== phase 1: card")
@@ -1191,7 +1394,7 @@ def main(argv=None) -> int:
     build = phase_build()
 
     log("== phase 3: kernels against their plain versions")
-    check_random_segments()
+    random_passes = check_random_segments()
     random_panels = check_random_panels()
     flash_case_err = check_flash_cases()
     t0 = time.perf_counter()
@@ -1221,13 +1424,15 @@ def main(argv=None) -> int:
             f"and H2D included for float32)")
         per_dtype[name] = measure_path_kernels(cap.calls, name)
         # The two largest node passes (the tallest, then the largest of the
-        # rest), as segmented_head_tail inputs.
-        nf = [a for a, _ in cap.calls["node_fused"]]
+        # rest), as segmented_head_tail inputs (data masked, weights, the
+        # segment starts).
+        nf = [a for a, _ in pass_calls(cap.calls["fused_node_pass"])]
         tallest = max(nf, key=lambda a: a[0].shape[-2])
         widest = max((a for a in nf if a is not tallest),
                      key=lambda a: a[0].numel())
-        tail_passes[name] = [(a[0] * a[1][:, None], a[2], a[3])
-                             for a in (tallest, widest)]
+        tail_passes[name] = [
+            (a[0] * a[6][:, None] if a[6] is not None else a[0], a[1],
+             a[2] == 0) for a in (tallest, widest)]
         del cap, nf, tallest, widest
         torch.cuda.empty_cache()
     cap_plan = plan.__dict__["_capacity_plan"]
@@ -1285,9 +1490,15 @@ def main(argv=None) -> int:
     check(s_rel <= 1e-9, "singular values match the unfused path")
     gram_rel = gram_check_small(torch.float64)
     prof_qr = profile_once("qr float32", lambda: sess.qr(plan))
+    prof_qr64 = profile_once("qr float64",
+                             lambda: sess.qr(plan, dtype=torch.float64))
+    check(prof_qr["kernels_and_copies"] <= MAX_KERNELS_PER_QR,
+          f"a float32 qr issues {prof_qr['kernels_and_copies']} kernels and "
+          f"copies (at most {MAX_KERNELS_PER_QR})")
     profile_once("svd float64", lambda: sess.svd(plan))
     profile_once("qr float64, use_kernel=False",
                  lambda: plain.qr(plan, dtype=torch.float64))
+    _seg_scan.check()
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB; elapsed {time.perf_counter() - t_start:.1f} s")
 
@@ -1330,6 +1541,8 @@ def main(argv=None) -> int:
         "panel_qr_grid": (tall["launches"], tall["panels"], None, "float64"),
         "segmented_tail": (tails["launches"], tails["float32"],
                            tails["float64"], "float32"),
+        "segmented_cumsum": (tails["launches"], tails["cumsum_float32"],
+                             tails["cumsum_float64"], "float32"),
         "flash_attention_sm90": (lm["launches"], lm["flash"], None,
                                  "bfloat16"),
         "flash_attention_scalar": (lm32["launches"], lm32["flash"], None,
@@ -1347,7 +1560,8 @@ def main(argv=None) -> int:
                  "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
                  "library_ms": main["library_ms"]}
         entry.update({k: main[k] for k in ("reflectors", "t_rel_err",
-                                           "min_rms", "bound_ratio")
+                                           "min_rms", "bound_ratio",
+                                           "old_bound_ms", "dead_max")
                       if k in main})
         if kname in ("node_fused", "panel_qr"):
             entry["launches_per_qr"] = per_qr.get(kname, 0)
@@ -1365,7 +1579,7 @@ def main(argv=None) -> int:
         if f64 is not None:
             entry["float64"] = {k: f64[k] for k in (
                 "max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms",
-                "bound_by", "library_ms")}
+                "bound_by", "library_ms", "old_bound_ms") if k in f64}
         check(entry["launches"] > 0, f"{kname} launched on its path")
         kernels.append(entry)
     log(json.dumps({"main_path_ms": {"qr_f32": t_qr * 1e3,
@@ -1386,10 +1600,13 @@ def main(argv=None) -> int:
                                         "wide_qr_f64": wide["per_qr"],
                                         "tall_blocked_qr_f64": tall["per_qr"]},
                     "tall_peak_gib": tall["peak_gib"],
-                    "profile_per_qr": {"qr_f32": prof_qr,
+                    "profile_per_qr": {"qr_f32": prof_qr, "qr_f64": prof_qr64,
                                        "wide_qr_f64": wide["profile"],
                                        "tall_blocked_qr_f64": tall["profile"]},
                     "random_panels": random_panels,
+                    "random_passes": {k: {e: v[e] for e in (
+                        "max_rel_err", "dead_max", "ms", "bound_ms")}
+                        for k, v in random_passes.items()},
                     "flash_cases_bound_ratio": flash_case_err,
                     "lm32_eval_step_ms": lm32["step_ms"],
                     "lm32_loss": lm32["loss"],

@@ -27,9 +27,10 @@ Two hot-path variants:
 
   * ``use_kernel=True`` routes each node's two head/tail passes through the
     fused `kernels/node_fused` pass: live-row masking, the weighted segmented
-    scan, the tail formula, segment-start zeroing and √Φ emission scaling in
-    one CUDA kernel per pass, and the heads come from an O(m) gather of the
-    kernel's inclusive sums instead of a second [m, n] reduction.
+    scans of the data and of the squared weights, the tail coefficients and
+    formula, segment-start zeroing, √Φ emission scaling and the heads (each
+    segment's inclusive sum at its last row, no second [m, n] reduction) in
+    one single-pass CUDA kernel per pass.
     ``use_kernel=False`` (default) is the unfused plain-PyTorch path —
     `segmented_head_tail` per pass.
 
@@ -38,8 +39,13 @@ Two hot-path variants:
     in emission order. ``"band"`` writes each slab into a zeros
     [r0_rows, num_cols] buffer at its band (``PlanSpec.bands``), so beyond
     the single zero fill each slab moves only its own rowsᵢ·widthᵢ elements
-    (`assembly_traffic` is the analytic model). Both produce bit-identical
-    layouts.
+    (`assembly_traffic` is the analytic model). On the kernel path R₀ is
+    allocated first and never zero-filled: the bands tile its rows, each
+    pass writes its slab as whole rows of R₀ (its columns, zeros in the
+    rest), and the root's Data blocks are scaled straight into the root's
+    rows, so no slab is copied (but a leaf root's). Both produce
+    bit-identical layouts. The assembly's copies run inside a
+    ``figaro.r0_assembly`` profiler range.
 
 Capacity-padded plans (`repro_torch.core.plan_cache`): when a node carries a
 ``row_mask``, the static shapes above are *capacities* and the mask is the
@@ -57,6 +63,7 @@ from typing import Sequence
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from repro_torch.kernels._platform import resolve_device
 
@@ -84,19 +91,31 @@ def _assemble_padded(spec: PlanSpec, tail_slabs, out_slabs) -> torch.Tensor:
     return torch.cat(slabs, dim=-2)
 
 
-def _assemble_band(spec: PlanSpec, tail_slabs, out_slabs) -> torch.Tensor:
+def _band_rows(spec: PlanSpec, r0: torch.Tensor) -> dict:
+    """{(node, kind): (the rows of ``r0`` [B, r0_rows, num_cols] that slab's
+    band spans, the band's first column)}. The bands tile R₀'s rows."""
+    return {(b.node, b.kind): (r0[..., b.row0:b.row0 + b.rows, :], b.col0)
+            for b in spec.bands}
+
+
+def _assemble_band(spec: PlanSpec, tail_slabs, out_slabs,
+                   r0: torch.Tensor | None = None) -> torch.Tensor:
     """Band-wise R₀ assembly (bit-identical layout to the padded path).
 
     Every slab's destination is a contiguous band recorded in
     ``PlanSpec.bands`` — rows [row0, row0+rows) × columns [col0, col0+width)
     of R₀, zero outside — so each slab is copied once, at its own width, into
-    one zeros [B, r0_rows, num_cols] buffer.
+    one zeros [B, r0_rows, num_cols] buffer. Given ``r0``, the kernel path's
+    buffer, slabs already written as whole rows of it (None here) are not
+    copied again.
     """
-    ref = out_slabs[spec.root]
-    r0 = ref.new_zeros(ref.shape[:-2] + (spec.r0_rows, spec.num_cols))
-    for b in spec.bands:
-        slab = tail_slabs[b.node] if b.kind == "tail" else out_slabs[b.node]
-        r0[..., b.row0:b.row0 + b.rows, b.col0:b.col0 + b.width] = slab
+    if r0 is None:
+        ref = out_slabs[spec.root]
+        r0 = ref.new_zeros(ref.shape[:-2] + (spec.r0_rows, spec.num_cols))
+    for (node, kind), (rows, col0) in _band_rows(spec, r0).items():
+        slab = tail_slabs[node] if kind == "tail" else out_slabs[node]
+        if slab is not None:
+            rows[..., col0:col0 + slab.shape[-1]].copy_(slab)
     return r0
 
 
@@ -144,6 +163,15 @@ def _r0_batch(plan: FigaroPlan, data: Sequence[torch.Tensor], *,
     spec = plan.spec
     dtype = data[0].dtype
     counts = compute_counts(plan, dtype=dtype)
+    # The kernel path with band assembly writes each slab straight into R₀
+    # as whole rows (its band's columns, zeros in the rest): the bands tile
+    # R₀'s rows, so R₀ needs no zero fill.
+    bands = {}
+    r0 = None
+    if use_kernel and assembly == "band":
+        r0 = data[0].new_empty((data[0].shape[0], spec.r0_rows,
+                                spec.num_cols))
+        bands = _band_rows(spec, r0)
 
     # Carried state per node (filled children-first); emitted slabs by node.
     carried_data: dict[int, torch.Tensor] = {}
@@ -170,10 +198,11 @@ def _r0_batch(plan: FigaroPlan, data: Sequence[torch.Tensor], *,
         if use_kernel:
             last = ix.group_start + ix.group_count - 1
             live = ix.group_count > 0
+            out, col0 = bands.get((idx, "tail"), (None, 0))
             slab, heads, _ = nf_ops.fused_node_pass(
                 x, weights, ix.pos_in_group, torch.sqrt(phi_circ_row), last,
-                live, data_scale=mask)
-            tail_slabs[idx] = slab
+                live, data_scale=mask, out=out, out_col=col0)
+            tail_slabs[idx] = None if out is not None else slab
         else:
             if mask is not None:
                 x = x * mask[:, None]
@@ -190,16 +219,30 @@ def _r0_batch(plan: FigaroPlan, data: Sequence[torch.Tensor], *,
                 gathered.append((carried_data.pop(ch)[:, lookup],
                                  carried_scales.pop(ch)[lookup]))
             prod_all = functools.reduce(torch.mul, [s for _, s in gathered])
-            blocks = [heads * prod_all[:, None]]
+            blocks = [(heads, prod_all)]  # (block, its row scale)
             for j, (dj, _) in enumerate(gathered):
                 prod_except = functools.reduce(
                     torch.mul,
                     [s for k, (_, s) in enumerate(gathered) if k != j],
                     scales)  # scales = √rpk_i  (line 24's `scales[x̄_i]` factor)
-                blocks.append(dj * prod_except[:, None])
+                blocks.append((dj, prod_except))
             # Children subtrees are column-contiguous after the node's own
-            # columns (validated at plan build) — Data is a pure concat.
-            data_mat = torch.cat(blocks, dim=-1)
+            # columns (validated at plan build) — Data is a pure concat. The
+            # root's Data is its R₀ slab: with a band destination each block
+            # is scaled straight into its columns of the band.
+            root_rows = bands.get((idx, "out"), (None, 0))[0] \
+                if sp.parent < 0 else None
+            if root_rows is None:
+                data_mat = torch.cat([blk * f[:, None] for blk, f in blocks],
+                                     dim=-1)
+            else:  # the root's band is whole rows of R₀
+                col = 0
+                for blk, f in blocks:
+                    width = blk.shape[-1]
+                    torch.mul(blk, f[:, None],
+                              out=root_rows[..., col:col + width])
+                    col += width
+                data_mat = None
             scales = scales * prod_all  # line 26
         else:
             data_mat = heads  # width == n for a leaf
@@ -214,10 +257,12 @@ def _r0_batch(plan: FigaroPlan, data: Sequence[torch.Tensor], *,
                 # last live member.
                 last = _segment_last(ix.group_to_pgroup, sp.K, sp.P)
                 live = ix.pgroup_count > 0
+                out, col0 = bands.get((idx, "out"), (None, 0))
                 slab, gheads, _ = nf_ops.fused_node_pass(
                     data_mat, scales, ix.pos_in_pgroup,
-                    torch.sqrt(phi_up_group), last, live)
-                out_slabs[idx] = slab
+                    torch.sqrt(phi_up_group), last, live, out=out,
+                    out_col=col0)
+                out_slabs[idx] = None if out is not None else slab
             else:
                 gheads, gtails, _ = segmented_head_tail(
                     data_mat, scales, ix.group_to_pgroup, ix.pos_in_pgroup,
@@ -226,12 +271,13 @@ def _r0_batch(plan: FigaroPlan, data: Sequence[torch.Tensor], *,
             carried_data[idx] = gheads
             carried_scales[idx] = torch.sqrt(cnt["phi_down"])
         else:
-            out_slabs[idx] = data_mat
+            out_slabs[idx] = data_mat  # None: already in its band
 
-    if assembly == "band":
-        r0 = _assemble_band(spec, tail_slabs, out_slabs)
-    else:
-        r0 = _assemble_padded(spec, tail_slabs, out_slabs)
+    with record_function("figaro.r0_assembly"):
+        if assembly == "band":
+            r0 = _assemble_band(spec, tail_slabs, out_slabs, r0)
+        else:
+            r0 = _assemble_padded(spec, tail_slabs, out_slabs)
     if r0.shape[-2:] != (spec.r0_rows, spec.num_cols):
         raise AssertionError((tuple(r0.shape), spec.r0_rows, spec.num_cols))
     return r0

@@ -157,9 +157,10 @@ def segmented_head_tail(
       seg_id: [m] int64 — segment of each row (non-decreasing).
       pos_in_seg: [m] int — 0 for the first row of a segment.
       num_segments: segment count K.
-      use_kernel: compute the tails with the segmented-tail kernel
-        (`repro_torch.kernels.head_tail`: the CUDA kernel on the card, its
-        plain version on the CPU) instead of two segmented scans.
+      use_kernel: compute the weight norms and the tails with the head_tail
+        kernels (`repro_torch.kernels.head_tail`: its segmented cumsum and
+        segmented tail on the card, their plain versions on the CPU) instead
+        of two segmented scans.
 
     Returns:
       heads: [..., K, n] — H(seg, v_seg)
@@ -172,11 +173,14 @@ def segmented_head_tail(
     w2 = weights * weights
     wa = data * weights[:, None]
 
-    c_incl = segmented_cumsum(w2, first)
+    if use_kernel:
+        from repro_torch.kernels.head_tail import ops as ht_ops
+        c_incl = ht_ops.segmented_cumsum(w2, first)
+    else:
+        c_incl = segmented_cumsum(w2, first)
     c_excl = c_incl - w2
     c_excl_safe = torch.where(pos_in_seg > 0, c_excl, torch.ones_like(c_excl))
     if use_kernel:
-        from repro_torch.kernels.head_tail import ops as ht_ops
         coef_a = torch.sqrt(c_excl_safe / c_incl)
         coef_b = -weights / torch.sqrt(c_excl_safe * c_incl)
         tails = ht_ops.segmented_tail(data, wa, first.contiguous(),

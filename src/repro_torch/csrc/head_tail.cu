@@ -10,14 +10,17 @@
 // where segments restart wherever first is set. With the coefficients of
 // core/heads_tails.py:segmented_head_tail this is the generalized tail
 // T(A, v) of every key segment at once. The B batch matrices share the row
-// vectors and fold into C = B * n independent columns.
+// vectors.
 //
-// What bounds it: bytes (data, wa and out, a few flops per element). It is a
-// strict subset of node_fused (no mask, no emit scale, no s_incl output, wa
-// given), so it runs the same three-phase segmented scan (seg_scan.cuh):
-// tile aggregates, a warp-per-column scan of them, then ht_emit rescans each
-// tile from its carry-in. wa is read twice (phases 1 and 3), data once, out
-// written once. Accumulation is in the I/O type, as in the TPU kernel.
+// It is the tail mode of the single-pass segmented scan of seg_scan.cuh (wa
+// given, no mask, no s_incl stored): one launch that reads data and wa once
+// and writes out once. The same scan's cumsum mode (ht_cumsum_*) is the
+// segmented inclusive prefix sum itself, which segmented_head_tail runs on the
+// squared weights for its c_incl (the JAX package runs XLA's associative scan
+// there, src/repro/core/heads_tails.py:82 segmented_cumsum).
+//
+// What bounds it: bytes (data, wa and out, a few flops per element).
+// Accumulation is in the I/O type, as in the TPU kernel.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -26,76 +29,82 @@
 
 namespace {
 
-using segscan::kRowsPerThread;
-using segscan::kThreads;
+using segscan::Params;
 
-template <typename T>
-struct GivenWa {
-  const T* wa;
-  __device__ T operator()(int64_t at, int64_t) const { return wa[at]; }
-};
-
-template <typename T>
-__global__ void ht_emit(GivenWa<T> wa_at, const T* __restrict__ data,
-                        const uint8_t* __restrict__ first, const T* __restrict__ coef_a,
-                        const T* __restrict__ coef_b, const T* __restrict__ carry,
-                        int64_t m, int64_t n, int64_t C, T* __restrict__ out) {
-  __shared__ T sx[kThreads];
-  __shared__ int sf[kThreads];
-  const int64_t c = (int64_t)blockIdx.y * blockDim.x + threadIdx.x;
-  const int64_t r0 = ((int64_t)blockIdx.x * blockDim.y + threadIdx.y) * kRowsPerThread;
-  const bool live = c < C;
-  const int64_t off0 = live ? segscan::col_offset(c, m, n) : 0;
-  T run = segscan::seg_thread_carry(wa_at, first, carry, off0, r0, m, n, C, c, live, sx, sf);
-  if (!live) return;  // no barrier follows
-  for (int k = 0; k < kRowsPerThread; ++k) {
-    const int64_t r = r0 + k;
-    if (r >= m) break;
-    const int64_t at = off0 + r * n;
-    const T wa = wa_at.wa[at];
-    run = first[r] ? wa : run + wa;
-    out[at] = coef_a[r] * data[at] + coef_b[r] * (run - wa);
-  }
+template <typename T, int kMode>
+int run(Params<T>& p, int64_t B, int64_t m, int64_t n, void* scratch, int* error,
+        cudaStream_t stream) {
+  p.m = m;
+  p.out_bs = m * n;
+  p.out_rs = n;
+  p.out_w = (int)n;
+  p.g = segscan::geometry(B, m, n, sizeof(T), kMode);
+  p.error = error;
+  cudaError_t err = segscan::carve(p, scratch, kMode, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)segscan::launch<T, kMode>(p, stream);
 }
 
 template <typename T>
-int launch(const T* data, const T* wa, const uint8_t* first, const T* coef_a,
-           const T* coef_b, int64_t B, int64_t m, int64_t n, T* out, T* blk_x,
-           uint8_t* blk_f, T* carry, cudaStream_t stream) {
-  const int64_t C = B * n;
-  const segscan::Geometry g = segscan::geometry(B, m, n);
-  const GivenWa<T> wa_at{wa};
-  cudaError_t err = segscan::reduce_and_carry(g, wa_at, first, m, n, C, blk_x, blk_f,
-                                              carry, stream);
-  if (err != cudaSuccess) return (int)err;
-  ht_emit<T><<<g.grid, g.block, 0, stream>>>(wa_at, data, first, coef_a, coef_b, carry,
-                                             m, n, C, out);
-  return (int)cudaGetLastError();
+int tail(const T* data, const T* wa, const uint8_t* first, const T* ca, const T* cb,
+         int64_t B, int64_t m, int64_t n, T* out, void* scratch, int* error,
+         cudaStream_t stream) {
+  Params<T> p = {};
+  p.x = wa;
+  p.x2 = data;
+  p.first = first;
+  p.ca = ca;
+  p.cb = cb;
+  p.out = out;
+  return run<T, segscan::kTail>(p, B, m, n, scratch, error, stream);
+}
+
+template <typename T>
+int cumsum(const T* x, const uint8_t* first, int64_t B, int64_t m, int64_t n, T* out,
+           void* scratch, int* error, cudaStream_t stream) {
+  Params<T> p = {};
+  p.x = x;
+  p.first = first;
+  p.out = out;
+  return run<T, segscan::kCumsum>(p, B, m, n, scratch, error, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Number of row tiles the scratch buffers need (blk_x, carry: tiles * B * n).
-int64_t ht_num_tiles(int64_t B, int64_t m, int64_t n) {
-  return segscan::geometry(B, m, n).nblk;
+// The scan's shape for [B, m, n] in the tail (mode 2) or cumsum (mode 3)
+// mode; see nf_geometry.
+void ht_geometry(int64_t B, int64_t m, int64_t n, int item, int mode, int64_t* out) {
+  const segscan::Geometry g = segscan::geometry(B, m, n, item, mode);
+  const int64_t v[9] = {g.tpc, g.rpt, g.tile_rows, g.rw, g.pitch, g.lanes, g.tiles,
+                        (int64_t)segscan::scratch_bytes(g, m, item, mode),
+                        (int64_t)segscan::smem_bytes(g, item, mode)};
+  for (int i = 0; i < 9; ++i) out[i] = v[i];
 }
 
 int ht_launch_f32(const float* data, const float* wa, const uint8_t* first,
                   const float* coef_a, const float* coef_b, int64_t B, int64_t m,
-                  int64_t n, float* out, float* blk_x, uint8_t* blk_f, float* carry,
-                  void* stream) {
-  return launch<float>(data, wa, first, coef_a, coef_b, B, m, n, out, blk_x, blk_f,
-                       carry, (cudaStream_t)stream);
+                  int64_t n, float* out, void* scratch, int* error, void* stream) {
+  return tail<float>(data, wa, first, coef_a, coef_b, B, m, n, out, scratch, error,
+                     (cudaStream_t)stream);
 }
 
 int ht_launch_f64(const double* data, const double* wa, const uint8_t* first,
                   const double* coef_a, const double* coef_b, int64_t B, int64_t m,
-                  int64_t n, double* out, double* blk_x, uint8_t* blk_f, double* carry,
-                  void* stream) {
-  return launch<double>(data, wa, first, coef_a, coef_b, B, m, n, out, blk_x, blk_f,
-                        carry, (cudaStream_t)stream);
+                  int64_t n, double* out, void* scratch, int* error, void* stream) {
+  return tail<double>(data, wa, first, coef_a, coef_b, B, m, n, out, scratch, error,
+                      (cudaStream_t)stream);
+}
+
+int ht_cumsum_f32(const float* x, const uint8_t* first, int64_t B, int64_t m, int64_t n,
+                  float* out, void* scratch, int* error, void* stream) {
+  return cumsum<float>(x, first, B, m, n, out, scratch, error, (cudaStream_t)stream);
+}
+
+int ht_cumsum_f64(const double* x, const uint8_t* first, int64_t B, int64_t m, int64_t n,
+                  double* out, void* scratch, int* error, void* stream) {
+  return cumsum<double>(x, first, B, m, n, out, scratch, error, (cudaStream_t)stream);
 }
 
 }  // extern "C"

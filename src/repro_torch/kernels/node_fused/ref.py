@@ -1,11 +1,11 @@
 """Plain PyTorch versions of the fused node pass (same contracts as ops.py).
 
-`node_fused_ref` is the plain version of the CUDA kernel itself
-(``kernel.node_fused``): what the wrapper runs for CPU tensors, and what
-``chip_smoke.py`` holds the kernel against on the card. `fused_node_pass_ref`
-is the plain version of the whole pass, coefficients and head gather
-included — the counterpart of the JAX package's
-``kernels/node_fused/ref.py:fused_node_pass_ref``.
+`node_fused_ref` is the plain version of the TPU kernel's contract
+(``kernel.node_fused``). `fused_node_pass_ref` is the plain version of the
+whole pass, coefficients and head gather included — the counterpart of the
+JAX package's ``kernels/node_fused/ref.py:fused_node_pass_ref`` and of
+``kernel.fused_node_pass``. The wrappers run them for CPU tensors, and
+``chip_smoke.py`` holds the kernels against them on the card.
 """
 
 from __future__ import annotations
@@ -33,8 +33,10 @@ def node_fused_ref(data, data_scale, weights, first, coef_a, coef_b,
 
 
 def fused_node_pass_ref(data, weights, pos_in_seg, emit_scale, last_of_seg,
-                        seg_live, *, data_scale=None):
-    """Reference (slab, heads, norms) — see `ops.fused_node_pass`."""
+                        seg_live, *, data_scale=None, out=None, out_col=0):
+    """Reference (slab, heads, norms) — see `ops.fused_node_pass`; with
+    ``out`` the slab is copied into ``out[..., out_col:out_col + n]``, the
+    rest of ``out`` zeroed, and that view returned."""
     m = data.shape[-2]
     dtype = data.dtype
     weights = weights.to(dtype)
@@ -60,4 +62,9 @@ def fused_node_pass_ref(data, weights, pos_in_seg, emit_scale, last_of_seg,
         norms > 0, norms, torch.ones_like(norms))[:, None]
     heads = torch.where(seg_live[:, None], heads, torch.zeros_like(heads))
     norms = torch.where(seg_live, norms, torch.zeros_like(norms))
+    if out is not None:
+        n = slab.shape[-1]
+        out[..., :out_col].zero_()
+        out[..., out_col + n:].zero_()
+        slab = out[..., out_col:out_col + n].copy_(slab)
     return slab, heads.to(dtype), norms.to(dtype)

@@ -9,7 +9,9 @@ card, run them without the suite's conftest (which imports JAX)::
 Tolerances, relative to max(1, |plain|): float64 1e-9 and float32 1e-5
 (node_fused, segmented_tail) / 1e-4 (panel_qr, its T held to `_panel_to_wy`
 of the kernel's own V and beta) — the bounds the CPU suite holds the plain
-versions to against the JAX package. The panel_qr tests assert through the
+versions to against the JAX package. The node pass and every mode of the
+single-pass scan are also held to `tests/_scan_order.py`, the CPU emulation
+of their order of arithmetic, bit for bit. The panel_qr tests assert through the
 launch counts which variant (``panel_qr_reg``, ``_cluster``, ``_grid``) ran. flash_attention,
 elementwise: 2e-5 absolute in float32 and 1e-12 in float64 (the JAX
 package's own kernel-vs-oracle bound, tests/test_flash_kernel.py, and
@@ -24,10 +26,11 @@ import shutil
 import pytest
 import torch
 
+import _scan_order
 from repro_torch import figaro
 from repro_torch.core import heads_tails, postprocess
 from repro_torch.data.relational import yelp_like
-from repro_torch.kernels import _platform
+from repro_torch.kernels import _platform, _seg_scan
 from repro_torch.kernels.flash_attn import kernel as fk, ref as fr
 from repro_torch.kernels.head_tail import kernel as hk, ref as hr
 from repro_torch.kernels.node_fused import kernel as nk, ref as nr
@@ -77,12 +80,174 @@ def test_node_fused_kernel_matches_plain(dtype, b, m, n):
     es = torch.rand(m, generator=g, device="cuda", dtype=dtype)
     data = torch.randn(b, m, n, generator=g, device="cuda", dtype=dtype)
     args = (data, ds, w, first, ca, cb, es)
+    _platform.reset_launch_counts()
     e_k, s_k = nk.node_fused(*args)
+    assert _platform.launch_counts() == {nk.CONTRACT_NAME: 1}
     e_r, s_r = nr.node_fused_ref(*args)
-    torch.cuda.synchronize()
+    _seg_scan.check()
     assert _rel(e_k, e_r) <= TOL[dtype]["nf"]
     assert _rel(s_k, s_r) <= TOL[dtype]["nf"]
     assert bool((e_k[:, dead] == 0).all())
+
+
+def _pass_case(b, m, n, dtype, p_start, seed):
+    """fused_node_pass inputs on the card: random segments (p_start 1.0: every
+    row starts one, K = m; 0.0: one segment over all rows), 10 % dead rows
+    (never starts; weight and data_scale 0), the live slots' last rows, and
+    three dead slots pointing at row 0, the last row and past the end.
+    Returns (args, kwargs, dead rows, dead slots)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+    first = torch.rand(m, generator=g, device=dev) < p_start
+    first[0] = True
+    dead = (torch.rand(m, generator=g, device=dev) < 0.1) & ~first
+    seg = torch.cumsum(first.long(), 0) - 1
+    starts = torch.nonzero(first).squeeze(1)
+    pos = torch.arange(m, device=dev) - starts[seg]
+    last = torch.cat([starts[1:], torch.tensor([m], device=dev)]) - 1
+    last = torch.cat([last, torch.tensor([0, m - 1, m + 5], device=dev)])
+    live = torch.ones(last.shape[0], dtype=torch.bool, device=dev)
+    live[-3:] = False
+    w = torch.rand(m, generator=g, device=dev, dtype=dtype) + 0.5
+    w[dead] = 0
+    ds = (~dead).to(dtype)
+    es = torch.rand(m, generator=g, device=dev, dtype=dtype) + 0.5
+    data = torch.randn(b, m, n, generator=g, device=dev, dtype=dtype)
+    return (data, w, pos, es, last, live), {"data_scale": ds}, dead, ~live
+
+
+PASS_CASES = [(1, 10_001, 1, 0.05), (2, 4_099, 3, 0.05), (1, 777, 40, 0.05),
+              (1, 50_000, 1, 1.0),       # K = m
+              (1, 200_000, 1, 0.0),      # one segment over > 64 tiles
+              (1, 40_000, 18, 0.0),      # the same, 18 columns
+              (2, 3_001, 300, 0.02)]     # wider than a block's threads
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b,m,n,p_start", PASS_CASES)
+def test_fused_node_pass_kernel_matches_plain(dtype, b, m, n, p_start):
+    """The node pass's kernel against `ref.fused_node_pass_ref` (slab, heads,
+    norms); dead rows and dead slots exactly zero; one launch counted."""
+    _need_card()
+    args, kw, dead, dead_slots = _pass_case(b, m, n, dtype, p_start, m + n)
+    _platform.reset_launch_counts()
+    got = nk.fused_node_pass(*args, **kw)
+    assert _platform.launch_counts() == {nk.NAME: 1}
+    want = nr.fused_node_pass_ref(*args, **kw)
+    _seg_scan.check()
+    for x, y in zip(got, want):
+        assert x.shape == y.shape and x.dtype == dtype
+        assert _rel(x, y) <= TOL[dtype]["nf"]
+    slab, heads, norms = got
+    assert bool((slab[:, dead] == 0).all())
+    assert bool((heads[:, dead_slots] == 0).all())
+    assert bool((norms[dead_slots] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b,m,n,p_start", PASS_CASES[:3] + PASS_CASES[5:6])
+def test_seg_scan_kernels_match_their_cpu_emulation(dtype, b, m, n, p_start):
+    """Every mode of the single-pass scan equals `tests/_scan_order.py`, the
+    CPU emulation of its order of arithmetic, bit for bit."""
+    _need_card()
+    args, kw, _, _ = _pass_case(b, m, n, dtype, p_start, m * n)
+    cpu = lambda t: t.cpu() if torch.is_tensor(t) else t
+    got = nk.fused_node_pass(*args, **kw)
+    want = _scan_order.node_pass_order(*map(cpu, args),
+                                       data_scale=cpu(kw["data_scale"]))
+    for x, y in zip(got, want):
+        assert torch.equal(x.cpu(), y)
+    data, w, pos, es = args[:4]
+    first = pos == 0
+    ds = kw["data_scale"]
+    ca = torch.rand_like(w)
+    cb = -w * torch.rand_like(w)
+    contract = (data, ds, w, first, ca, cb, es)
+    for x, y in zip(nk.node_fused(*contract),
+                    _scan_order.contract_order(*map(cpu, contract))):
+        assert torch.equal(x.cpu(), y)
+    wa = data * w[:, None]
+    tail = (data, wa, first, ca, cb)
+    assert torch.equal(hk.segmented_tail(*tail).cpu(),
+                       _scan_order.tail_order(*map(cpu, tail)))
+    for x in (w * w, data):
+        assert torch.equal(hk.segmented_cumsum(x, first).cpu(),
+                           _scan_order.cumsum_order(x.cpu(), first.cpu()))
+    _seg_scan.check()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("whole_rows", [False, True])
+@pytest.mark.parametrize("m,n,row0,col0", [(5_000, 1, 17, 3), (3_000, 16, 0, 19),
+                                          (2_000, 35, 100, 0)])
+def test_fused_node_pass_writes_into_a_strided_band(dtype, whole_rows, m, n,
+                                                    row0, col0):
+    """The slab straight into a band of a [2, rows, 35] buffer (row stride 35,
+    batch stride rows·35), as R₀'s band assembly gives it — either the band
+    itself, or its whole rows with ``out_col`` (then the rest of those rows
+    is zeroed): the band equals the plain slab, everything else is
+    untouched."""
+    _need_card()
+    args, kw, _, _ = _pass_case(2, m, n, dtype, 0.05, row0 + n)
+    buf = torch.randn(2, row0 + m + 50, 35, device="cuda", dtype=dtype)
+    keep = buf.clone()
+    band = buf[:, row0:row0 + m, col0:col0 + n]
+    if whole_rows:
+        slab, heads, norms = nk.fused_node_pass(
+            *args, **kw, out=buf[:, row0:row0 + m], out_col=col0)
+    else:
+        slab, heads, norms = nk.fused_node_pass(*args, **kw, out=band)
+    assert slab.data_ptr() == band.data_ptr()
+    want = nr.fused_node_pass_ref(*args, **kw)
+    _seg_scan.check()
+    assert _rel(band, want[0]) <= TOL[dtype]["nf"]
+    assert _rel(heads, want[1]) <= TOL[dtype]["nf"]
+    outside = torch.ones_like(buf, dtype=torch.bool)
+    outside[:, row0:row0 + m, col0:col0 + n] = False
+    if whole_rows:
+        rest = outside.clone()
+        rest[:, :row0] = False
+        rest[:, row0 + m:] = False
+        assert bool((buf[rest] == 0).all())
+        outside[:, row0:row0 + m] = False
+    assert torch.equal(buf[outside], keep[outside])
+
+
+def test_fused_node_pass_issues_few_torch_ops():
+    """On the card the wrapper adds no [m]-sized torch op: at most 12 torch
+    ops besides its kernel launches (a dispatch-mode count)."""
+    _need_card()
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    args, kw, _, _ = _pass_case(1, 100_000, 3, torch.float32, 0.05, 1)
+    nk.fused_node_pass(*args, **kw)  # build and bind first
+    torch.cuda.synchronize()
+    with Count() as count:
+        from repro_torch.kernels.node_fused import ops as nf_ops
+        nf_ops.fused_node_pass(*args, **kw)
+    assert len(count.ops) <= 12, count.ops
+
+
+@pytest.mark.parametrize("mode", sorted(_seg_scan.MODES))
+@pytest.mark.parametrize("n", [0, 1, 3, 16, 18, 40, 129, 300, 513])
+@pytest.mark.parametrize("item", [4, 8])
+def test_seg_scan_geometry_mirror_matches_the_build(mode, n, item):
+    _need_card()
+    import ctypes
+
+    lib = (nk._lib().nf_geometry if mode in ("pass", "contract")
+           else hk._lib().ht_geometry)
+    out = (ctypes.c_int64 * 9)()
+    lib(1, 10_000, n, item, _seg_scan.MODES[mode][0], out)
+    g = _seg_scan.geometry(n, item, mode)
+    assert tuple(out[:5]) == (g.tpc, g.rpt, g.tile_rows, g.rw, g.pitch)
 
 
 def _panel_counts(m):
@@ -286,7 +451,7 @@ def test_segmented_head_tail_kernel_path_launches_and_matches():
     _platform.reset_launch_counts()
     got = heads_tails.segmented_head_tail(data, w, seg, pos, k,
                                           use_kernel=True)
-    assert _platform.launch_counts() == {"segmented_tail": 1}
+    assert _platform.launch_counts() == {hk.NAME: 1, hk.CUMSUM_NAME: 1}
     want = heads_tails.segmented_head_tail(data, w, seg, pos, k)
     for x, y in zip(got, want):
         assert _rel(x, y) <= 1e-9

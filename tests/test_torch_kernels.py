@@ -579,3 +579,7 @@ def test_wrappers_refuse_other_devices():
     v = torch.zeros(4, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         ht_ops.segmented_tail(z, z, v.bool(), v, v)
+    with pytest.raises(ValueError, match="no kernel"):
+        ht_ops.segmented_cumsum(v, v.bool())
+    with pytest.raises(ValueError, match="no kernel"):
+        nf_ops.fused_node_pass(z, v, v.long(), v, v.long(), v.bool())
