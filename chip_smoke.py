@@ -13,10 +13,13 @@ result line):
                 versions; TF32 off for matmuls and cuDNN.
   2. build    — builds every CUDA kernel from ``src/repro_torch/csrc`` (one
                 nvcc per source, all started together) and prints the time,
-                each kernel instance's registers and spills (ptxas), and the
+                each kernel instance's registers and spills (ptxas), the
                 tensor-core (HGMMA) and TMA (UTMALDG) instructions in the
-                SASS of the bfloat16 flash kernel (cuobjdump; it must hold
-                HGMMA; without cuobjdump that is logged and not checked).
+                SASS of the bfloat16 flash kernel, and the TF32 tensor-core
+                (HMMA or HGMMA ….TF32) and FP64 tensor-core (DMMA)
+                instructions in that of the float32/float64 one (cuobjdump;
+                each must hold its kind; without cuobjdump that is logged
+                and not checked).
   3. kernels  — each kernel against its plain PyTorch version on the card:
                 node_fused's node pass (``fused_node_pass``: slab, heads,
                 norms) and its TPU-contract entry on random segments that
@@ -42,8 +45,8 @@ result line):
                 and T to `_panel_to_wy` of its own V and beta.
                 flash_attention at hd 32, 64 and 256, with a window, without
                 causality, on two packed sequences whose positions restart
-                mid-tile, and in float32 and float64, against its plain
-                version.
+                mid-tile, and in float32 (hd 64 and 128) and float64 (hd 128
+                and 256), against its plain version.
   4. main     — ``yelp_like(scale=4_000_000, cols=16)``: Review 8 M rows,
                 N = 35 columns, R₀ ≈ 2.4·10⁷ rows at bucketed capacity. The
                 plan is built on the host (timed), then
@@ -99,10 +102,11 @@ result line):
                 logits of one forward against ``use_flash_kernel=False``
                 (the ported ``_attend``) at 2e-2 of max |logits|; the device
                 time by kernel of one eval step. Then the float32 eval path,
-                which takes the scalar flash kernel: the same model cut to
-                two blocks, ``compute_dtype="float32"``, one eval step with
-                the counters zeroed, its flash calls against the plain
-                version.
+                which takes the float32/float64 flash kernel (``mma``): the
+                same model cut to two blocks, ``compute_dtype="float32"``,
+                one eval step with the counters zeroed, its flash calls
+                against the plain version and SDPA, then the same calls cast
+                to float64, against the plain version and SDPA in float64.
   8. summary  — one ``{"kernels": [...]}`` line, then, last, the
                 ``{"ok": true, "device": {...}}`` line.
 
@@ -128,9 +132,11 @@ Bounds: ``bound_ms`` is the larger of the bytes each call must move (inputs
 read once, outputs written once) over 3.35 TB/s and its floating-point
 operations over the H100 SXM's peak for the type: without tensor cores for
 the FiGaRo kernels (67 TFLOP/s float32, 34 TFLOP/s float64), and the dense
-bfloat16 tensor-core peak (989 TFLOP/s) for flash_attention on bfloat16,
-counting the causal score pairs this run's positions make visible
-(NVIDIA's data sheet).
+tensor-core peaks for flash_attention, counting the causal score pairs this
+run's positions make visible: 989 TFLOP/s for bfloat16, 494.5 TFLOP/s
+(TF32) paid three times for float32 (3xTF32 products), 67 TFLOP/s (FP64
+tensor cores) for float64 (NVIDIA's data sheet). The float32/float64 flash
+kernel also reports ``old_bound_ms``, the same work at the CUDA-core peaks.
 """
 
 from __future__ import annotations
@@ -147,6 +153,10 @@ import time
 REPO = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12, "bfloat16": 989e12}
+# The float32/float64 flash kernel's tensor-core peaks (dense TF32, FP64
+# tensor cores) and the products each flop of the function costs there
+# (3xTF32: three TF32 products per float32 product).
+FLASH_MMA_PEAK = {"float32": (494.5e12, 3), "float64": (67e12, 1)}
 TOL = {("node_fused", "float32"): 1e-5, ("node_fused", "float64"): 1e-9,
        ("panel_qr", "float32"): 1e-4, ("panel_qr", "float64"): 1e-9,
        ("segmented_tail", "float32"): 1e-5,
@@ -180,13 +190,13 @@ KERNELS = {
                          "src/repro/core/heads_tails.py:82"),
     "flash_attention_sm90": ("src/repro_torch/csrc/flash_attn_sm90.cu",
                              "src/repro/kernels/flash_attn/kernel.py:84"),
-    "flash_attention_scalar": ("src/repro_torch/csrc/flash_attn.cu",
-                               "src/repro/kernels/flash_attn/kernel.py:84"),
+    "flash_attention_mma": ("src/repro_torch/csrc/flash_attn.cu",
+                            "src/repro/kernels/flash_attn/kernel.py:84"),
 }
 # The dtypes each flash source serves (kernels/flash_attn/kernel.py:variant).
 FLASH_DTYPES = {"flash_attention_sm90": ["bfloat16"],
-                "flash_attention_scalar": ["float32", "float64"]}
-LM32_BLOCKS = 2  # depth of the float32 eval path (the scalar flash kernel)
+                "flash_attention_mma": ["float32", "float64"]}
+LM32_BLOCKS = 2  # depth of the float32 eval path (the mma flash kernel)
 WIDE_COLS = (170, 171, 171)  # data columns of the wide star: N = 512
 LM_BATCH, LM_SEQ = 2, 4096  # SHAPES["train_4k"]'s sequence, batch cut to 2
 
@@ -263,8 +273,9 @@ def phase_card():
 
 def phase_build() -> dict:
     """Build every source; log ptxas's registers and spills per kernel and
-    check the bfloat16 flash kernel's SASS for tensor-core instructions.
-    Returns {"spill_bytes": {kernel: bytes}, "hgmma": count or None}."""
+    check both flash kernels' SASS for tensor-core instructions. Returns
+    {"spill_bytes": {kernel: bytes}, "hgmma": count or None, "tf32_mma":
+    count or None, "dmma": count or None}."""
     import os
     import re
     import shutil
@@ -283,8 +294,12 @@ def phase_build() -> dict:
                 pq = re.search(r"panel_qr_reg_kernelI([fd])Li(\d+)ELi(\d+)"
                                r"ELb([01])E", line)
                 grid = re.search(r"panel_qr_grid_kernelI([fd])Li(\d+)E", line)
+                mma = re.search(r"flash_fwd_mmaI([fd])Li(\d+)E", line)
                 if m:
                     entry = f"flash_fwd_sm90<hd {m[1]}>"
+                elif mma:
+                    typ = "float" if mma[1] == "f" else "double"
+                    entry = f"flash_fwd_mma<{typ}, hd {mma[2]}>"
                 elif pq:
                     typ = "float" if pq[1] == "f" else "double"
                     cluster = ", cluster" if pq[4] == "1" else ""
@@ -300,23 +315,39 @@ def phase_build() -> dict:
             sm = re.search(r"(\d+) bytes spill stores", line)
             if sm:
                 spills[entry] = spills.get(entry, 0) + int(sm[1])
-    hgmma = None
+    hgmma = tf32 = dmma = None
     cuobjdump = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    lib = _build.library_path("flash_attn_sm90")
     if os.path.exists(cuobjdump):
-        sass = subprocess.run([cuobjdump, "-sass", str(lib)],
-                              capture_output=True, text=True, timeout=300)
-        check(sass.returncode == 0, f"cuobjdump -sass: {sass.stderr[-500:]}")
-        hgmma = sass.stdout.count("HGMMA")
+        def sass_of(source):
+            sass = subprocess.run(
+                [cuobjdump, "-sass", str(_build.library_path(source))],
+                capture_output=True, text=True, timeout=300)
+            check(sass.returncode == 0,
+                  f"cuobjdump -sass: {sass.stderr[-500:]}")
+            return sass.stdout
+
+        sass = sass_of("flash_attn_sm90")
+        hgmma = sass.count("HGMMA")
         log(f"  flash_attn_sm90 SASS: {hgmma} HGMMA, "
-            f"{sass.stdout.count('UTMALDG')} UTMALDG, "
-            f"{sass.stdout.count('SYNCS')} SYNCS (mbarrier) instructions")
+            f"{sass.count('UTMALDG')} UTMALDG, "
+            f"{sass.count('SYNCS')} SYNCS (mbarrier) instructions")
         check(hgmma > 0, "flash_attn_sm90 runs on the tensor cores (HGMMA)")
+        ops = re.findall(r"\b(H?G?MMA|DMMA)(\.[0-9A-Za-z.]+)?",
+                         sass_of("flash_attn"))
+        tf32 = sum(1 for op, sfx in ops if op in ("HMMA", "HGMMA")
+                   and "TF32" in sfx)
+        dmma = sum(1 for op, _ in ops if op == "DMMA")
+        kinds = sorted({op + sfx for op, sfx in ops})
+        log(f"  flash_attn SASS: {tf32} TF32 tensor-core instructions, "
+            f"{dmma} DMMA ({kinds})")
+        check(tf32 > 0, "flash_attn runs float32 on the TF32 tensor cores")
+        check(dmma > 0, "flash_attn runs float64 on the FP64 tensor cores")
     else:
-        log(f"  cuobjdump not found ({cuobjdump}): the SASS of "
-            "flash_attn_sm90 is not checked for HGMMA in this run")
-    return {"spill_bytes": spills, "hgmma": hgmma}
+        log(f"  cuobjdump not found ({cuobjdump}): the SASS of the flash "
+            "kernels is not checked for tensor-core instructions in this run")
+    return {"spill_bytes": spills, "hgmma": hgmma, "tf32_mma": tf32,
+            "dmma": dmma}
 
 
 # -- phase 3 ------------------------------------------------------------------
@@ -371,10 +402,22 @@ def panel_qr_cost(a) -> tuple[int, int]:
     return (3 * a.numel() + batch * (nb + nb * nb)) * item, batch * flops
 
 
-def bound_ms(nbytes: int, flops: int, dtype: str) -> tuple[float, str]:
+def bound_ms(nbytes: int, flops: int, dtype: str,
+             peak: tuple[float, int] | None = None) -> tuple[float, str]:
+    """The larger of the bytes' time at HBM_BYTES_PER_S and the flops' at
+    ``peak`` = (flop/s, passes each flop is paid), by default
+    (PEAK_FLOPS[dtype], 1)."""
+    rate, passes = peak if peak is not None else (PEAK_FLOPS[dtype], 1)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = passes * flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_mma_bound_ms(nbytes: int, flops: int,
+                       dtype: str) -> tuple[float, str]:
+    """`bound_ms` at the float32/float64 flash kernel's tensor-core peak,
+    each float32 flop paid three times (3xTF32)."""
+    return bound_ms(nbytes, flops, dtype, FLASH_MMA_PEAK[dtype])
 
 
 def elementwise(args, got, want) -> dict:
@@ -409,14 +452,15 @@ def fold(acc: dict, errs: dict) -> None:
 
 
 def measure(calls, kernel, plain, cost, compare, dtype: str, library=None,
-            reps: int = 5, fresh=None) -> dict:
+            reps: int = 5, fresh=None, bound=bound_ms) -> dict:
     """A kernel against its plain version over captured calls ``[(args,
     kwargs), ...]``: the worst of each error ``compare(args, got, want)``
     gives, the summed device times of the kernel, the plain version and
     ``library`` (one PyTorch call of the same function, or None), and the
-    summed bound from ``cost(*args, **kwargs)`` -> (bytes, flops). For a
-    kernel that works in place, ``fresh(args)`` gives each of the kernel,
-    the plain version and the timings its own copy of the inputs."""
+    summed ``bound`` (`bound_ms` unless given) of ``cost(*args, **kwargs)``
+    -> (bytes, flops). For a kernel that works in place, ``fresh(args)``
+    gives each of the kernel, the plain version and the timings its own
+    copy of the inputs."""
     import torch
 
     def use(args):
@@ -441,12 +485,12 @@ def measure(calls, kernel, plain, cost, compare, dtype: str, library=None,
         cb, cf = cost(*args, **kw)
         nbytes += cb
         flops += cf
-        b_ms += bound_ms(cb, cf, dtype)[0]
+        b_ms += bound(cb, cf, dtype)[0]
         shapes.append(list(args[0].shape))
         torch.cuda.empty_cache()
     res.update(calls=len(shapes), shapes=shapes, ms=ms, plain_ms=plain_ms,
                library_ms=lib_ms if library is not None else None,
-               bound_ms=b_ms, bound_by=bound_ms(nbytes, flops, dtype)[1],
+               bound_ms=b_ms, bound_by=bound(nbytes, flops, dtype)[1],
                bytes=nbytes, flops=flops)
     return res
 
@@ -963,7 +1007,8 @@ def check_flash_cases() -> float:
     """flash_attention at hd 32, 64 and 256, with a window, without
     causality, on two packed sequences (positions restarting at 0 inside a
     128-key tile) and in float32 and float64, against its plain version on
-    random inputs; the worst `flash_compare` ratio (≤ 1 passes)."""
+    random inputs; the worst `flash_compare` ratio (≤ 1 passes).
+    float32/float64 cases are bounded at the tensor-core peaks."""
     import torch
     from repro_torch.kernels.flash_attn import kernel as fk
 
@@ -973,7 +1018,9 @@ def check_flash_cases() -> float:
             (1, 1024, 4, 4, 256, True, None, torch.bfloat16, False),
             (2, 2048, 8, 2, 128, True, 512, torch.bfloat16, False),
             (1, 1000, 8, 8, 128, False, None, torch.float32, False),
+            (1, 1500, 8, 2, 64, True, None, torch.float32, False),
             (1, 300, 4, 2, 128, True, 100, torch.float64, False),
+            (1, 600, 4, 2, 256, True, None, torch.float64, False),
             (2, 1500, 8, 2, 32, True, None, torch.bfloat16, False),
             (1, 2000, 8, 2, 128, True, 700, torch.bfloat16, True)):
         g = torch.Generator(device="cuda").manual_seed(t + hd)
@@ -987,7 +1034,9 @@ def check_flash_cases() -> float:
         res = measure([((q, k, v, pos, pos),
                         {"causal": causal, "window": window})],
                       fk.flash_attention, flash_plain, flash_cost,
-                      flash_compare, name, reps=3)
+                      flash_compare, name, reps=3,
+                      bound=bound_ms if dt == torch.bfloat16
+                      else flash_mma_bound_ms)
         report(f"flash_attention ({fk.variant(dt)}) {name} [B={b}, T={t}, "
                f"Hq={hq}, Hkv={hkv}, hd={hd}] causal={causal} "
                f"window={window}{' packed' if packed else ''}", res,
@@ -1253,7 +1302,7 @@ def phase_lm(seed: int) -> dict:
         f"tokens {float(metrics['tokens']):.0f}); peak device memory "
         f"{peak:.2f} GiB; launches {launches} over {REPS + 1} steps")
     check(launches.get("flash_attention_sm90", 0) == (REPS + 1) * cfg.n_blocks
-          and launches.get("flash_attention_scalar", 0) == 0,
+          and launches.get("flash_attention_mma", 0) == 0,
           "the bfloat16 flash kernel launched once per layer on the LM path")
     check(math.isfinite(loss), "LM loss finite")
 
@@ -1289,9 +1338,7 @@ def phase_lm(seed: int) -> dict:
            library="scaled_dot_product_attention")
     log(f"flash_attention bound: {flash['flops']:.3e} flops at 989 TFLOP/s, "
         f"{flash['bytes']:.3e} bytes at 3.35 TB/s")
-    flash["tflops"] = flash["flops"] / flash["ms"] / 1e9
-    flash["bound_share"] = flash["bound_ms"] / flash["ms"]
-    flash["vs_library"] = flash["ms"] / flash["library_ms"]
+    flash_rates(flash, "bfloat16")
     log(f"flash_attention_sm90 over one forward: {flash['ms']:.3f} ms, "
         f"{flash['tflops']:.1f} TFLOP/s (4·hd flops per visible pair), "
         f"{100 * flash['bound_share']:.1f}% of the bound, "
@@ -1312,11 +1359,24 @@ def phase_lm(seed: int) -> dict:
                 launches.get("flash_attention_sm90", 0) // (REPS + 1)}
 
 
+def flash_rates(res: dict, dtype: str) -> None:
+    """Add to a flash `measure` result its TFLOP/s (4·hd flops per visible
+    pair), its share of the bound, its ratio to the library call and, for
+    the float32/float64 kernel, the bound at the CUDA-core peaks
+    (``old_bound_ms``)."""
+    res["tflops"] = res["flops"] / res["ms"] / 1e9
+    res["bound_share"] = res["bound_ms"] / res["ms"]
+    res["vs_library"] = res["ms"] / res["library_ms"]
+    if dtype in FLASH_MMA_PEAK:
+        res["old_bound_ms"] = bound_ms(res["bytes"], res["flops"], dtype)[0]
+
+
 def phase_lm32(seed: int) -> dict:
-    """The float32 eval path, which takes the scalar flash kernel: qwen3-8b
-    at full width cut to `LM32_BLOCKS` blocks, ``compute_dtype="float32"``,
-    one eval step on 2 × 4096 tokens with the counters zeroed around it;
-    then its flash calls, captured, against the plain version and SDPA."""
+    """The float32 eval path, which takes the float32/float64 flash kernel:
+    qwen3-8b at full width cut to `LM32_BLOCKS` blocks,
+    ``compute_dtype="float32"``, one eval step on 2 × 4096 tokens with the
+    counters zeroed around it; then its flash calls, captured, against the
+    plain version and SDPA, and the same calls cast to float64."""
     import dataclasses
 
     import torch
@@ -1344,26 +1404,41 @@ def phase_lm32(seed: int) -> dict:
     log(f"float32 eval step, {cfg.n_blocks} blocks of qwen3-8b, "
         f"{LM_BATCH} x {LM_SEQ} tokens: {t_step * 1e3:.1f} ms (first call), "
         f"loss {loss:.4f}; launches {launches}")
-    check(launches.get("flash_attention_scalar", 0) == cfg.n_blocks
+    check(launches.get("flash_attention_mma", 0) == cfg.n_blocks
           and launches.get("flash_attention_sm90", 0) == 0,
-          "the scalar flash kernel launched once per layer on the float32 "
-          "path")
+          "the mma flash kernel launched once per layer on the float32 path")
     check(math.isfinite(loss), "float32 LM loss finite")
     del model, metrics
     torch.cuda.empty_cache()
     calls = cap.calls["flash_attention"]
     del cap
-    with torch.inference_mode():
-        flash = measure(calls, fk.flash_attention, flash_plain, flash_cost,
-                        flash_compare, "float32", library=sdpa, reps=3)
+    shape = (f"[{LM_BATCH}, {LM_SEQ}, {cfg.n_heads}, "
+             f"{cfg.resolved_head_dim}] (KV heads {cfg.n_kv_heads})")
+    out = {"launches": launches, "step_ms": t_step * 1e3, "loss": loss}
+    for dtype in ("float32", "float64"):
+        if dtype == "float64":
+            calls = [((*(x.double() for x in args[:3]), *args[3:]), kw)
+                     for args, kw in calls]
+        with torch.inference_mode():
+            flash = measure(calls, fk.flash_attention, flash_plain,
+                            flash_cost, flash_compare, dtype, library=sdpa,
+                            reps=3, bound=flash_mma_bound_ms)
+        torch.cuda.empty_cache()
+        report(f"flash_attention_mma {dtype} over one {cfg.n_blocks}-block "
+               f"forward of {shape}", flash, {"bound_ratio": 1.0},
+               library="scaled_dot_product_attention")
+        flash_rates(flash, dtype)
+        log(f"flash_attention_mma {dtype}: {flash['ms']:.3f} ms, "
+            f"{flash['tflops']:.1f} TFLOP/s (4·hd flops per visible pair), "
+            f"{100 * flash['bound_share']:.1f}% of the tensor-core bound "
+            f"{flash['bound_ms']:.3f} ms (CUDA-core bound "
+            f"{flash['old_bound_ms']:.3f} ms), "
+            f"{flash['vs_library']:.3f}x scaled_dot_product_attention "
+            f"({flash['library_ms']:.3f} ms)")
+        out[dtype] = flash
     del calls
     torch.cuda.empty_cache()
-    report(f"flash_attention_scalar float32 over one {cfg.n_blocks}-block "
-           f"forward of [{LM_BATCH}, {LM_SEQ}, {cfg.n_heads}, "
-           f"{cfg.resolved_head_dim}]", flash, {"bound_ratio": 1.0},
-           library="scaled_dot_product_attention")
-    return {"launches": launches, "flash": flash, "step_ms": t_step * 1e3,
-            "loss": loss}
+    return out
 
 
 def main(argv=None) -> int:
@@ -1526,7 +1601,7 @@ def main(argv=None) -> int:
     log("== phase 7: qwen3-8b eval forward")
     lm = phase_lm(args.seed)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
-    log("== phase 7b: float32 eval forward (scalar flash kernel)")
+    log("== phase 7b: float32 eval forward (mma flash kernel)")
     lm32 = phase_lm32(args.seed)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
@@ -1545,8 +1620,8 @@ def main(argv=None) -> int:
                              tails["cumsum_float64"], "float32"),
         "flash_attention_sm90": (lm["launches"], lm["flash"], None,
                                  "bfloat16"),
-        "flash_attention_scalar": (lm32["launches"], lm32["flash"], None,
-                                   "float32"),
+        "flash_attention_mma": (lm32["launches"], lm32["float32"],
+                                lm32["float64"], "float32"),
     }
     kernels = []
     for kname, (source, replaces) in KERNELS.items():
@@ -1574,12 +1649,14 @@ def main(argv=None) -> int:
             entry["dtypes"] = FLASH_DTYPES[kname]
         if kname == "flash_attention_sm90":
             entry["launches_per_forward"] = lm["launches_per_forward"]
-            entry.update({k: lm["flash"][k] for k in (
+        if kname in FLASH_DTYPES:
+            entry.update({k: main[k] for k in (
                 "tflops", "bound_share", "vs_library")})
         if f64 is not None:
             entry["float64"] = {k: f64[k] for k in (
                 "max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms",
-                "bound_by", "library_ms", "old_bound_ms") if k in f64}
+                "bound_by", "library_ms", "old_bound_ms", "tflops",
+                "bound_share", "vs_library", "bound_ratio") if k in f64}
         check(entry["launches"] > 0, f"{kname} launched on its path")
         kernels.append(entry)
     log(json.dumps({"main_path_ms": {"qr_f32": t_qr * 1e3,
@@ -1612,6 +1689,8 @@ def main(argv=None) -> int:
                     "lm32_loss": lm32["loss"],
                     "build_spill_bytes": build["spill_bytes"],
                     "flash_sm90_hgmma": build["hgmma"],
+                    "flash_mma_tf32_instructions": build["tf32_mma"],
+                    "flash_mma_dmma_instructions": build["dmma"],
                     "small_gram_rel_err": gram_rel,
                     "elapsed_s": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": kernels}))

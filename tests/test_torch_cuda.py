@@ -466,7 +466,7 @@ def _flash_run(q, k, v, qpos, kpos, causal=True, window=None):
     _platform.reset_launch_counts()
     got = fk.flash_attention(q, k, v, qpos, kpos, causal=causal,
                              window=window)
-    kind = fk.SM90_NAME if q.dtype == torch.bfloat16 else fk.SCALAR_NAME
+    kind = fk.SM90_NAME if q.dtype == torch.bfloat16 else fk.MMA_NAME
     assert _platform.launch_counts() == {fk.NAME: 1, kind: 1}
     want = fr.flash_attention_ref(q, k, v, qpos, kpos, causal=causal,
                                   window=window)
@@ -554,6 +554,65 @@ def test_flash_attention_kernel_fully_masked_row_is_zero(dtype):
 def test_flash_sm90_shared_memory_mirror_matches_the_build(hd):
     _need_card()
     assert fk.smem_bytes_of_build(hd) == fk.sm90_smem_bytes(hd)
+
+
+MMA_TOL = {torch.float32: (0.0, 0.0, 2e-5), torch.float64: (0.0, 0.0, 1e-12)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b,tq,tk,hq,hkv,hd", [
+    (1, 100, 2300, 8, 2, 128),  # Tk >= 2048: the K/V stages refill many times
+    (2, 77, 77, 8, 2, 64),      # a GQA group of 4 in one block, Tq ragged
+    (1, 50, 50, 12, 1, 32),     # a group of 12: blocks of 4 heads, 3 per group
+    (1, 200, 333, 4, 1, 256),   # hd 256 (float64: O in two column halves)
+])
+def test_flash_attention_mma_edges(dtype, b, tq, tk, hq, hkv, hd):
+    """The float32/float64 kernel where its tiling has edges: many K/V
+    tiles, the GQA group folded into a block's rows with a ragged last
+    block, groups larger than a block folds, and the widest head dim."""
+    _need_card()
+    q, k, v = _qkv(b, tq, tk, hq, hkv, hd, dtype, tk + hd)
+    qpos = torch.arange(tk - tq, tk, device="cuda", dtype=torch.int32)
+    kpos = torch.arange(tk, device="cuda", dtype=torch.int32)
+    got, want = _flash_run(q, k, v, qpos, kpos)
+    assert _flash_excess(got, want, MMA_TOL[dtype]) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_flash_attention_mma_long_rows_keep_their_accuracy(dtype):
+    """4,096 causal keys with V offset by 3, so every output is near 3: a
+    float32 sum that drifted by a few units in 1e5 over its ~1,500 tensor
+    core products would exceed the bound (the tensor core's float32
+    accumulation truncates; each tile's P.V is summed apart)."""
+    _need_card()
+    q, k, v = _qkv(1, 4096, 4096, 8, 2, 128, dtype, 4096)
+    v = v + 3
+    pos = torch.arange(4096, device="cuda", dtype=torch.int32)
+    got, want = _flash_run(q, k, v, pos, pos)
+    assert _flash_excess(got, want, MMA_TOL[dtype]) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("causal,window", [(True, 40), (False, 40),
+                                           (True, None)])
+def test_flash_attention_mma_packed_sequences(dtype, causal, window):
+    """Two sequences packed in one row of 300 tokens (positions restart
+    at 0 inside a key tile), with and without a window, and padded keys."""
+    _need_card()
+    q, k, v = _qkv(1, 300, 300, 8, 2, 128, dtype, 11)
+    pos = torch.cat([torch.arange(170), torch.arange(130)]).to(
+        device="cuda", dtype=torch.int32)
+    kpos = pos.clone()
+    kpos[60:75] = -1
+    got, want = _flash_run(q, k, v, pos, kpos, causal, window)
+    assert _flash_excess(got, want, MMA_TOL[dtype]) <= 1.0
+
+
+@pytest.mark.parametrize("dtype,hd", list(fk.MMA_TILES))
+def test_flash_mma_shared_memory_mirror_matches_the_build(dtype, hd):
+    _need_card()
+    assert fk.mma_smem_bytes_of_build(dtype, hd) == fk.mma_smem_bytes(dtype,
+                                                                      hd)
 
 
 def test_session_kernel_path_launches_and_matches_plain_path():

@@ -1,13 +1,15 @@
 """The port's flash attention (its plain version, on the CPU) against the JAX
 package's Pallas kernel in interpret mode and its ``ref.py``; and, without a
 card, what can be checked of the CUDA kernels: which one each dtype takes,
-the bfloat16 kernel's shared memory per head dim, and an emulation of its
+each kernel's shared memory per head dim, and emulations of their
 arithmetic.
 
 Tolerances are those of the JAX package's own kernel-vs-oracle test
 (tests/test_flash_kernel.py): 2e-5 absolute in float32, 2e-2 in bfloat16.
-The emulation is held to the bound the card's checks use for bfloat16: one
-bfloat16 step, |got − want| ≤ 2⁻⁷·|want| + 1e-3·rms(want).
+The bfloat16 emulation is held to the bound the card's checks use for
+bfloat16: one bfloat16 step, |got − want| ≤ 2⁻⁷·|want| + 1e-3·rms(want);
+the float32 (3xTF32) emulation to the float32 bound, 2e-5 absolute, against
+the Pallas kernel.
 """
 
 import pathlib
@@ -18,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import _flash_mma_emulation as mma_emu
 from repro.kernels.flash_attn import ops as jfa_ops
 from repro.kernels.flash_attn import ref as jfa_ref
 from repro_torch.kernels import _platform
@@ -149,11 +152,12 @@ def test_flash_kernel_wrapper_refuses_what_it_cannot_run():
 
 
 def test_flash_kernel_choice_follows_the_dtype():
-    """bfloat16 goes to the tensor-core kernel, float32 and float64 to the
-    scalar one; other dtypes are refused."""
+    """bfloat16 goes to the sm90 kernel (flash_attn_sm90.cu), float32 and
+    float64 to the mma one (flash_attn.cu: float32 on wgmma up to hd 128
+    and mma.sync at hd 256, float64 on DMMA); other dtypes are refused."""
     assert fa_kernel.variant(torch.bfloat16) == "sm90"
-    assert fa_kernel.variant(torch.float32) == "scalar"
-    assert fa_kernel.variant(torch.float64) == "scalar"
+    assert fa_kernel.variant(torch.float32) == "mma"
+    assert fa_kernel.variant(torch.float64) == "mma"
     with pytest.raises(TypeError):
         fa_kernel.variant(torch.float16)
 
@@ -235,3 +239,92 @@ def test_flash_sm90_p_split_keeps_one_bf16_step(seed):
     want = fa_ref.flash_attention_ref(q, k, v, pos, pos)
     assert _bf16_step_ratio(_emulate_sm90(q, k, v, pos, pos, True), want) <= 1
     assert _bf16_step_ratio(_emulate_sm90(q, k, v, pos, pos, False), want) > 2
+
+
+_MMA_SOURCE = _SM90_SOURCE.with_name("flash_attn.cu")
+
+
+@pytest.mark.parametrize("dtype,hd", list(fa_kernel.MMA_TILES))
+def test_flash_mma_shared_memory_fits_and_matches_the_source(dtype, hd):
+    """The Python mirror of the float32/float64 kernel's tiles and shared
+    memory fits one block and agrees with the table of the source's note and
+    with its FA_CFG lines."""
+    nbytes = fa_kernel.mma_smem_bytes(dtype, hd)
+    assert nbytes <= fa_kernel.SMEM_LIMIT
+    warps, bk, cols, wgmma = fa_kernel.MMA_TILES[(dtype, hd)]
+    assert not wgmma or dtype == torch.float32
+    text = _MMA_SOURCE.read_text()
+    name = "float" if dtype == torch.float32 else "double"
+    row = re.search(rf"^//\s+{name}\s+{hd}\s+(\d+)\s+(\d+)\s+(\d+)"
+                    r"\s+(wgmma|mma)\s+([\d,]+)", text, re.MULTILINE)
+    assert row is not None, f"no row for {name} hd {hd} in the source's table"
+    assert tuple(int(x) for x in row.groups()[:3]) == (warps, bk, cols)
+    assert (row[4] == "wgmma") == wgmma
+    assert int(row[5].replace(",", "")) == nbytes
+    cfg = re.search(rf"^FA_CFG\({name}, {hd}, (\d+), (\d+), (\d+), "
+                    r"(true|false)\)", text, re.MULTILINE)
+    assert cfg is not None, f"no FA_CFG line for {name} hd {hd}"
+    assert tuple(int(x) for x in cfg.groups()[:3]) == (warps, bk, cols)
+    assert (cfg[4] == "true") == wgmma
+
+
+_MMA_CASES = [
+    # (b, tq, tk, hq, hkv, hd, causal, window, score scale)
+    (1, 1024, 1024, 4, 1, 128, True, None, 1.0),  # causal GQA, the LM's hd
+    (2, 384, 384, 8, 2, 128, True, 100, 1.0),     # sliding window
+    # scores of large magnitude, up to 33: the softmax nearly one-hot. Much
+    # larger, two float32 dot products of the same rows (exact, or XLA's)
+    # already differ by the bound before any TF32 rounding.
+    (1, 512, 512, 4, 2, 128, True, None, 2.5),
+]
+
+
+def _mma_case(b, tq, tk, hq, hkv, hd, causal, window, amp):
+    rng = np.random.default_rng(tq + tk + hd + int(amp))
+    q, k, v, qpos, kpos = _inputs(rng, b, tq, tk, hq, hkv, hd)
+    q, k = q * np.float32(amp), k * np.float32(amp)
+    want = jfa_ops.flash_attention(*[jnp.asarray(x) for x in
+                                     (q, k, v, qpos, kpos)],
+                                   causal=causal, window=window, block_q=64,
+                                   block_kv=128)
+    return (q, k, v, qpos, kpos), np.asarray(want)
+
+
+@pytest.mark.parametrize("case", _MMA_CASES)
+def test_flash_mma_3xtf32_emulation_matches_pallas(case):
+    """The float32 kernel's 3xTF32 arithmetic, emulated in its order with
+    the tensor core's truncating accumulation and ``__expf``
+    (`_flash_mma_emulation`), is within the float32 bound of the JAX
+    package's Pallas kernel (interpret mode)."""
+    *shape, causal, window, amp = case
+    args, want = _mma_case(*shape, causal, window, amp)
+    got = mma_emu.emulate_mma(*args, causal, window)
+    assert float(np.abs(got - want).max()) < 2e-5
+
+
+def test_flash_mma_tile_sums_keep_long_rows_in_the_bound():
+    """Why each tile's P·V goes into a zeroed accumulator: over 4,096 keys
+    with V offset by 3, P·V summed straight into O (the kernel's first
+    version) drifts toward zero by the tensor core's truncation, outside the
+    float32 bound; summed per tile and added in IEEE arithmetic it stays
+    inside."""
+    rng = np.random.default_rng(7)
+    q, k, v, qpos, kpos = _inputs(rng, 1, 128, 4096, 2, 1, 128)
+    v = v + np.float32(3)
+    args = (q, k, v, qpos, kpos)
+    want = np.asarray(jfa_ops.flash_attention(
+        *[jnp.asarray(x) for x in args], causal=True, block_q=64,
+        block_kv=128))
+    tiles = mma_emu.emulate_mma(*args, True, None)
+    straight = mma_emu.emulate_mma(*args, True, None, tile_sums=False)
+    assert float(np.abs(tiles - want).max()) < 2e-5
+    assert float(np.abs(straight - want).max()) > 2e-5
+
+
+def test_flash_mma_single_tf32_pass_misses_the_bound():
+    """Why the kernel splits every operand: one TF32 pass (10 mantissa bits)
+    over the same case is far outside the float32 bound."""
+    *shape, causal, window, amp = _MMA_CASES[0]
+    args, want = _mma_case(*shape, causal, window, amp)
+    got = mma_emu.emulate_mma(*args, causal, window, split=False)
+    assert float(np.abs(got - want).max()) > 10 * 2e-5
