@@ -60,29 +60,55 @@ result line):
                 session with ``use_kernel=False`` on the card (float64,
                 after normalize_sign), and R₀ᵀR₀ against AᵀA of the
                 materialized join of ``yelp_like(scale=400, cols=3)``.
-                Last, torch.profiler's device time by kernel for one call
-                each of qr (float32 and float64), svd and the unfused qr,
-                with the device's busy share of the call, its count of
-                kernels and copies, and the device time of R₀'s assembly
-                (the ``figaro.r0_assembly`` range: its copies; none on the
-                kernel path with band assembly, where the passes write
-                whole rows of R₀ and nothing zero-fills it).
+                The engine captures one CUDA graph per R signature on its
+                second dispatch (float32 R, float64 R: two captures,
+                svd/pca/lsq replay the float64 one); the launch counts of a
+                replay are the capture's. Last, eager (inside the engine's
+                `eager_reference`, `eager_call`) against replay for one
+                float32 and one float64 ``qr``: R bit for bit (if two eager
+                runs differ, by how much, and the float64 replay within 1e-9
+                of eager), and torch.profiler's device time by kernel for
+                one call of each, with the device's busy share of the call,
+                its count of kernels and copies (eager and replay each at
+                most `MAX_KERNELS_PER_QR`), the median wall time of 3, and the
+                device time of R₀'s assembly (the ``figaro.r0_assembly``
+                range: its copies; none on the kernel path with band
+                assembly). The phase's reserved memory is logged.
+  4c. dataset — the same database through the dataset surface:
+                ``Session(use_kernel=True, assembly="band").ingest(db)
+                .join(edges, root="auto")``; the chosen root and
+                ``explain()``'s ranking of all 5 roots, host seconds of
+                ingest, join and the lazy plan build; ``ds.qr()``,
+                ``ds.svd()``, ``ds.pca(k=8)``, ``ds.lsq("stars")`` (median
+                of 3 after a warm-up, the counters zeroed around them);
+                float64 R against phase 4's plan-level ``Session.qr`` of
+                the same root at 1e-9 relative after normalize_sign; 4,096
+                Review rows appended within capacity (no miss, no capture;
+                host seconds of the append, the next ``qr``'s latency; R
+                against a fresh plan over the grown tables at 1e-9); then
+                250,000 CheckIn rows past its capacity (exactly one regrow,
+                which frees the superseded spec's graphs; over the next two
+                ``qr`` calls one miss and one capture; R against a fresh
+                plan). The phase's graphs and reserved memory are logged.
   5. wide     — a float64 ``qr`` over a star of three wide relations
                 (N = 512 columns, a few thousand rows) through
-                ``Session(use_kernel=True)``, timed as the median of 3 after
-                one warm-up and profiled once: its TSQR panels [B, 288–1024,
+                ``Session(use_kernel=True)``, timed as the median of 3
+                replays after the first call: its TSQR panels [B, 288–1024,
                 32] are taller than one block's 256 rows and go to
                 panel_qr's cluster variant (counted apart as
                 ``panel_qr_cluster``). R against ``use_kernel=False`` at
-                1e-9 relative; the variant's captured calls against the
-                plain version and ``torch.geqrf``.
+                1e-9 relative; the variant's calls of one eager dispatch
+                against the plain version and ``torch.geqrf``; eager
+                against replay as in phase 4.
   5b. tall    — a float64 ``qr`` with ``method="blocked"`` over the
                 configuration of phase 4 (``--scale``): its two panels (32
                 and 3 columns) are the whole R₀ (2.4·10⁷ rows at capacity),
                 taller than the largest cluster, and go to panel_qr's grid
                 variant (``panel_qr_grid``); R against ``use_kernel=False``
-                at 1e-9 relative, the captured calls against the plain
-                version and ``torch.geqrf``, and the phase's peak device
+                at 1e-9 relative, the calls of one eager dispatch against
+                the plain version and ``torch.geqrf``, a replay against the
+                first (eager) call bit for bit (the cooperative launch is
+                captured like any other), and the phase's peak device
                 memory.
   6. tails    — ``segmented_head_tail(use_kernel=True)`` at the two largest
                 node passes of the configuration above (Review's 8.4 M × 1
@@ -112,7 +138,11 @@ result line):
 
 Each of phases 4–7 (and 5b) drives one path of the port with the launch
 counters zeroed just before and read just after, and fails if a kernel of
-that path did not launch. After each phase the segmented-scan error word is
+that path did not launch. Every profiled ``qr`` (`profile_once`) also holds
+the trace to the counters: each port kernel of the path (the node pass's
+scan, panel_qr's three variants) ran as many times in the trace as the
+counters grew over the call, and nf_prep at most once per node pass — on a
+replay, the counts its capture recorded. After each phase the segmented-scan error word is
 read (`kernels/_seg_scan.py`): a look-back that ran out of its spin bound
 fails the run.
 
@@ -145,6 +175,7 @@ import argparse
 import json
 import math
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -171,6 +202,23 @@ REPS = 3  # timed runs after one warm-up
 # Kernels and copies one float32 qr of the main path may issue (2,765 while
 # the node pass's wrapper scanned the weights eagerly; about 400 since).
 MAX_KERNELS_PER_QR = 1300
+# The port's kernels as torch.profiler names them, by the launch counter
+# their wrapper adds to (`trace_launches`): the scan of seg_scan.cuh in its
+# four modes (node pass, contract, segmented tail, cumsum), panel_qr's
+# one-block, cluster and grid variants, and the two flash kernels.
+TRACE_KERNELS = {
+    "node_fused": r"segscan::seg_kernel<\w+, 0>",
+    "node_fused_contract": r"segscan::seg_kernel<\w+, 1>",
+    "segmented_tail": r"segscan::seg_kernel<\w+, 2>",
+    "segmented_cumsum": r"segscan::seg_kernel<\w+, 3>",
+    "panel_qr": r"panel_qr_(reg|grid)_kernel<",
+    "panel_qr_reg": r"panel_qr_reg_kernel<[^>]*, false>",
+    "panel_qr_cluster": r"panel_qr_reg_kernel<[^>]*, true>",
+    "panel_qr_grid": r"panel_qr_grid_kernel<",
+    "flash_attention": r"flash_fwd_(sm90|mma)<",
+    "flash_attention_sm90": r"flash_fwd_sm90<",
+    "flash_attention_mma": r"flash_fwd_mma<",
+}
 # Every CUDA kernel: (source, the TPU kernel it replaces).
 KERNELS = {
     "node_fused": ("src/repro_torch/csrc/node_fused.cu",
@@ -856,23 +904,50 @@ def measure_path_kernels(calls, dtype: str, label: str = "qr dispatch",
 
 # -- phase 4 ------------------------------------------------------------------
 
+def trace_launches(label: str, kernels, counted: dict) -> dict:
+    """Hold the port kernels in one call's trace to the launch counters'
+    growth over that call (on a replay: the counts its capture recorded,
+    which the engine adds): each counter of `TRACE_KERNELS` names as many
+    kernels in the trace as it grew, and nf_prep ran at most once per node
+    pass. Returns the trace's counts."""
+    seen = {name: sum(e.count for e in kernels if re.search(pat, e.key))
+            for name, pat in TRACE_KERNELS.items()}
+    prep = sum(e.count for e in kernels if "nf_prep" in e.key)
+    unknown = sorted(set(counted) - set(TRACE_KERNELS))
+    check(not unknown, f"{label}: counters {unknown} have no trace name")
+    for name, n in seen.items():
+        check(n == counted.get(name, 0),
+              f"{label}: {name} ran {n} times in the trace, the counters "
+              f"grew by {counted.get(name, 0)}")
+    check(prep <= seen["node_fused"],
+          f"{label}: nf_prep ran {prep} times over {seen['node_fused']} node "
+          "passes")
+    return dict(seen, nf_prep=prep)
+
+
 def profile_once(label: str, fn) -> dict:
     """Device time by kernel over one call of ``fn`` (torch.profiler), and
     the device's busy share of that call's wall time (kernels and copies on
-    the one stream, summed; they do not overlap). Returns the wall and busy
-    ms, the busy share and the count of kernels and copies."""
+    the one stream, summed; they do not overlap). The trace's port kernels
+    are held to the launch counters (`trace_launches`). Returns the wall
+    and busy ms, the busy share and the count of kernels and copies."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import _platform
 
     fn()
     torch.cuda.synchronize()
+    before = _platform.launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    counted = {k: v - before.get(k, 0)
+               for k, v in _platform.launch_counts().items()
+               if v != before.get(k, 0)}
     device = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA
               and not e.key.startswith("Command Buffer")]
@@ -892,9 +967,11 @@ def profile_once(label: str, fn) -> dict:
     for e in sorted(kernels, key=lambda e: -getattr(e, attr))[:12]:
         log(f"  {getattr(e, attr) / 1e3:9.3f} ms  {e.count:6d}x  "
             f"{e.key[:90]}")
+    traced = trace_launches(label, kernels, counted)
+    log(f"  port kernels in the trace {traced}; counters grew by {counted}")
     return {"wall_ms": wall_us / 1e3, "busy_ms": device_us / 1e3,
             "busy_share": device_us / wall_us, "kernels_and_copies": launches,
-            "r0_assembly_ms": r0_ms}
+            "r0_assembly_ms": r0_ms, "traced_launches": traced}
 
 
 def gram_check_small(torch_dtype):
@@ -914,6 +991,288 @@ def gram_check_small(torch_dtype):
         f"R0'R0 vs A'A max abs err {err:.3e}, relative {rel:.3e} (tol 1e-9)")
     check(rel <= 1e-9, "R0'R0 == A'A on the small tree")
     return rel
+
+
+# -- the captured program: eager against replay --------------------------------
+
+def eager_call(sess, tree_or_plan, kind: str = "qr", **opts):
+    """``sess.<kind>(tree_or_plan, **opts)`` run eagerly: the dispatch a user
+    makes, inside the engine's `eager_reference` (no signature, count or
+    CUDA graph)."""
+    with sess.engine.eager_reference():
+        return getattr(sess, kind)(tree_or_plan, **opts)
+
+
+def memory_log(label: str, engine=None) -> dict:
+    """The caching allocator's reserved memory now and at its peak, and,
+    given an engine, the memory its graphs' pool holds (the segments of
+    that pool in `torch.cuda.memory_snapshot`; None where the snapshot does
+    not name pools)."""
+    import torch
+
+    out = {"reserved_gib": torch.cuda.memory_reserved() / 2**30,
+           "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2**30,
+           "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30}
+    pool = ""
+    if engine is not None and engine._pool is not None:
+        segments = torch.cuda.memory_snapshot()
+        if all("segment_pool_id" in s for s in segments):
+            out["graph_pool_gib"] = sum(
+                s["total_size"] for s in segments
+                if tuple(s["segment_pool_id"]) == tuple(engine._pool)) / 2**30
+            pool = (f", the engine's graph pool {out['graph_pool_gib']:.2f} "
+                    f"GiB ({engine.graph_count()} graphs)")
+        else:
+            out["graph_pool_gib"] = None
+    log(f"memory after {label}: reserved {out['reserved_gib']:.2f} GiB, "
+        f"peak reserved {out['peak_reserved_gib']:.2f} GiB, peak allocated "
+        f"{out['peak_allocated_gib']:.2f} GiB{pool}")
+    return out
+
+
+def graph_vs_eager(label: str, sess, plan, dtype) -> dict:
+    """One ``qr`` of ``plan`` eager (`eager_call`: outside the graph)
+    against its replay: R bit for bit, and per call the kernels and copies,
+    the device's busy share and the wall time (median of 3). If two eager
+    runs already differ, that difference is logged and the float64 replay is
+    held to its eager run at 1e-9 relative instead."""
+    import torch
+
+    def replay():
+        return sess.qr(plan, dtype=dtype)
+
+    def eager():
+        return eager_call(sess, plan, "qr", dtype=dtype)
+
+    captures = sess.engine.capture_count()
+    replay()
+    replay()  # captured by now (on a signature's second dispatch)
+    r_e1, r_e2, r_g = eager(), eager(), replay()
+    torch.cuda.synchronize()
+    same_eager = torch.equal(r_e1, r_e2)
+    same = torch.equal(r_g, r_e1)
+    out = {"eager_runs_equal": same_eager, "replay_equals_eager": same,
+           "eager_vs_eager": rel_err(r_e1, r_e2)[1],
+           "replay_vs_eager": rel_err(r_g, r_e1)[1]}
+    log(f"{label}: two eager runs bit-equal {same_eager} (relative "
+        f"{out['eager_vs_eager']:.3e}); replay bit-equal to eager {same} "
+        f"(relative {out['replay_vs_eager']:.3e}); captures "
+        f"{captures} -> {sess.engine.capture_count()}")
+    if same_eager:
+        check(same, f"{label}: replayed R equals eager R bit for bit")
+    else:
+        r64_g = sess.qr(plan, dtype=torch.float64)
+        r64_e = eager_call(sess, plan, "qr", dtype=torch.float64)
+        out["float64_replay_vs_eager"] = rel_err(r64_g, r64_e)[1]
+        log(f"{label}: float64 replay vs eager relative "
+            f"{out['float64_replay_vs_eager']:.3e} (tol 1e-9)")
+        check(out["float64_replay_vs_eager"] <= 1e-9,
+              f"{label}: float64 replay within 1e-9 of eager")
+    out["eager"] = profile_once(f"{label} eager", eager)
+    out["replay"] = profile_once(f"{label} replay", replay)
+    for name in ("eager", "replay"):
+        count = out[name]["kernels_and_copies"]
+        check(count <= MAX_KERNELS_PER_QR,
+              f"{label} {name}: {count} kernels and copies (at most "
+              f"{MAX_KERNELS_PER_QR})")
+    for name, fn in (("eager", eager), ("replay", replay)):
+        _, med, times, _ = wall(fn, REPS)
+        out[name]["median_wall_ms"] = med * 1e3
+        out[name]["wall_ms_runs"] = [x * 1e3 for x in times]
+    log(f"{label}: median wall eager {out['eager']['median_wall_ms']:.2f} ms"
+        f", replay {out['replay']['median_wall_ms']:.2f} ms; kernels and "
+        f"copies eager {out['eager']['kernels_and_copies']}, replay "
+        f"{out['replay']['kernels_and_copies']}; busy share eager "
+        f"{out['eager']['busy_share']:.3f}, replay "
+        f"{out['replay']['busy_share']:.3f}")
+    return out
+
+
+# -- phase 4c: the dataset surface ----------------------------------------------
+
+def phase_dataset(tree, r64_plan_level, seed: int) -> dict:
+    """``Session(use_kernel=True, assembly="band").ingest(db).join(edges,
+    root="auto")`` at the main configuration's scale: the planner's root and
+    ranking, host seconds of ingest / join / lazy plan build; qr, svd,
+    pca(k=8) and lsq("stars") (median of 3 after a warm-up); float64 R
+    against the plan-level ``Session.qr`` of a plan of the same root; an
+    append of 4,096 Review rows within capacity (no miss, no capture; R
+    against a fresh plan over the grown tables); an append of 250,000
+    CheckIn rows past capacity (one regrow, one miss, one capture; R against
+    a fresh plan)."""
+    import numpy as np
+    import torch
+    from repro_torch import figaro
+    from repro_torch.core.join_tree import build_plan
+    from repro_torch.core.postprocess import normalize_sign
+    from repro_torch.kernels import _platform, _seg_scan
+
+    def r_check(what, got, want):
+        err = rel_err(normalize_sign(got), normalize_sign(want))
+        log(f"{what}: max abs err {err[0]:.3e}, relative {err[1]:.3e} "
+            f"(tol 1e-9)")
+        check(err[1] <= 1e-9, what)
+        return err[1]
+
+    out = {}
+    sess = figaro.Session(use_kernel=True, assembly="band", device="cuda")
+    eng = sess.engine
+    t0 = time.perf_counter()
+    tables = sess.ingest(tree.db)
+    out["ingest_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds = tables.join(tree.edges(), root="auto")
+    out["join_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan = ds.plan
+    out["plan_build_s"] = time.perf_counter() - t0
+    out["root"] = ds.tree.root
+    log(f"dataset: ingest {out['ingest_s']:.2f} s, join (full reduction and "
+        f"root choice) {out['join_s']:.2f} s, lazy capacity plan "
+        f"{out['plan_build_s']:.2f} s; root {out['root']!r}")
+    explain = ds.explain()
+    log(explain)
+    ranked = [ln for ln in explain.splitlines() if "root=" in ln
+              and "cost=" in ln]
+    check(len(ranked) == 5, "explain() ranks all five roots")
+    cap_review = ds.stats()["nodes"]["Review"]
+
+    _platform.reset_launch_counts()
+    t0 = time.perf_counter()
+    ds.qr()
+    torch.cuda.synchronize()
+    out["first_qr_s"] = time.perf_counter() - t0
+    r32, t_qr, ts_qr, _ = wall(ds.qr, REPS)
+    (s, vt), t_svd, ts_svd, w_svd = wall(ds.svd, REPS)
+    pca, t_pca, ts_pca, _ = wall(lambda: ds.pca(k=8), REPS)
+    (beta, resid), t_lsq, ts_lsq, _ = wall(lambda: ds.lsq("stars"), REPS)
+    launches = _platform.launch_counts()
+    log(f"dataset launch counts: {launches}")
+    for kname in ("node_fused", "panel_qr", "panel_qr_reg"):
+        check(launches.get(kname, 0) > 0, f"{kname} launched on the "
+              "dataset path")
+    n = plan.spec.num_cols
+    check(r32.shape == (n, n) and bool(torch.isfinite(r32).all()),
+          "ds.qr shape/finite")
+    check(s.shape == (n,) and bool(torch.isfinite(s).all()),
+          "ds.svd shape/finite")
+    check(pca.components.shape == (8, n)
+          and bool(torch.isfinite(pca.components).all()),
+          "ds.pca shape/finite")
+    check(beta.shape == (n - 1,) and bool(torch.isfinite(beta).all())
+          and bool(torch.isfinite(resid)), "ds.lsq shape/finite")
+    out["ms"] = {"first_qr_f32": out["first_qr_s"] * 1e3,
+                 "qr_f32": t_qr * 1e3, "svd_f64": t_svd * 1e3,
+                 "svd_f64_first": w_svd * 1e3, "pca_f64": t_pca * 1e3,
+                 "lsq_f64": t_lsq * 1e3}
+    for label, ts in (("ds.qr float32", ts_qr), ("ds.svd", ts_svd),
+                      ("ds.pca(k=8)", ts_pca), ("ds.lsq('stars')", ts_lsq)):
+        log(f"{label}: median {statistics.median(ts) * 1e3:.2f} ms of "
+            f"{[round(x * 1e3, 2) for x in ts]} ms")
+    log(f"first ds.qr (eager; the next one captures): "
+        f"{out['first_qr_s'] * 1e3:.1f} ms")
+
+    r64 = ds.qr(dtype=torch.float64)
+    if out["root"] == tree.root:
+        want = r64_plan_level
+    else:
+        want = eager_call(sess, build_plan(ds.tree), "qr",
+                          dtype=torch.float64)
+    out["r_vs_plan_level"] = r_check(
+        "ds.qr float64 vs the plan-level Session.qr of the same root", r64,
+        want)
+    torch.cuda.empty_cache()
+
+    # -- append within capacity: 4,096 Review rows over existing keys
+    rng = np.random.default_rng(seed)
+    rev = ds.tree.db["Review"]
+    pick = rng.integers(0, rev.num_rows, 4096)
+    keys = {a: rev.key_col(a)[pick].copy() for a in rev.key_attrs}
+    misses, captures = ds.stats()["trace_count"], eng.capture_count()
+    t0 = time.perf_counter()
+    in_cap = ds.append("Review", keys, rng.uniform(-3, 3, (4096, 1)))
+    out["append_in_capacity_s"] = time.perf_counter() - t0
+    check(in_cap, "4,096 Review rows fit Review's capacity")
+    t0 = time.perf_counter()
+    r64 = ds.qr(dtype=torch.float64)
+    torch.cuda.synchronize()
+    out["qr_after_append_ms"] = (time.perf_counter() - t0) * 1e3
+    _, t_next, _, _ = wall(lambda: ds.qr(dtype=torch.float64), REPS)
+    out["qr_f64_ms"] = t_next * 1e3
+    st = ds.stats()
+    log(f"append 4,096 Review rows (capacity {cap_review['capacity_rows']}, "
+        f"live {cap_review['live_rows']} -> "
+        f"{st['nodes']['Review']['live_rows']}): refresh_plan "
+        f"{out['append_in_capacity_s']:.2f} s; next float64 qr "
+        f"{out['qr_after_append_ms']:.1f} ms (the refreshed plan to the "
+        f"card and its index copied into the graph's buffers), then "
+        f"{out['qr_f64_ms']:.2f} ms; misses {misses} -> "
+        f"{st['trace_count']}, captures {captures} -> "
+        f"{eng.capture_count()}")
+    check(st["trace_count"] == misses, "an in-capacity append: no miss")
+    check(eng.capture_count() == captures,
+          "an in-capacity append: no capture")
+    fresh = build_plan(ds.tree)
+    out["r_after_append"] = r_check(
+        "after the in-capacity append: ds.qr vs a fresh plan", r64,
+        eager_call(sess, fresh, "qr", dtype=torch.float64))
+    # The eager references leave their blocks cached outside the graphs'
+    # pool; hand them back before the next capture.
+    del fresh
+    torch.cuda.empty_cache()
+
+    # -- append past capacity: 250,000 CheckIn rows
+    chk = ds.tree.db["CheckIn"]
+    before = st["nodes"]["CheckIn"]
+    keys = {a: rng.choice(chk.key_col(a), 250_000) for a in chk.key_attrs}
+    misses, captures = st["trace_count"], eng.capture_count()
+    regrows, graphs = st["regrows"], eng.graph_count()
+    out["memory_before_regrow"] = memory_log("phase 4c before the regrow",
+                                             eng)
+    t0 = time.perf_counter()
+    in_cap = ds.append("CheckIn", keys, rng.uniform(-3, 3, (250_000, 1)))
+    out["append_regrow_s"] = time.perf_counter() - t0
+    check(not in_cap, "250,000 CheckIn rows overflow CheckIn's capacity")
+    released = eng.graph_count()
+    torch.cuda.empty_cache()
+    out["memory_after_release"] = memory_log(
+        "phase 4c after the regrow released the old spec's graphs", eng)
+    check(released == 0, f"the regrow released the superseded spec's "
+          f"{graphs} graphs ({released} left)")
+    t0 = time.perf_counter()
+    ds.qr(dtype=torch.float64)
+    torch.cuda.synchronize()
+    out["qr_after_regrow_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    r64 = ds.qr(dtype=torch.float64)
+    torch.cuda.synchronize()
+    out["qr_capture_after_regrow_ms"] = (time.perf_counter() - t0) * 1e3
+    st = ds.stats()
+    after = st["nodes"]["CheckIn"]
+    log(f"append 250,000 CheckIn rows (capacity {before['capacity_rows']}, "
+        f"live {before['live_rows']} -> capacity {after['capacity_rows']}, "
+        f"live {after['live_rows']}): refresh_plan "
+        f"{out['append_regrow_s']:.2f} s, graphs {graphs} -> {released}; "
+        f"next float64 qr (a miss, eager) {out['qr_after_regrow_ms']:.1f} "
+        f"ms, the one after (the capture and its replay) "
+        f"{out['qr_capture_after_regrow_ms']:.1f} ms; regrows {regrows} -> "
+        f"{st['regrows']}, misses {misses} -> {st['trace_count']}, captures "
+        f"{captures} -> {eng.capture_count()}, graphs {eng.graph_count()}")
+    check(st["regrows"] == regrows + 1, "exactly one regrow")
+    check(st["trace_count"] == misses + 1, "exactly one miss")
+    check(eng.capture_count() == captures + 1, "exactly one capture")
+    check(eng.graph_count() == 1, "one live graph after the regrow")
+    out["r_after_regrow"] = r_check(
+        "after the regrow: ds.qr vs a fresh plan", r64,
+        eager_call(sess, build_plan(ds.tree), "qr", dtype=torch.float64))
+    out["stats"] = {k: st[k] for k in ("appends", "regrows", "root",
+                                       "trace_count", "traces",
+                                       "cached_executables")}
+    out["captures"] = eng.capture_count()
+    out["graphs"] = eng.graph_count()
+    _seg_scan.check()
+    out["memory"] = memory_log("phase 4c", eng)
+    return out
 
 
 # -- phase 3 (random panels, flash cases) --------------------------------------
@@ -1105,47 +1464,40 @@ def per_call_launches(label: str, fn) -> dict:
     return counts
 
 
-def phase_panels(label: str, plan, kind: str, **opts) -> dict:
-    """A float64 ``qr`` whose panels take panel_qr's ``kind`` variant:
-    timed (median of 3 after a warm-up) with the counters zeroed around it,
-    R against ``use_kernel=False``, the launches of one call, one profiled
-    call, and the variant's captured calls against the plain version and
-    ``torch.geqrf``."""
+def phase_panels(label: str, plan, kind: str, compare_graph: bool = False,
+                 **opts) -> dict:
+    """A float64 ``qr`` whose panels take panel_qr's ``kind`` variant. First,
+    eagerly (before the graph holds its memory): R of ``use_kernel=False``,
+    and one kernel-path call with its panel_qr calls captured (held against
+    the plain version and ``torch.geqrf``) and its launches counted (no
+    `_panel_to_wy`). Then the dispatch as a user makes it: the first call
+    (eager), the capture, timed replays (median of 3) with the
+    counters zeroed around them, the first call's R against a replay's bit
+    for bit and against ``use_kernel=False``, one profiled replay; with
+    ``compare_graph``, eager against replay (`graph_vs_eager`)."""
     import torch
     from repro_torch import figaro
+    from repro_torch.core import postprocess
     from repro_torch.core.postprocess import normalize_sign
     from repro_torch.kernels import _platform
     from repro_torch.kernels.panel_qr import kernel as pk
+    from repro_torch.kernels.panel_qr import ops as pq_ops
 
     n = plan.spec.num_cols
     sess = figaro.Session(use_kernel=True, assembly="band", device="cuda",
                           **opts)
     plain = figaro.Session(use_kernel=False, device="cuda", **opts)
+    r_p = eager_call(plain, plan, "qr", dtype=torch.float64)
+    del plain
+    torch.cuda.empty_cache()
     _platform.reset_launch_counts()
-    r_k, t_qr, ts, warm = wall(lambda: sess.qr(plan, dtype=torch.float64),
-                               REPS)
-    launches = _platform.launch_counts()
-    log(f"{label}: N = {n}, exact R0 rows {plan.spec.r0_rows}; float64 qr "
-        f"(kernel path) median {t_qr * 1e3:.1f} ms of "
-        f"{[round(x * 1e3, 1) for x in ts]} ms (warm-up {warm * 1e3:.1f} ms, "
-        f"plan to the card); launches {launches} over {REPS + 1} calls")
-    check(launches.get(pk.kernel_name(kind), 0) > 0,
-          f"{pk.kernel_name(kind)} launched on the {label} path")
-    per_qr = per_call_launches(f"{label} qr", lambda: sess.qr(
-        plan, dtype=torch.float64))
-    r_p = plain.qr(plan, dtype=torch.float64)
-    err_abs, err_rel = rel_err(normalize_sign(r_k), normalize_sign(r_p))
-    log(f"{label} R (kernel path) vs R (use_kernel=False), float64: max abs "
-        f"err {err_abs:.3e}, relative {err_rel:.3e} (tol 1e-9)")
-    check(r_k.shape == (n, n) and bool(torch.isfinite(r_k).all()),
-          f"{label} qr shape/finite")
-    check(err_rel <= 1e-9, f"{label} kernel-path R matches the unfused path")
-    prof = profile_once(f"{label} qr float64",
-                        lambda: sess.qr(plan, dtype=torch.float64))
-    from repro_torch.kernels.panel_qr import ops as pq_ops
-    with Capture([(pq_ops, "panel_qr_wy")]) as cap:
-        sess.qr(plan, dtype=torch.float64)
+    with CountCalls(postprocess, "_panel_to_wy") as wy, \
+            Capture([(pq_ops, "panel_qr_wy")]) as cap:
+        eager_call(sess, plan, "qr", dtype=torch.float64)
         torch.cuda.synchronize()
+    per_qr = _platform.launch_counts()
+    log(f"launches per {label} qr: {per_qr}; _panel_to_wy calls {wy.calls}")
+    check(wy.calls == 0, f"{label} forms T in the kernel, not _panel_to_wy")
     calls = cap.calls["panel_qr_wy"]
     mine = [(args, kw) for args, kw in calls
             if pk.variant(args[0].shape[-2]) == kind]
@@ -1155,8 +1507,47 @@ def phase_panels(label: str, plan, kind: str, **opts) -> dict:
     measured = measure_path_kernels(
         {"panel_qr_wy": mine}, "float64", names=("panel_qr",),
         label=f"{label} qr dispatch, {kind} variant")["panel_qr"]
-    return {"launches": launches, "per_qr": per_qr, "r_rel_err": err_rel,
-            "qr_ms": t_qr * 1e3, "panels": measured, "profile": prof, "n": n}
+    del calls, mine
+    torch.cuda.empty_cache()
+
+    _platform.reset_launch_counts()
+    t0 = time.perf_counter()
+    r_first = sess.qr(plan, dtype=torch.float64)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    r_k, t_qr, ts, _ = wall(lambda: sess.qr(plan, dtype=torch.float64),
+                            REPS)
+    launches = _platform.launch_counts()
+    log(f"{label}: N = {n}, exact R0 rows {plan.spec.r0_rows}; float64 qr "
+        f"(kernel path) replays median {t_qr * 1e3:.1f} ms of "
+        f"{[round(x * 1e3, 2) for x in ts]} ms; first call (plan to the "
+        f"card, eager) {t_first * 1e3:.1f} ms; launches "
+        f"{launches} over {REPS + 2} calls; captures "
+        f"{sess.engine.capture_count()}")
+    check(launches.get(pk.kernel_name(kind), 0) > 0,
+          f"{pk.kernel_name(kind)} launched on the {label} path")
+    check(sess.engine.capture_count() == 1, f"{label}: one capture")
+    check(torch.equal(r_first, r_k),
+          f"{label}: a replay equals the first (eager) call bit for bit")
+    err_abs, err_rel = rel_err(normalize_sign(r_k), normalize_sign(r_p))
+    log(f"{label} R (kernel path) vs R (use_kernel=False), float64: max abs "
+        f"err {err_abs:.3e}, relative {err_rel:.3e} (tol 1e-9)")
+    check(r_k.shape == (n, n) and bool(torch.isfinite(r_k).all()),
+          f"{label} qr shape/finite")
+    check(err_rel <= 1e-9, f"{label} kernel-path R matches the unfused path")
+    out = {"launches": launches, "per_qr": per_qr, "r_rel_err": err_rel,
+           "qr_ms": t_qr * 1e3, "first_call_ms": t_first * 1e3,
+           "panels": measured, "n": n}
+    if compare_graph:
+        out["graph"] = graph_vs_eager(f"{label} qr float64", sess, plan,
+                                      torch.float64)
+        out["profile"] = out["graph"]["replay"]
+    else:
+        out["profile"] = profile_once(
+            f"{label} qr float64 (replay)",
+            lambda: sess.qr(plan, dtype=torch.float64))
+    out["memory"] = memory_log(label, sess.engine)
+    return out
 
 
 # -- phase 6: segmented tails --------------------------------------------------
@@ -1492,9 +1883,9 @@ def main(argv=None) -> int:
         name = str(torch_dtype).split(".")[1]
         t0 = time.perf_counter()
         with Capture() as cap:
-            sess.qr(plan, dtype=torch_dtype)
+            eager_call(sess, plan, "qr", dtype=torch_dtype)
             torch.cuda.synchronize()
-        log(f"captured one {name} qr dispatch in "
+        log(f"captured one eager {name} qr dispatch in "
             f"{time.perf_counter() - t0:.2f} s (first call: host bucketing "
             f"and H2D included for float32)")
         per_dtype[name] = measure_path_kernels(cap.calls, name)
@@ -1526,7 +1917,12 @@ def main(argv=None) -> int:
         check(launches.get(kname, 0) > 0, f"{kname} launched on the path")
     check(launches["panel_qr"] == launches["panel_qr_reg"],
           "the main path's panels all take panel_qr's one-block variant")
-    per_qr = per_call_launches("float32 qr dispatch", lambda: sess.qr(plan))
+    per_qr = per_call_launches("float32 qr dispatch (eager)",
+                               lambda: eager_call(sess, plan, "qr"))
+    captures = sess.engine.capture_count()
+    log(f"main path: {sess.engine.trace_count()} misses, {captures} "
+        f"captures (float32 R, float64 R)")
+    check(captures == 2, "the main path captured one graph per R signature")
     n = spec.num_cols
     for label, tm, ts, w in (("qr float32", t_qr, ts_qr, w_qr),
                              ("svd float64", t_svd, ts_svd, w_svd),
@@ -1548,7 +1944,7 @@ def main(argv=None) -> int:
 
     r_k = sess.qr(plan, dtype=torch.float64)
     t0 = time.perf_counter()
-    r_p = plain.qr(plan, dtype=torch.float64)
+    r_p = eager_call(plain, plan, "qr", dtype=torch.float64)
     torch.cuda.synchronize()
     t_plain_qr = time.perf_counter() - t0
     err_abs, err_rel = rel_err(normalize_sign(r_k), normalize_sign(r_p))
@@ -1559,29 +1955,44 @@ def main(argv=None) -> int:
     err32 = rel_err(gram(r32), gram(r_k))[1]
     log(f"float32 R'R vs float64 R'R: relative {err32:.3e} (tol 1e-4)")
     check(err32 <= 1e-4, "float32 R within float32 accuracy of float64 R")
-    s_p, _ = plain.svd(plan)
+    s_p, _ = eager_call(plain, plan, "svd")
     s_rel = rel_err(s, s_p)[1]
     log(f"singular values vs unfused path: relative {s_rel:.3e}")
     check(s_rel <= 1e-9, "singular values match the unfused path")
     gram_rel = gram_check_small(torch.float64)
-    prof_qr = profile_once("qr float32", lambda: sess.qr(plan))
-    prof_qr64 = profile_once("qr float64",
-                             lambda: sess.qr(plan, dtype=torch.float64))
+    graphs = {"yelp_qr_f32": graph_vs_eager("yelp qr float32", sess, plan,
+                                            torch.float32),
+              "yelp_qr_f64": graph_vs_eager("yelp qr float64", sess, plan,
+                                            torch.float64)}
+    prof_qr = graphs["yelp_qr_f32"]["eager"]
+    prof_qr64 = graphs["yelp_qr_f64"]["eager"]
     check(prof_qr["kernels_and_copies"] <= MAX_KERNELS_PER_QR,
           f"a float32 qr issues {prof_qr['kernels_and_copies']} kernels and "
           f"copies (at most {MAX_KERNELS_PER_QR})")
-    profile_once("svd float64", lambda: sess.svd(plan))
-    profile_once("qr float64, use_kernel=False",
-                 lambda: plain.qr(plan, dtype=torch.float64))
+    profile_once("svd float64 (replay, eager tail)", lambda: sess.svd(plan))
+    profile_once("qr float64, use_kernel=False (eager)",
+                 lambda: eager_call(plain, plan, "qr", dtype=torch.float64))
     _seg_scan.check()
-    log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-        f" GiB; elapsed {time.perf_counter() - t_start:.1f} s")
+    memory = {"phase 4": memory_log("phase 4", sess.engine)}
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
-    del sess, plain, tree, cap_plan, r32, r_k, r_p
+    del sess, plain, cap_plan, r32, r_p
     torch.cuda.empty_cache()
 
+    log("== phase 4c: dataset surface")
+    torch.cuda.reset_peak_memory_stats()
+    dataset = phase_dataset(tree, r_k, args.seed)
+    memory["phase 4c"] = dataset.pop("memory")
+    del tree, r_k
+    torch.cuda.empty_cache()
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+
     log("== phase 5: wide N")
-    wide = phase_panels("wide", build_plan(wide_tree()), "cluster")
+    torch.cuda.reset_peak_memory_stats()
+    wide = phase_panels("wide", build_plan(wide_tree()), "cluster",
+                        compare_graph=True)
+    graphs["wide_qr_f64"] = wide.pop("graph")
+    memory["phase 5"] = wide.pop("memory")
     check(wide["n"] >= 512, "the wide tree has N >= 512 columns")
     torch.cuda.empty_cache()
 
@@ -1590,6 +2001,7 @@ def main(argv=None) -> int:
     tall = phase_panels("tall", plan, "grid", method="blocked")
     tall["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     log(f"tall phase: peak device memory {tall['peak_gib']:.2f} GiB")
+    memory["phase 5b"] = tall.pop("memory")
     del plan
     torch.cuda.empty_cache()
 
@@ -1677,6 +2089,12 @@ def main(argv=None) -> int:
                                         "wide_qr_f64": wide["per_qr"],
                                         "tall_blocked_qr_f64": tall["per_qr"]},
                     "tall_peak_gib": tall["peak_gib"],
+                    "first_call_ms": {"wide_qr_f64": wide["first_call_ms"],
+                                      "tall_blocked_qr_f64":
+                                          tall["first_call_ms"]},
+                    "graph_vs_eager": graphs,
+                    "dataset": dataset,
+                    "memory": memory,
                     "profile_per_qr": {"qr_f32": prof_qr, "qr_f64": prof_qr64,
                                        "wide_qr_f64": wide["profile"],
                                        "tall_blocked_qr_f64": tall["profile"]},

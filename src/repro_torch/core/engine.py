@@ -14,31 +14,71 @@
     only within one bucket share one signature. The capacity plan of an
     exact plan is built once and kept on the plan.
 
-PyTorch runs eagerly, so there is no executable to compile. The engine still
-keeps one cache entry per dispatch signature — (kind, device, plan spec and
-mask layout, data shapes and dtypes, options) — holding the bound pipeline
-for it, with the JAX package's counters: `trace_count` counts signature
-misses per kind, ``max_cached=`` bounds the entries per kind with LRU
-eviction (`eviction_count`), and `cache_size` reports the live entries.
+One cache entry per dispatch signature — (kind, device, plan spec and mask
+layout, data shapes and dtypes, options) — with the JAX package's counters:
+`trace_count` counts signature misses per kind, ``max_cached=`` bounds the
+entries per kind with LRU eviction (`eviction_count`), and `cache_size`
+reports the live entries.
+
+Captured program (the counterpart of the JAX package's one executable per
+signature): on the card, the body that produces R — counts, node passes, R₀
+assembly, and the TSQR or blocked post-processing (R₀ itself for ``r0``) —
+is captured into one CUDA graph per R signature (plan spec and masks, data
+shapes, dtype, the options R depends on) and replayed on later calls.
+``svd`` / ``pca`` / ``least_squares`` of the same R signature replay the
+same graph and run their N×N tail eagerly: `torch.linalg.svd/eigh/solve`
+check their ``info`` on the host, which a capture forbids. An R signature
+is captured on its second dispatch: the first runs eagerly (it builds the
+kernels and creates the library handles a capture needs), so a signature
+dispatched once never holds a graph's memory. Each replay first copies the
+request's data and the plan's index and mask tensors (when the plan is not
+the one last copied) into the graph's input buffers — so an append within
+capacity (new index arrays under the same spec) replays without a capture —
+and clones R out after it. Graphs share one memory pool per engine, which
+is safe because every capture and replay of an engine runs under one lock on
+one stream, with inputs copied in and outputs cloned out. A graph holds its
+body's intermediates, so it is freed when its last cache entry is evicted,
+when the plan spec it serves is superseded (`release_graphs`, which a
+dataset calls on a regrow or re-root), and when the engine is dropped.
+Launch counts: a capture records its launches
+(`_platform.recording_launches`) and every replay adds them, so the counts
+read the same as for eager runs. `capture_count` counts captures.
+
+Three things stay eager, by rule, not by fallback: CPU dispatches (no graph
+on the host), numerics-sanitizer shadow dispatches, and dispatches inside
+`eager_reference` (the reference a replay is checked against) — the last
+two are never counted and never captured.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import threading
+import weakref
 
 import torch
 
+from repro_torch.kernels import _platform
 from repro_torch.kernels._platform import resolve_device
+from repro_torch.sanitizer import _state as _san_state
+from repro_torch.sanitizer import retrace as _san_retrace
+from repro_torch.sanitizer.locks import san_lock, san_rlock
+from repro_torch.sanitizer.races import shared_state
 
 from .counts import compute_counts
 from .figaro import ASSEMBLIES, _r0_batch, device_inputs
-from .join_tree import FigaroPlan, JoinTree, build_plan
+from .join_tree import FigaroPlan, JoinTree, NodeIndex, build_plan
 from .plan_cache import bucket_spec, pad_data, pad_plan
 from .postprocess import postprocess_r0
 
 __all__ = ["FigaroEngine", "PCAResult", "default_engine", "plan_for"]
+
+# The options R (or R₀) depends on: the key of a captured graph beside the
+# plan and data signature.
+_R_OPTIONS = ("dtype", "method", "leaf_rows", "panel", "use_kernel",
+              "assembly")
 
 
 def _bucketize(plan: FigaroPlan, data):
@@ -97,12 +137,120 @@ def _first(out):
     return out[0]
 
 
+def _pca_tail(plan, data, r, *, k, center, dtype):
+    sums, total = _column_moments(plan, data, dtype)
+    mean = sums / total
+    gram = r.mT @ r
+    if center:
+        gram = gram - total * (mean[..., :, None] * mean[..., None, :])
+    cov = gram / torch.clamp(total - 1.0, min=1.0)
+    evals, evecs = torch.linalg.eigh(cov)  # ascending
+    # The centered-Gram subtraction can leave tiny negative eigenvalues
+    # (a variance); clamp before the top-k select so near-constant
+    # columns report 0, not -1e-17.
+    evals = torch.clamp(evals, min=0.0)
+    order = torch.argsort(-evals, dim=-1)[..., :k]
+    comps = torch.gather(evecs, -1, order[..., None, :].expand(
+        evecs.shape[:-1] + (k,)))
+    return PCAResult(components=comps.mT,
+                     explained_variance=torch.gather(evals, -1, order),
+                     mean=mean, num_rows=total.expand(mean.shape[:-1]))
+
+
+def _least_squares_tail(r, *, label_col, ridge):
+    n = r.shape[-1]
+    # Permute label last, re-triangularize the permuted R (cheap: N×N).
+    perm = [j for j in range(n) if j != label_col] + [label_col]
+    rp = r[..., perm]
+    rr = torch.linalg.qr(rp, mode="r").R[..., :n, :]
+    r_ff = rr[..., : n - 1, : n - 1]
+    r_fl = rr[..., : n - 1, n - 1]
+    if ridge:
+        g = r_ff.mT @ r_ff + ridge * torch.eye(n - 1, dtype=r.dtype,
+                                               device=r.device)
+        beta = torch.linalg.solve(g, (r_ff.mT @ r_fl[..., None]))[..., 0]
+        # The ridge solution does not zero the projected residual, so
+        # ‖Aβ − y‖ keeps both terms: ‖r_ff·β − r_fl‖² + rr[n−1,n−1]².
+        fit = (r_ff @ beta[..., None])[..., 0] - r_fl
+        resid = torch.sqrt(torch.sum(fit * fit, dim=-1)
+                           + rr[..., n - 1, n - 1] ** 2)
+    else:
+        beta = torch.linalg.solve_triangular(
+            r_ff, r_fl[..., None], upper=True)[..., 0]
+        resid = torch.abs(rr[..., n - 1, n - 1])
+    return beta, resid
+
+
+def _index_tensors(plan: FigaroPlan) -> list:
+    """Every index and mask tensor of a device plan, in a fixed order."""
+    out = []
+    for ix in plan.index:
+        for field in dataclasses.fields(ix):
+            value = getattr(ix, field.name)
+            if isinstance(value, dict):
+                out.extend(value[k] for k in sorted(value))
+            elif value is not None:
+                out.append(value)
+    return out
+
+
+def _static_plan(plan: FigaroPlan) -> FigaroPlan:
+    """A copy of a device plan whose index and mask tensors are the graph's
+    own input buffers."""
+    def own(value):
+        if isinstance(value, dict):
+            return {k: v.clone() for k, v in value.items()}
+        return None if value is None else value.clone()
+
+    index = tuple(NodeIndex(**{f.name: own(getattr(ix, f.name))
+                               for f in dataclasses.fields(ix)})
+                  for ix in plan.index)
+    return FigaroPlan(index=index, data=(), spec=plan.spec,
+                      device=plan.device)
+
+
+class _Graph:
+    """One captured R body: the CUDA graph, its input buffers (the plan's
+    index and mask tensors, then the data), its output, and the launches its
+    capture recorded."""
+
+    def __init__(self, graph, plan, data, out, launches):
+        self.graph = graph
+        self.index = _index_tensors(plan)
+        self.data = data
+        self.out = out
+        self.launches = launches
+        self._loaded = None  # weakref to the device plan last copied in
+
+    def replay(self, plan: FigaroPlan, data) -> torch.Tensor:
+        """Copy the inputs in, replay, clone R out (on the current stream).
+
+        The plan's index and mask tensors are copied only when another
+        device plan comes (an append, another dataset of the same spec): a
+        host plan moves to the device once, and its device copy is never
+        written, so the buffers still hold it. At the yelp scale that copy
+        is about 1 ms of a 58 ms ``qr``."""
+        if self._loaded is None or self._loaded() is not plan:
+            for dst, src in zip(self.index, _index_tensors(plan),
+                                strict=True):
+                dst.copy_(src)
+            self._loaded = weakref.ref(plan)
+        for dst, src in zip(self.data, data, strict=True):
+            dst.copy_(src)
+        self.graph.replay()
+        return self.out.clone()
+
+
+@shared_state({"_cache": "_cache_lock", "_graphs": "_cache_lock",
+               "_warm": "_cache_lock", "_trace_counts": "_count_lock",
+               "_evictions": "_count_lock", "_captures": "_count_lock"})
 class FigaroEngine:
     """Signature cache + dispatch for the FiGaRo pipeline.
 
     ``max_cached=`` caps the number of cached signatures **per pipeline
     kind** (``qr``, ``qr_batched``, ...). The cache is LRU: dispatching a new
-    signature past the cap evicts the least-recently-used entry of that kind;
+    signature past the cap evicts the least-recently-used entry of that kind
+    (and frees its captured graph once no other entry replays it);
     re-dispatching an evicted signature is a miss again (visible in
     `trace_count`). The default (``None``) keeps every entry.
     """
@@ -110,23 +258,14 @@ class FigaroEngine:
     _STATIC = {
         "r0": ("dtype", "use_kernel", "assembly"),
         "r0_batched": ("dtype", "use_kernel", "assembly"),
-        "qr": ("dtype", "method", "leaf_rows", "panel", "use_kernel",
-               "assembly"),
-        "qr_batched": ("dtype", "method", "leaf_rows", "panel", "use_kernel",
-                       "assembly"),
-        "svd": ("dtype", "method", "leaf_rows", "panel", "use_kernel",
-                "assembly"),
-        "svd_batched": ("dtype", "method", "leaf_rows", "panel", "use_kernel",
-                        "assembly"),
-        "pca": ("dtype", "k", "center", "method", "leaf_rows", "panel",
-                "use_kernel", "assembly"),
-        "pca_batched": ("dtype", "k", "center", "method", "leaf_rows",
-                        "panel", "use_kernel", "assembly"),
-        "least_squares": ("dtype", "label_col", "ridge", "method",
-                          "leaf_rows", "panel", "use_kernel", "assembly"),
-        "least_squares_batched": ("dtype", "label_col", "ridge", "method",
-                                  "leaf_rows", "panel", "use_kernel",
-                                  "assembly"),
+        "qr": _R_OPTIONS,
+        "qr_batched": _R_OPTIONS,
+        "svd": _R_OPTIONS,
+        "svd_batched": _R_OPTIONS,
+        "pca": ("k", "center") + _R_OPTIONS,
+        "pca_batched": ("k", "center") + _R_OPTIONS,
+        "least_squares": ("label_col", "ridge") + _R_OPTIONS,
+        "least_squares_batched": ("label_col", "ridge") + _R_OPTIONS,
     }
 
     def __init__(self, *, max_cached: int | None = None):
@@ -134,36 +273,67 @@ class FigaroEngine:
             raise ValueError(f"max_cached must be >= 1 or None, "
                              f"got {max_cached}")
         self.max_cached = max_cached
-        # One lock for the cache and the counters: a dispatch may come from
-        # any thread.
-        self._lock = threading.Lock()
+        # Locks are created before the state they guard so the race
+        # detector can resolve them mid-__init__. The cache lock guards the
+        # entries and the graphs, the count lock the counters, and the graph
+        # lock serializes every capture and replay (their graphs share one
+        # memory pool).
+        self._cache_lock = san_rlock("engine._cache_lock")
+        self._count_lock = san_lock("engine._count_lock")
+        self._graph_lock = san_lock("engine._graph_lock")
         self._trace_counts: collections.Counter = collections.Counter()
         self._evictions: collections.Counter = collections.Counter()
+        self._captures: collections.Counter = collections.Counter()
+        # signature -> the key of the R graph it replays (None: eager)
         self._cache: collections.OrderedDict = collections.OrderedDict()
+        self._graphs: dict = {}  # R key -> _Graph
+        self._warm: set = set()  # R keys run once eagerly, not captured yet
+        self._local = threading.local()  # eager_reference, per thread
+        # Under the graph lock: the graphs' shared memory pool and the
+        # stream every capture and replay runs on.
+        self._pool = None
+        self._stream = None
 
     # -- cache plumbing ------------------------------------------------------
 
     def trace_count(self, kind: str | None = None) -> int:
         """Signature misses since construction; cache-hit tests assert this
         stays flat across same-signature dispatches."""
-        with self._lock:
+        with self._count_lock:
             if kind is None:
                 return sum(self._trace_counts.values())
             return self._trace_counts[kind]
 
+    def trace_counts(self) -> dict[str, int]:
+        """Per-kind signature misses as a plain dict (for stats surfaces)."""
+        with self._count_lock:
+            return {k: int(v) for k, v in sorted(self._trace_counts.items())}
+
     def eviction_count(self, kind: str | None = None) -> int:
         """Entries evicted by the ``max_cached`` LRU policy, per kind."""
-        with self._lock:
+        with self._count_lock:
             if kind is None:
                 return sum(self._evictions.values())
             return self._evictions[kind]
 
+    def capture_count(self, kind: str | None = None) -> int:
+        """CUDA graphs captured, by the kind whose dispatch captured them."""
+        with self._count_lock:
+            if kind is None:
+                return sum(self._captures.values())
+            return self._captures[kind]
+
     def cache_size(self, kind: str | None = None) -> int:
         """Number of live cache entries (per kind, or total)."""
-        with self._lock:
+        with self._cache_lock:
             if kind is None:
                 return len(self._cache)
             return sum(1 for k in self._cache if k[0] == kind)
+
+    def graph_count(self) -> int:
+        """Number of live captured graphs."""
+        with self._cache_lock:
+            return len(self._graphs)
 
     @staticmethod
     def _signature(kind: str, plan: FigaroPlan, data, options) -> tuple:
@@ -172,26 +342,74 @@ class FigaroEngine:
         return (kind, str(plan.device), plan.spec, masks, shapes,
                 tuple(sorted(options.items())))
 
-    def _lookup(self, kind: str, key: tuple):
-        """The bound pipeline for ``key``; a miss binds it, counts it and
-        evicts past the cap."""
-        with self._lock:
-            fn = self._cache.get(key)
-            if fn is not None:
+    @staticmethod
+    def _r_key(kind: str, key: tuple, options) -> tuple | None:
+        """The R graph a signature replays: its plan and data signature, the
+        R options, and whether it stops at R₀; None for a CPU dispatch."""
+        _, device, spec, masks, shapes, _ = key
+        if not device.startswith("cuda"):
+            return None
+        return (kind.startswith("r0"), device, spec, masks, shapes,
+                tuple((k, options[k]) for k in _R_OPTIONS if k in options))
+
+    def _lookup(self, kind: str, key: tuple, options):
+        """The R key of ``key``'s entry; a miss adds the entry, counts it
+        (and notes it for the retrace sanitizer) and evicts past the cap."""
+        with self._cache_lock:
+            if key in self._cache:
                 self._cache.move_to_end(key)  # LRU: most-recent at the tail
-                return fn
-            self._trace_counts[kind] += 1
-            fn = self._cache[key] = getattr(self, f"_{kind}_impl")
+                return self._cache[key]
+            with self._count_lock:
+                self._trace_counts[kind] += 1
+            if _san_state.STATE.enabled and _san_state.STATE.retrace:
+                _san_retrace.note_trace(kind, key)
+            r_key = self._cache[key] = self._r_key(kind, key, options)
             if self.max_cached is not None:
                 while sum(1 for k in self._cache
                           if k[0] == kind) > self.max_cached:
                     oldest = next(k for k in self._cache if k[0] == kind)
-                    del self._cache[oldest]
-                    self._evictions[kind] += 1
-            return fn
+                    self._drop_graph_of(self._cache.pop(oldest))
+                    with self._count_lock:
+                        self._evictions[kind] += 1
+            return r_key
 
-    def _dispatch(self, kind: str, plan: FigaroPlan, data, *, device=None,
-                  bucket: bool = False, **options):
+    def _drop_graph_of(self, r_key) -> None:
+        """Free the graph of ``r_key`` once no entry replays it."""
+        if r_key is not None and r_key not in self._cache.values():
+            self._graphs.pop(r_key, None)
+            self._warm.discard(r_key)
+
+    def release_graphs(self, spec) -> int:
+        """Free the captured graphs of the plan spec ``spec`` (one that a
+        regrow or re-root superseded) and return how many went. The cache
+        entries stay, so the counters do not move; a later dispatch of one
+        runs eagerly once more and is captured on the next. The memory goes
+        back to the card with the last graph of the pool (on
+        `torch.cuda.empty_cache`, or when the allocator next runs short)."""
+        with self._cache_lock:
+            gone = [k for k in self._graphs if k[2] == spec]
+            for k in gone:
+                del self._graphs[k]
+            self._warm = {k for k in self._warm if k[2] != spec}
+        return len(gone)
+
+    @contextlib.contextmanager
+    def eager_reference(self):
+        """Run this thread's dispatches inside the block eagerly and outside
+        the cache — the same input preparation as any dispatch, then the
+        body and tail, with no signature, count or graph: the reference a
+        replay is checked against (``chip_smoke.py``, the GPU tests)."""
+        before = getattr(self._local, "eager", False)
+        self._local.eager = True
+        try:
+            yield
+        finally:
+            self._local.eager = before
+
+    def _host_inputs(self, plan: FigaroPlan, data, options, device,
+                     bucket: bool):
+        """(plan, data, device) of a dispatch after validation and
+        bucketing, still as the caller gave them."""
         if not isinstance(plan, FigaroPlan):
             raise TypeError(_plan_arg_error("plan", plan))
         if options.get("assembly", "padded") not in ASSEMBLIES:
@@ -201,132 +419,139 @@ class FigaroEngine:
             device = resolve_device(device)  # raise before any host work
         if bucket:
             plan, data = _bucketize(plan, data)
+        return plan, data, device
+
+    def _dispatch(self, kind: str, plan: FigaroPlan, data, *, device=None,
+                  bucket: bool = False, **options):
+        plan, data, device = self._host_inputs(plan, data, options, device,
+                                               bucket)
+        eager = getattr(self._local, "eager", False)
+        shadow = None
+        if not eager and _san_state.STATE.enabled \
+                and _san_state.STATE.numerics:
+            from repro_torch.sanitizer import numerics as _san_numerics
+
+            # The request as given: the float64 shadow casts the same
+            # values, not the primary dtype's rounding of them.
+            shadow = _san_numerics.prepare_shadow(self, kind, plan, data,
+                                                  options, device)
         # Every pipeline body takes data with a batch axis; a single
         # dispatch is a batch of one.
         plan, data = device_inputs(plan, data, options["dtype"], device,
                                    kind.endswith("_batched"))
+        if eager or _san_state.STATE.shadow_active():
+            return self._eager(kind, plan, data, **options)
         key = self._signature(kind, plan, data, {
             k: options[k] for k in self._STATIC[kind]})
-        return self._lookup(kind, key)(plan, data, **options)
+        r_key = self._lookup(kind, key, options)
+        if r_key is None:
+            out = self._eager(kind, plan, data, **options)
+        else:
+            r = self._graph_r(kind, r_key, plan, data, options)
+            out = self._tail(kind, plan, data, r, options)
+        if shadow is not None:
+            _san_numerics.after_dispatch(self, shadow, out)
+        return out
+
+    # -- the captured program ------------------------------------------------
+
+    def _graph_r(self, kind, r_key, plan, data, options) -> torch.Tensor:
+        """R of one card dispatch: on the signature's first call an eager
+        run, on the second the capture and its replay, then replays.
+
+        The graphs live in one pool, opened anew when none is live; the
+        references to the live ones held here keep them (and so the pool)
+        alive through a capture even if an eviction drops them meanwhile."""
+        from repro_torch.kernels import _seg_scan
+
+        with self._graph_lock:
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(plan.device)
+            stream = self._stream
+            current = torch.cuda.current_stream(plan.device)
+            stream.wait_stream(current)
+            with self._cache_lock:
+                graph = self._graphs.get(r_key)
+                warm = r_key in self._warm
+                live = list(self._graphs.values())
+            with torch.cuda.stream(stream):
+                if graph is None and not warm:
+                    r = self._body(kind, plan, data, options)
+                    with self._cache_lock:
+                        if r_key in self._cache.values():  # not evicted
+                            self._warm.add(r_key)
+                else:
+                    if graph is None:
+                        if not live:
+                            self._pool = torch.cuda.graph_pool_handle()
+                        graph = self._capture(kind, r_key, plan, data,
+                                              options, stream, self._pool)
+                    r = graph.replay(plan, data)
+            del live
+            current.wait_stream(stream)
+            r.record_stream(current)
+            if graph is not None:
+                _platform.add_launches(graph.launches)
+        # The scan kernels report a look-back timeout through a pinned word
+        # they write on replay as well: read it, as an eager launch does.
+        _seg_scan.raise_if_timed_out()
+        return r
+
+    def _capture(self, kind, r_key, plan, data, options, stream,
+                 pool) -> _Graph:
+        """Capture the R body of ``r_key`` into a graph in ``pool``, with
+        input buffers of its own (under the graph lock, after the eager
+        run of the signature's first call)."""
+        static_plan = _static_plan(plan)
+        static_data = [d.clone() for d in data]
+        cuda_graph = torch.cuda.CUDAGraph()
+        with _platform.recording_launches() as launches:
+            with torch.cuda.graph(cuda_graph, pool=pool, stream=stream,
+                                  capture_error_mode="thread_local"):
+                out = self._body(kind, static_plan, static_data, options)
+        graph = _Graph(cuda_graph, static_plan, static_data, out,
+                       dict(launches))
+        with self._count_lock:
+            self._captures[kind] += 1
+        with self._cache_lock:
+            self._warm.discard(r_key)
+            if r_key in self._cache.values():  # not evicted meanwhile
+                self._graphs[r_key] = graph
+        return graph
 
     # -- pipeline bodies (data batched over a leading axis) ------------------
 
-    def _qr_batch(self, plan, data, *, dtype, method, leaf_rows, panel,
-                  use_kernel, assembly):
-        r0 = _r0_batch(plan, data, use_kernel=use_kernel, assembly=assembly)
-        return postprocess_r0(r0, method=method, leaf_rows=leaf_rows,
-                              panel=panel, use_kernel=use_kernel)
+    def _body(self, kind, plan, data, options) -> torch.Tensor:
+        """The captured part: R₀ for ``r0`` kinds, R otherwise, [B, ...]."""
+        r0 = _r0_batch(plan, data, use_kernel=options["use_kernel"],
+                       assembly=options["assembly"])
+        if kind.startswith("r0"):
+            return r0
+        return postprocess_r0(r0, method=options["method"],
+                              leaf_rows=options["leaf_rows"],
+                              panel=options["panel"],
+                              use_kernel=options["use_kernel"])
 
-    def _svd_batch(self, plan, data, **qr_opts):
-        r = self._qr_batch(plan, data, **qr_opts)
-        _, s, vt = torch.linalg.svd(r)
-        return s, vt
+    def _tail(self, kind, plan, data, r, options):
+        """The eager N×N part after R, and the batch of one unwrapped."""
+        base = kind.removesuffix("_batched")
+        if base == "svd":
+            _, s, vt = torch.linalg.svd(r)
+            out = (s, vt)
+        elif base == "pca":
+            out = _pca_tail(plan, data, r, k=options["k"],
+                            center=options["center"], dtype=options["dtype"])
+        elif base == "least_squares":
+            out = _least_squares_tail(r, label_col=options["label_col"],
+                                      ridge=options["ridge"])
+        else:  # r0, qr
+            out = r
+        return out if kind.endswith("_batched") else _first(out)
 
-    def _pca_batch(self, plan, data, *, k, center, dtype, **qr_opts):
-        r = self._qr_batch(plan, data, dtype=dtype, **qr_opts)
-        sums, total = _column_moments(plan, data, dtype)
-        mean = sums / total
-        gram = r.mT @ r
-        if center:
-            gram = gram - total * (mean[..., :, None] * mean[..., None, :])
-        cov = gram / torch.clamp(total - 1.0, min=1.0)
-        evals, evecs = torch.linalg.eigh(cov)  # ascending
-        # The centered-Gram subtraction can leave tiny negative eigenvalues
-        # (a variance); clamp before the top-k select so near-constant
-        # columns report 0, not -1e-17.
-        evals = torch.clamp(evals, min=0.0)
-        order = torch.argsort(-evals, dim=-1)[..., :k]
-        comps = torch.gather(evecs, -1, order[..., None, :].expand(
-            evecs.shape[:-1] + (k,)))
-        return PCAResult(components=comps.mT,
-                         explained_variance=torch.gather(evals, -1, order),
-                         mean=mean,
-                         num_rows=total.expand(mean.shape[:-1]))
-
-    def _least_squares_batch(self, plan, data, *, label_col, ridge, dtype,
-                             **qr_opts):
-        r = self._qr_batch(plan, data, dtype=dtype, **qr_opts)
-        n = plan.spec.num_cols
-        # Permute label last, re-triangularize the permuted R (cheap: N×N).
-        perm = [j for j in range(n) if j != label_col] + [label_col]
-        rp = r[..., perm]
-        rr = torch.linalg.qr(rp, mode="r").R[..., :n, :]
-        r_ff = rr[..., : n - 1, : n - 1]
-        r_fl = rr[..., : n - 1, n - 1]
-        if ridge:
-            g = r_ff.mT @ r_ff + ridge * torch.eye(n - 1, dtype=r.dtype,
-                                                   device=r.device)
-            beta = torch.linalg.solve(g, (r_ff.mT @ r_fl[..., None]))[..., 0]
-            # The ridge solution does not zero the projected residual, so
-            # ‖Aβ − y‖ keeps both terms: ‖r_ff·β − r_fl‖² + rr[n−1,n−1]².
-            fit = (r_ff @ beta[..., None])[..., 0] - r_fl
-            resid = torch.sqrt(torch.sum(fit * fit, dim=-1)
-                               + rr[..., n - 1, n - 1] ** 2)
-        else:
-            beta = torch.linalg.solve_triangular(
-                r_ff, r_fl[..., None], upper=True)[..., 0]
-            resid = torch.abs(rr[..., n - 1, n - 1])
-        return beta, resid
-
-    def _r0_impl(self, plan, data, *, dtype, use_kernel, assembly):
-        return _r0_batch(plan, data, use_kernel=use_kernel,
-                         assembly=assembly)[0]
-
-    def _r0_batched_impl(self, plan, data, *, dtype, use_kernel, assembly):
-        return _r0_batch(plan, data, use_kernel=use_kernel, assembly=assembly)
-
-    def _qr_impl(self, plan, data, *, dtype, method, leaf_rows, panel,
-                 use_kernel, assembly):
-        return self._qr_batch(plan, data, dtype=dtype, method=method,
-                              leaf_rows=leaf_rows, panel=panel,
-                              use_kernel=use_kernel, assembly=assembly)[0]
-
-    def _qr_batched_impl(self, plan, data, *, dtype, method, leaf_rows, panel,
-                         use_kernel, assembly):
-        return self._qr_batch(plan, data, dtype=dtype, method=method,
-                              leaf_rows=leaf_rows, panel=panel,
-                              use_kernel=use_kernel, assembly=assembly)
-
-    def _svd_impl(self, plan, data, *, dtype, method, leaf_rows, panel,
-                  use_kernel, assembly):
-        return _first(self._svd_batch(
-            plan, data, dtype=dtype, method=method, leaf_rows=leaf_rows,
-            panel=panel, use_kernel=use_kernel, assembly=assembly))
-
-    def _svd_batched_impl(self, plan, data, *, dtype, method, leaf_rows,
-                          panel, use_kernel, assembly):
-        return self._svd_batch(plan, data, dtype=dtype, method=method,
-                               leaf_rows=leaf_rows, panel=panel,
-                               use_kernel=use_kernel, assembly=assembly)
-
-    def _pca_impl(self, plan, data, *, k, center, dtype, method, leaf_rows,
-                  panel, use_kernel, assembly):
-        return _first(self._pca_batch(
-            plan, data, k=k, center=center, dtype=dtype, method=method,
-            leaf_rows=leaf_rows, panel=panel, use_kernel=use_kernel,
-            assembly=assembly))
-
-    def _pca_batched_impl(self, plan, data, *, k, center, dtype, method,
-                          leaf_rows, panel, use_kernel, assembly):
-        return self._pca_batch(plan, data, k=k, center=center, dtype=dtype,
-                               method=method, leaf_rows=leaf_rows,
-                               panel=panel, use_kernel=use_kernel,
-                               assembly=assembly)
-
-    def _least_squares_impl(self, plan, data, *, label_col, ridge, dtype,
-                            method, leaf_rows, panel, use_kernel, assembly):
-        return _first(self._least_squares_batch(
-            plan, data, label_col=label_col, ridge=ridge, dtype=dtype,
-            method=method, leaf_rows=leaf_rows, panel=panel,
-            use_kernel=use_kernel, assembly=assembly))
-
-    def _least_squares_batched_impl(self, plan, data, *, label_col, ridge,
-                                    dtype, method, leaf_rows, panel,
-                                    use_kernel, assembly):
-        return self._least_squares_batch(
-            plan, data, label_col=label_col, ridge=ridge, dtype=dtype,
-            method=method, leaf_rows=leaf_rows, panel=panel,
-            use_kernel=use_kernel, assembly=assembly)
+    def _eager(self, kind, plan, data, **options):
+        """One dispatch run eagerly: the body, then the tail."""
+        return self._tail(kind, plan, data,
+                          self._body(kind, plan, data, options), options)
 
     # -- public API ----------------------------------------------------------
 

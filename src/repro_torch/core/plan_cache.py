@@ -32,19 +32,30 @@ Padding layout invariants (relied on by the masked math):
     ``theta``/``full`` counts are identically 0;
   * dead pgroup slots hold zero groups, so carried scales ``√Φ↓`` vanish.
 
-This is the bucketing half of the JAX package's ``core/plan_cache.py``; the
-append path (``refresh_plan``, ``PlanHolder``) is not ported yet.
+`build_capacity_plan(tree)` produces a refreshable plan (it keeps the source
+`JoinTree` on the plan object); `refresh_plan(plan, rows)` appends rows,
+re-ingests, and re-pads — into the *same* capacities when the new live sizes
+still fit (the same signature: the engine replays its captured program), or
+grown buckets when they don't (one signature miss, reported by the changed
+spec). `PlanHolder` owns one such plan for a `JoinDataset`.
+
+A copy of the JAX package's ``core/plan_cache.py`` with tensors for data.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping
+import weakref
+from typing import Callable, Mapping
 
 import numpy as np
 import torch
 
+from repro_torch.sanitizer.locks import san_rlock
+from repro_torch.sanitizer.races import shared_state
+
 from .join_tree import FigaroPlan, JoinTree, NodeIndex, PlanSpec, build_plan
+from .relation import Database, Relation
 
 __all__ = [
     "next_pow2",
@@ -52,7 +63,9 @@ __all__ = [
     "pad_plan",
     "pad_data",
     "build_capacity_plan",
+    "refresh_plan",
     "spec_fits",
+    "PlanHolder",
 ]
 
 
@@ -201,12 +214,211 @@ def pad_plan(plan: FigaroPlan, cap_spec: PlanSpec | None = None) -> FigaroPlan:
 def build_capacity_plan(tree: JoinTree, *, dtype=np.float64,
                         cap_spec: PlanSpec | None = None,
                         headroom: int = 0) -> FigaroPlan:
-    """Ingest + pad in one step.
+    """Ingest + pad in one step, keeping the source tree for refreshes.
 
     ``headroom`` reserves extra row capacity per node (see `bucket_spec`) so
-    a known append rate cannot immediately overflow a bucket.
+    a known append rate cannot immediately overflow a bucket. The returned
+    plan carries ``plan.source_tree`` (a host-side attribute), which
+    `refresh_plan` uses to re-ingest after appends.
     """
     exact = build_plan(tree, dtype=dtype)
     if cap_spec is None:
         cap_spec = bucket_spec(exact.spec, headroom=headroom)
-    return pad_plan(exact, cap_spec)
+    plan = pad_plan(exact, cap_spec)
+    plan.source_tree = tree
+    plan.capacity_headroom = headroom
+    return plan
+
+
+def _append_rows(rel: Relation, keys: Mapping[str, np.ndarray],
+                 data: np.ndarray) -> Relation:
+    data = np.atleast_2d(np.asarray(data, dtype=rel.data.dtype))
+    if set(keys) != set(rel.key_attrs):
+        raise ValueError(
+            f"{rel.name}: appended keys {sorted(keys)} != relation key "
+            f"attrs {sorted(rel.key_attrs)}")
+    if rel.key_attrs:
+        new_keys = np.stack(
+            [np.asarray(keys[a], dtype=np.int64) for a in rel.key_attrs],
+            axis=1)
+    else:
+        new_keys = np.zeros((data.shape[0], 0), dtype=np.int64)
+    return Relation(rel.name, rel.key_attrs, rel.data_attrs,
+                    np.concatenate([rel.keys, new_keys]),
+                    np.concatenate([rel.data, data]))
+
+
+def refresh_plan(
+    plan: FigaroPlan,
+    new_rows_per_node: Mapping[str, tuple[Mapping[str, np.ndarray],
+                                          np.ndarray]],
+) -> FigaroPlan:
+    """Append-only data refresh: returns a new capacity plan over the grown
+    database.
+
+    ``new_rows_per_node`` maps relation name -> ``(key_columns, data_rows)``
+    with ``key_columns`` a dict of integer-encoded key arrays (natural-join
+    semantics, as at ingest) and ``data_rows`` a [rows, n_i] matrix. Appended
+    rows must keep the database fully reduced (dangling keys raise, exactly
+    as at `build_plan` time).
+
+    If the refreshed live sizes still fit the plan's capacities, the result
+    reuses the **same** `PlanSpec` — the same engine signature, so the next
+    dispatch replays its captured program over the new index arrays.
+    Otherwise the capacities grow to the new buckets (compare
+    ``out.spec == plan.spec`` to detect the one-off signature miss).
+    """
+    tree = getattr(plan, "source_tree", None)
+    if tree is None:
+        raise ValueError(
+            "refresh_plan needs a plan from build_capacity_plan / a previous "
+            "refresh_plan (it keeps the source JoinTree for re-ingest)")
+    rels = dict(tree.db.relations)
+    for name, (keys, data) in new_rows_per_node.items():
+        if name not in rels:
+            raise KeyError(f"unknown relation {name!r}; have {sorted(rels)}")
+        rels[name] = _append_rows(rels[name], keys, data)
+    new_tree = JoinTree(Database(rels), dict(tree.parent))
+    exact = build_plan(new_tree, dtype=plan.data[0].dtype if plan.data
+                       else np.float64)
+    headroom = getattr(plan, "capacity_headroom", 0)
+    cap = plan.spec if spec_fits(exact.spec, plan.spec) \
+        else bucket_spec(exact.spec, headroom=headroom)
+    out = pad_plan(exact, cap)
+    out.source_tree = new_tree
+    out.capacity_headroom = headroom
+    return out
+
+
+@shared_state({"_plan": "_lock", "_servers": "_lock",
+               "appends": "_lock", "regrows": "_lock",
+               "reroots": "_lock", "append_volume": "_lock"})
+class PlanHolder:
+    """Thread-safe owner of ONE current capacity plan.
+
+    A `JoinDataset` and every server attached to it share a single holder,
+    so an append through *either* surface is visible to both — there is
+    exactly one plan state per join, never a silent fork. The port has no
+    server yet (ROADMAP.md, item A11); `attach` / `drain` keep the JAX
+    package's contract for when it has.
+
+    ``refresh(rows_per_node)`` is the one mutation path: it first **drains**
+    every attached server (in-flight and queued requests were validated and
+    padded against the old capacities, so they must be answered before the
+    plan can change), then applies `refresh_plan` under the holder's lock.
+    The ``appends`` / ``regrows`` counters live here for the same reason the
+    plan does — any surface that can append must see the same counts.
+
+    ``on_regrow`` is an optional policy hook applied when a refresh
+    overflows the current capacities: it receives the (bucket-regrown)
+    refreshed plan and returns the plan to install — `repro_torch.api` uses
+    it to keep ``bucket=False`` datasets on exact capacities across regrows.
+
+    The holder also records **per-relation append volume**
+    (``append_volumes()``) — the raw signal the adaptive re-rooting policy
+    (`repro_torch.planner.replan.Replanner`) keys off — and exposes
+    ``replace(plan)``, the drain-then-install path a re-root uses.
+    """
+
+    def __init__(self, plan: FigaroPlan | None = None, *,
+                 on_regrow: Callable[[FigaroPlan], FigaroPlan] | None = None):
+        # Lock first: the race detector resolves it while __init__ assigns
+        # the state it guards.
+        self._lock = san_rlock("plan_holder._lock")
+        self._on_regrow = on_regrow
+        self._plan = plan
+        self._servers: weakref.WeakSet = weakref.WeakSet()
+        self.appends = 0
+        self.regrows = 0
+        self.reroots = 0
+        self.append_volume: dict[str, int] = {}
+
+    @property
+    def plan(self) -> FigaroPlan | None:
+        with self._lock:
+            return self._plan
+
+    def set(self, plan: FigaroPlan) -> None:
+        """Install a plan (the lazy first build); use `refresh` for appends."""
+        with self._lock:
+            self._plan = plan
+
+    def attach(self, server) -> None:
+        """Register a server (anything with ``flush()``) to drain before
+        plan swaps. Held weakly — dropping the server detaches it."""
+        with self._lock:
+            self._servers.add(server)
+
+    def drain(self) -> None:
+        """Block until every attached server has answered its queue.
+
+        The snapshot is taken under the lock; the flushes run outside it —
+        a server flush can dispatch and re-enter holder reads, and holding
+        the lock across it would invert the holder/server lock order."""
+        with self._lock:
+            servers = list(self._servers)
+        for server in servers:
+            server.flush()
+
+    def note_external_append(self, node: str | None = None,
+                             rows: int = 0) -> None:
+        """Count an append applied outside `refresh` (the pre-plan ingest
+        path, where rows land in the source tables before the lazy first
+        plan build)."""
+        with self._lock:
+            self.appends += 1
+            if node is not None:
+                self.append_volume[node] = \
+                    self.append_volume.get(node, 0) + int(rows)
+
+    def counters(self) -> tuple[int, int]:
+        """(appends, regrows) read consistently under the holder lock."""
+        with self._lock:
+            return self.appends, self.regrows
+
+    def reroot_count(self) -> int:
+        with self._lock:
+            return self.reroots
+
+    def append_volumes(self) -> dict[str, int]:
+        """Rows appended per relation since construction (both refresh and
+        pre-plan appends) — the growth signal adaptive re-rooting consumes."""
+        with self._lock:
+            return dict(self.append_volume)
+
+    def replace(self, plan: FigaroPlan) -> None:
+        """Drain attached servers, then install a *structurally different*
+        plan (adaptive re-root)."""
+        self.drain()
+        with self._lock:
+            if self._plan is None:
+                raise ValueError("PlanHolder has no plan yet — build one "
+                                 "before replacing")
+            self._plan = plan
+            self.reroots += 1
+
+    def refresh(self, new_rows_per_node) -> bool:
+        """Drain attached servers, then append rows via `refresh_plan`.
+
+        Returns True when the refresh stayed within the plan's capacities
+        (same signature — the next dispatch replays) and False when the
+        capacities grew (one signature miss on the next dispatch).
+        """
+        self.drain()
+        with self._lock:
+            if self._plan is None:
+                raise ValueError("PlanHolder has no plan yet — build one "
+                                 "before refreshing")
+            new_plan = refresh_plan(self._plan, new_rows_per_node)
+            in_capacity = new_plan.spec == self._plan.spec
+            self.appends += 1
+            for name, (_, data) in new_rows_per_node.items():
+                rows = int(np.atleast_2d(np.asarray(data)).shape[0])
+                self.append_volume[name] = \
+                    self.append_volume.get(name, 0) + rows
+            if not in_capacity:
+                self.regrows += 1
+                if self._on_regrow is not None:
+                    new_plan = self._on_regrow(new_plan)
+            self._plan = new_plan
+        return in_capacity

@@ -18,13 +18,14 @@ exactly like Fig 4.
 
 Every generator returns a ready `JoinTree`. The generators are copies of
 the JAX package's, drawing from numpy ``default_rng(seed)`` in the same
-order, so both packages see identical tables. The plan-level compute entry
-point is `repro_torch.figaro.Session`::
+order, so both packages see identical tables. The one-liner onto the
+`repro_torch.figaro` façade is::
 
     from repro_torch import figaro
     from repro_torch.data.relational import retailer_like
 
-    r = figaro.Session(device="cuda").qr(retailer_like(scale=1000))
+    ds = figaro.Session().from_tree(retailer_like(scale=1000))  # on the card
+    r = ds.qr()                      # or ds.svd() / ds.pca(k=) / ds.lsq(y)
 """
 
 from __future__ import annotations
@@ -44,16 +45,10 @@ def _rand_data(rng, m, n):
 
 def retailer_like(scale: int = 1000, *, cols: int = 4, seed: int = 0,
                   root: str = "good") -> JoinTree:
-    """Snowflake; `root` in {good, bad} mirrors Table 2's join-tree choice.
-
-    ``root="auto"`` needs the cost-based planner, which the port does not
-    have yet; it raises `NotImplementedError` until the planner is ported.
+    """Snowflake; `root` in {good, bad} mirrors Table 2's join-tree choice,
+    and ``root="auto"`` lets the planner (`repro_torch.planner.choose_root`)
+    pick — on this schema it recovers the paper's good orientation.
     """
-    if root == "auto":
-        raise NotImplementedError(
-            "retailer_like(root='auto') needs the join-tree planner, which "
-            "is not ported yet (ROADMAP.md queue A, item A8); pass "
-            "root='good' or root='bad'")
     rng = np.random.default_rng(seed)
     n_loc, n_item, n_date = max(scale // 50, 4), max(scale // 20, 6), \
         max(scale // 10, 8)
@@ -77,7 +72,7 @@ def retailer_like(scale: int = 1000, *, cols: int = 4, seed: int = 0,
                     [f"w{i}" for i in range(cols)]),
     }
     db = Database.from_arrays(tables)
-    if root == "good":
+    if root in ("good", "auto"):
         edges = [("Inventory", "Item"), ("Inventory", "Weather"),
                  ("Inventory", "Location"), ("Location", "Census")]
         rootn = "Inventory"
@@ -86,6 +81,10 @@ def retailer_like(scale: int = 1000, *, cols: int = 4, seed: int = 0,
                  ("Inventory", "Item"), ("Inventory", "Weather")]
         rootn = "Location"
     db = full_reduce(db, edges)
+    if root == "auto":
+        from repro_torch.planner import choose_root
+
+        rootn = choose_root(db, edges)
     return JoinTree.from_edges(db, rootn, edges)
 
 

@@ -21,7 +21,8 @@ import pathlib
 import re
 import shutil
 import subprocess
-import threading
+
+from repro_torch.sanitizer.locks import san_lock
 
 __all__ = ["SOURCES", "build_dir", "library", "library_path", "build_all"]
 
@@ -32,7 +33,7 @@ SOURCES = ("node_fused", "panel_qr", "head_tail", "flash_attn",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lock = threading.Lock()
+_lock = san_lock("build._lock")
 _libs: dict[str, ctypes.CDLL] = {}
 BUILD_LOG: dict[str, str] = {}  # name -> nvcc's output (ptxas register report)
 

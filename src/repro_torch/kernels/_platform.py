@@ -14,21 +14,29 @@ device is refused.
 Launch counts (`count_launch`, `launch_counts`, `reset_launch_counts`): each
 wrapper adds one to its kernel's count where it launches the kernel, and
 nowhere else, so a run can show that its main path went through the
-kernels. The counts are process-wide plain integers.
+kernels. The counts are process-wide plain integers. A launch made while a
+CUDA graph is being captured runs nothing yet: inside `recording_launches`
+it is counted into the recorder instead, and the engine adds the recorded
+counts (`add_launches`) each time it replays the graph, so the counts mean
+the same whether a dispatch ran eagerly or as a replay.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import threading
 
 import torch
 
+from repro_torch.sanitizer.locks import san_lock
+
 __all__ = ["resolve_device", "is_cpu", "count_launch", "launch_counts",
-           "reset_launch_counts"]
+           "reset_launch_counts", "recording_launches", "add_launches"]
 
 _LAUNCHES: collections.Counter = collections.Counter()
-_LAUNCH_LOCK = threading.Lock()
+_LAUNCH_LOCK = san_lock("platform._launch_lock")
+_recorder = threading.local()
 
 
 def resolve_device(device=None) -> torch.device:
@@ -65,8 +73,30 @@ def is_cpu(*tensors: torch.Tensor) -> bool:
 
 
 def count_launch(name: str) -> None:
+    recording = getattr(_recorder, "counts", None)
+    if recording is not None:
+        recording[name] += 1
+        return
     with _LAUNCH_LOCK:
         _LAUNCHES[name] += 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Count this thread's launches into the yielded Counter instead of the
+    process-wide counts (a graph capture: the kernels are recorded, not
+    run)."""
+    counts = _recorder.counts = collections.Counter()
+    try:
+        yield counts
+    finally:
+        _recorder.counts = None
+
+
+def add_launches(counts) -> None:
+    """Add a replayed graph's recorded launches to the counts."""
+    with _LAUNCH_LOCK:
+        _LAUNCHES.update(counts)
 
 
 def launch_counts() -> dict[str, int]:

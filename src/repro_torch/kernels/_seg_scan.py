@@ -14,9 +14,10 @@ launches, so a timed-out launch raises at the next launch at the latest;
 from __future__ import annotations
 
 import dataclasses
-import threading
 
 import torch
+
+from repro_torch.sanitizer.locks import san_lock
 
 __all__ = ["THREADS", "SMEM_BUDGET", "MODES", "Geometry", "geometry",
            "error_word", "raise_if_timed_out", "check", "scratch", "launch"]
@@ -57,7 +58,7 @@ def geometry(n: int, itemsize: int, mode: str) -> Geometry:
 
 
 _error = None
-_error_lock = threading.Lock()
+_error_lock = san_lock("seg_scan._error_lock")
 
 
 def error_word():

@@ -12,7 +12,11 @@ of the kernel's own V and beta) — the bounds the CPU suite holds the plain
 versions to against the JAX package. The node pass and every mode of the
 single-pass scan are also held to `tests/_scan_order.py`, the CPU emulation
 of their order of arithmetic, bit for bit. The panel_qr tests assert through the
-launch counts which variant (``panel_qr_reg``, ``_cluster``, ``_grid``) ran. flash_attention,
+launch counts which variant (``panel_qr_reg``, ``_cluster``, ``_grid``) ran. The
+engine's captured program: a replay equals the eager body bit for bit, an
+append within capacity replays (no capture), a regrow captures once, replays
+add the capture's launch counts, an evicted graph frees its memory, and two
+threads share one signature's graph. flash_attention,
 elementwise: 2e-5 absolute in float32 and 1e-12 in float64 (the JAX
 package's own kernel-vs-oracle bound, tests/test_flash_kernel.py, and
 float64 rounding); in bfloat16 one bfloat16 step, |got − want| ≤
@@ -23,6 +27,7 @@ round one float32 result.
 import os
 import shutil
 
+import numpy as np
 import pytest
 import torch
 
@@ -625,3 +630,225 @@ def test_session_kernel_path_launches_and_matches_plain_path():
     assert counts.get("node_fused", 0) > 0 and counts.get("panel_qr", 0) > 0
     r_p = figaro.Session(device="cuda").qr(tree, dtype=torch.float64)
     assert _rel(r_k, r_p) <= 1e-9
+
+
+# -- the engine's captured program (one CUDA graph per R signature) ----------
+
+
+def _bitwise(a, b):
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    return all(torch.equal(x, y) for x, y in zip(a, b, strict=True))
+
+
+@pytest.mark.parametrize("kind,dtype", [("qr", torch.float32),
+                                        ("qr", torch.float64),
+                                        ("svd", torch.float64),
+                                        ("least_squares", torch.float64)])
+def test_replay_equals_eager_bit_for_bit(kind, dtype):
+    """The first call (eager), the second (the capture and its replay) and
+    every later replay give the eager reference's answer bit for bit; one
+    miss, one capture."""
+    _need_card()
+    tree = yelp_like(scale=400, cols=3)
+    sess = figaro.Session(use_kernel=True, assembly="band")
+    call = {"qr": lambda: sess.qr(tree, dtype=dtype),
+            "svd": lambda: sess.svd(tree, dtype=dtype),
+            "least_squares": lambda: sess.least_squares(tree, 0,
+                                                        dtype=dtype)}[kind]
+    first = call()
+    assert sess.engine.capture_count() == 0 and sess.engine.graph_count() == 0
+    replays = [call() for _ in range(2)]
+    with sess.engine.eager_reference():
+        eager = call()
+    assert sess.engine.trace_count() == 1 and sess.engine.capture_count() == 1
+    assert sess.engine.graph_count() == 1
+    for got in [first] + replays:
+        assert _bitwise(got, eager)
+
+
+def test_svd_pca_lsq_replay_the_qr_graph():
+    """float64 qr, svd, pca and lsq of one plan share one R graph: four
+    misses, one capture (by svd, the R signature's second dispatch)."""
+    _need_card()
+    tree = yelp_like(scale=400, cols=3)
+    sess = figaro.Session(use_kernel=True, assembly="band")
+    sess.qr(tree, dtype=torch.float64)
+    s, _ = sess.svd(tree)
+    pca = sess.pca(tree, k=2)
+    beta, _ = sess.least_squares(tree, 0)
+    eng = sess.engine
+    assert eng.trace_count() == 4 and eng.capture_count() == 1
+    assert eng.capture_count("svd") == 1 and eng.graph_count() == 1
+    plain = figaro.Session(device="cpu")
+    assert _rel(s.cpu(), plain.svd(tree)[0]) <= 1e-9
+    assert _rel(beta.cpu(), plain.least_squares(tree, 0)[0]) <= 1e-9
+    assert _rel(pca.explained_variance.cpu(),
+                plain.pca(tree, k=2).explained_variance) <= 1e-9
+
+
+def test_replay_adds_the_captured_launches():
+    _need_card()
+    tree = yelp_like(scale=400, cols=3)
+    sess = figaro.Session(use_kernel=True, assembly="band")
+    _platform.reset_launch_counts()
+    sess.qr(tree)  # the first call, eager: counted as it runs
+    eager = _platform.launch_counts()
+    assert eager.get("node_fused", 0) > 0 and eager.get("panel_qr", 0) > 0
+    for n in (1, 2, 3):
+        sess.qr(tree)  # a replay (the first after the capture): its counts
+        assert sess.engine.capture_count() == 1
+        assert _platform.launch_counts() == {
+            k: v * (n + 1) for k, v in eager.items()}
+
+
+def test_append_within_capacity_replays_and_regrow_captures_once():
+    _need_card()
+    tree = yelp_like(scale=400, cols=3)
+    sess = figaro.Session(use_kernel=True, assembly="band", headroom=64)
+    ds = sess.from_tree(tree)
+    ds.qr(dtype=torch.float64)
+    ds.qr(dtype=torch.float64)
+    eng = sess.engine
+    assert eng.trace_count() == 1 and eng.capture_count() == 1
+    rev = ds.tree.db["Review"]
+    keys = {a: rev.key_col(a)[:8].copy() for a in rev.key_attrs}
+    assert ds.append("Review", keys, np.full((8, 1), 0.5)) is True
+    r = ds.qr(dtype=torch.float64)
+    assert eng.trace_count() == 1 and eng.capture_count() == 1
+    plain = figaro.Session(device="cpu")
+    assert _rel(postprocess.normalize_sign(r.cpu()),
+                postprocess.normalize_sign(plain.qr(ds.tree,
+                                                    dtype=torch.float64))) \
+        <= 1e-9
+    # past capacity: one regrow (the old spec's graph freed), one miss,
+    # one capture
+    cap = ds.stats()["nodes"]["Review"]["capacity_rows"]
+    live = ds.stats()["nodes"]["Review"]["live_rows"]
+    rows = cap - live + 1
+    keys = {a: np.resize(rev.key_col(a), rows) for a in rev.key_attrs}
+    assert ds.append("Review", keys, np.ones((rows, 1))) is False
+    assert eng.graph_count() == 0
+    ds.qr(dtype=torch.float64)
+    r = ds.qr(dtype=torch.float64)
+    assert ds.stats()["regrows"] == 1
+    assert eng.trace_count() == 2 and eng.capture_count() == 2
+    assert eng.graph_count() == 1
+    assert _rel(postprocess.normalize_sign(r.cpu()),
+                postprocess.normalize_sign(plain.qr(ds.tree,
+                                                    dtype=torch.float64))) \
+        <= 1e-9
+
+
+def test_lru_eviction_frees_the_graph_memory():
+    """max_cached=1: a small signature evicts a large one's entry, its
+    graph and (the last graph gone) the pool; after empty_cache the
+    reserved memory falls below what the large graph held."""
+    _need_card()
+    from repro_torch.core.join_tree import build_plan
+
+    big = build_plan(yelp_like(scale=200_000, cols=4))
+    small = build_plan(yelp_like(scale=400, cols=4))
+    sess = figaro.Session(use_kernel=True, assembly="band", max_cached=1)
+    for _ in range(2):  # eager, then the capture
+        sess.qr(big, dtype=torch.float64)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()
+    assert sess.engine.graph_count() == 1
+    sess.qr(small, dtype=torch.float64)  # evicts big's entry and graph
+    assert sess.engine.graph_count() == 0
+    sess.qr(small, dtype=torch.float64)  # small's capture
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_reserved()
+    assert sess.engine.eviction_count("qr") == 1
+    assert sess.engine.graph_count() == 1 and sess.engine.capture_count() == 2
+    assert after < held - (64 << 20), (held, after)
+
+
+def test_successive_regrows_keep_one_graph():
+    """bucket=False: every append regrows onto exact capacities. Each regrow
+    frees the superseded spec's graph, so across several the engine holds
+    one graph and the reserved memory stays at about one graph's."""
+    _need_card()
+    tree = yelp_like(scale=20_000, cols=3)
+    sess = figaro.Session(use_kernel=True, assembly="band", bucket=False)
+    ds = sess.from_tree(tree)
+    eng = sess.engine
+    plain = figaro.Session(device="cpu")
+    rev = ds.tree.db["Review"]
+    reserved = []
+    for i in range(4):
+        ds.qr(dtype=torch.float64)
+        r = ds.qr(dtype=torch.float64)  # the capture and its replay
+        assert eng.graph_count() == 1 and eng.capture_count() == i + 1
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved.append(torch.cuda.memory_reserved())
+        assert _rel(postprocess.normalize_sign(r.cpu()),
+                    postprocess.normalize_sign(plain.qr(
+                        ds.tree, dtype=torch.float64))) <= 1e-9
+        keys = {a: rev.key_col(a)[i:i + 8].copy() for a in rev.key_attrs}
+        assert ds.append("Review", keys, np.full((8, 1), 0.25)) is False
+        assert eng.graph_count() == 0  # the old spec's graph is released
+    assert ds.stats()["regrows"] == 4
+    assert max(reserved) <= reserved[0] * 1.25 + (16 << 20), reserved
+
+
+def test_two_threads_dispatching_one_signature():
+    _need_card()
+    import threading
+
+    tree = yelp_like(scale=400, cols=3)
+    sess = figaro.Session(use_kernel=True, assembly="band")
+    want = figaro.Session(device="cpu").qr(tree, dtype=torch.float64)
+    got, errors = [], []
+
+    def worker():
+        try:
+            for _ in range(4):
+                got.append(sess.qr(tree, dtype=torch.float64).cpu())
+        except Exception as exc:  # surfaced below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=worker) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not errors and len(got) == 8
+    assert sess.engine.trace_count() == 1 and sess.engine.capture_count() == 1
+    for r in got:
+        assert _rel(postprocess.normalize_sign(r),
+                    postprocess.normalize_sign(want)) <= 1e-9
+    assert all(torch.equal(r, got[0]) for r in got)
+
+
+def test_replay_alternating_plans_of_one_signature():
+    """Two datasets whose plans share one capacity spec (near-miss fact
+    sizes) replay one graph in turn: each replay copies in its own plan's
+    index tensors when the plan changes, so each answer is its own."""
+    _need_card()
+
+    def tables(m_fact):
+        rng = np.random.default_rng(m_fact)
+        return {"Orders": ({"cust": np.arange(m_fact) % 8,
+                            "prod": np.arange(m_fact) % 4},
+                           rng.normal(size=(m_fact, 2)), ["amount", "qty"]),
+                "Customers": ({"cust": np.arange(8)},
+                              rng.normal(size=(8, 2)), ["age", "income"]),
+                "Products": ({"prod": np.arange(4)},
+                             rng.normal(size=(4, 1)), ["price"])}
+
+    edges = [("Orders", "Customers"), ("Orders", "Products")]
+    sess = figaro.Session(use_kernel=True, assembly="band")
+    plain = figaro.Session(device="cpu")
+    dss = [sess.ingest(tables(m)).join("Orders", edges) for m in (20, 24)]
+    want = [plain.ingest(tables(m)).join("Orders", edges).qr(
+        dtype=torch.float64) for m in (20, 24)]
+    assert dss[0].plan.spec == dss[1].plan.spec
+    for i in (0, 1, 0, 1, 1, 0):
+        r = dss[i].qr(dtype=torch.float64)
+        assert _rel(r.cpu(), want[i]) <= 1e-9
+    assert sess.engine.trace_count() == 1 and sess.engine.capture_count() == 1

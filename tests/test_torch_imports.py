@@ -36,7 +36,17 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
                  "repro_torch.models.transformer", "repro_torch.models.weights",
                  "repro_torch.configs", "repro_torch.configs.qwen3_8b",
                  "repro_torch.train.step", "repro_torch.kernels.head_tail.ops",
-                 "repro_torch.kernels.flash_attn.kernel"):
+                 "repro_torch.kernels.flash_attn.kernel",
+                 "repro_torch.figaro", "repro_torch.core.plan_cache",
+                 "repro_torch.train.async_serve", "repro_torch.sanitizer",
+                 "repro_torch.sanitizer._state", "repro_torch.sanitizer.locks",
+                 "repro_torch.sanitizer.races",
+                 "repro_torch.sanitizer.threads",
+                 "repro_torch.sanitizer.retrace",
+                 "repro_torch.sanitizer.numerics", "repro_torch.planner",
+                 "repro_torch.planner.stats", "repro_torch.planner.cost",
+                 "repro_torch.planner.orient", "repro_torch.planner.explain",
+                 "repro_torch.planner.replan"):
         assert name in mods, name
     code = (
         "import importlib, sys\n"
