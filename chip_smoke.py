@@ -90,6 +90,33 @@ result line):
                 which frees the superseded spec's graphs; over the next two
                 ``qr`` calls one miss and one capture; R against a fresh
                 plan). The phase's graphs and reserved memory are logged.
+  9. serving  — (run after 4c) 9a: ``ds.serve(kind="qr")`` over phase
+                4c's dataset (float32, the kernels, band assembly,
+                ``max_batch=2``, ``queue_depth=2``): buckets 1 and 2 warmed
+                (each: an eager dispatch, then a capture, with the graphs,
+                pool and reserved memory logged), then 16 requests (the
+                dataset's data times a per-request column scale from
+                ``--seed``) from two threads, 4,096 Review rows appended
+                through ``server.append`` midway (0 misses, 0 captures);
+                requests/s, p50/p99 latency from submit to answer, the batch
+                sizes dispatched and the host ms of staging; each answer
+                bit-equal to its batch dispatched synchronously
+                (``engine.qr(..., batched=True, batch_capacity=cap)``, same
+                engine, same graph) and its float32 RᵀR within 1e-4 of an
+                eager float64 batch of one; one profiled window of four B = 2
+                batches (the port kernels in the trace against the counters,
+                kernels and copies per batch at most `MAX_KERNELS_PER_QR`,
+                and how much of the host-to-device copy time ran beside
+                kernels); the B = 2 node passes and panels of one eager
+                dispatch against their plain versions and bounds. 9b: the
+                same shapes at about 1/8 of the rows
+                (``yelp_like(scale=500_000, cols=16)``): ``svd``,
+                ``pca(k=8)`` and ``lsq("stars")`` in float64 with
+                ``max_batch=8``, 24 requests each held and released as three
+                B = 8 batches, the same checks at 1e-9 relative (vectors up
+                to sign), one profiled B = 8 batch, one capture in all (pca
+                and lsq replay svd's R graph). Each part's peak reserved
+                memory must stay under 80 GB.
   5. wide     — a float64 ``qr`` over a star of three wide relations
                 (N = 512 columns, a few thousand rows) through
                 ``Session(use_kernel=True)``, timed as the median of 3
@@ -136,9 +163,10 @@ result line):
   8. summary  — one ``{"kernels": [...]}`` line, then, last, the
                 ``{"ok": true, "device": {...}}`` line.
 
-Each of phases 4–7 (and 5b) drives one path of the port with the launch
-counters zeroed just before and read just after, and fails if a kernel of
-that path did not launch. Every profiled ``qr`` (`profile_once`) also holds
+Each of phases 4–7 (and 5b, 9a, 9b) drives one path of the port with the
+launch counters zeroed just before and read just after, and fails if a
+kernel of that path did not launch (in phase 9 the server's dispatch
+thread launches them; the counts are process-wide). Every profiled ``qr`` (`profile_once`) also holds
 the trace to the counters: each port kernel of the path (the node pass's
 scan, panel_qr's three variants) ran as many times in the trace as the
 counters grew over the call, and nf_prep at most once per node pass — on a
@@ -172,6 +200,7 @@ kernel also reports ``old_bound_ms``, the same work at the CUDA-core peaks.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import pathlib
@@ -1090,7 +1119,7 @@ def graph_vs_eager(label: str, sess, plan, dtype) -> dict:
 
 # -- phase 4c: the dataset surface ----------------------------------------------
 
-def phase_dataset(tree, r64_plan_level, seed: int) -> dict:
+def phase_dataset(tree, r64_plan_level, seed: int):
     """``Session(use_kernel=True, assembly="band").ingest(db).join(edges,
     root="auto")`` at the main configuration's scale: the planner's root and
     ranking, host seconds of ingest / join / lazy plan build; qr, svd,
@@ -1115,7 +1144,9 @@ def phase_dataset(tree, r64_plan_level, seed: int) -> dict:
         return err[1]
 
     out = {}
-    sess = figaro.Session(use_kernel=True, assembly="band", device="cuda")
+    # A donating engine: phase 9a serves this dataset through it.
+    sess = figaro.Session(use_kernel=True, assembly="band", device="cuda",
+                          donate_data=True)
     eng = sess.engine
     t0 = time.perf_counter()
     tables = sess.ingest(tree.db)
@@ -1272,6 +1303,559 @@ def phase_dataset(tree, r64_plan_level, seed: int) -> dict:
     out["graphs"] = eng.graph_count()
     _seg_scan.check()
     out["memory"] = memory_log("phase 4c", eng)
+    return out, ds
+
+
+# -- phase 9: serving ------------------------------------------------------------
+
+def request_set(plan, n: int, dtype, rng) -> list:
+    """``n`` requests: the plan's per-node data (capacity-shaped, dead rows
+    zero) times a per-request scale of each column, drawn from ``rng``."""
+    import numpy as np
+
+    base = [np.asarray(d) for d in plan.data]
+    return [tuple((d * rng.uniform(0.5, 2.0, d.shape[-1])).astype(dtype)
+                  for d in base) for _ in range(n)]
+
+
+class ServedRun:
+    """Watches one server: the batches it dispatched (plan, live size,
+    capacity) in order, the host ms of each batch's `stage`, and each
+    future's submit and answer times; the futures in the order the
+    completion thread resolved them (which is submission order)."""
+
+    def __init__(self, server):
+        import threading
+        from repro_torch.train.async_serve import FigaroFuture
+
+        self.server, self.batches, self.stage_ms = server, [], []
+        self.order, self.t_submit, self.t_done = [], {}, {}
+        self.rid = {}
+        self._lock = threading.Lock()
+        self.real_dispatch = server._dispatch_fn
+        real_stage = server._engine_stage
+
+        def dispatch(plan, batch, cap):
+            self.batches.append((plan, int(batch[0].shape[0]), cap))
+            return self.real_dispatch(plan, batch, cap)
+
+        def stage(data):
+            t0 = time.perf_counter()
+            out = real_stage(data)
+            self.stage_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        server._dispatch_fn = dispatch
+        if real_stage is not None:  # None on the CPU: nothing is staged
+            server._engine_stage = stage
+        self._future_cls = FigaroFuture
+        self._resolve = FigaroFuture._resolve
+        run = self
+
+        def resolve(fut, *args, **kwargs):
+            with run._lock:
+                run.order.append(fut)
+                run.t_done[fut] = time.perf_counter()
+            return run._resolve(fut, *args, **kwargs)
+
+        FigaroFuture._resolve = resolve
+
+    def close(self) -> None:
+        self._future_cls._resolve = self._resolve
+
+    def submit(self, rid, request):
+        t0 = time.perf_counter()
+        fut = self.server.submit(request)
+        with self._lock:
+            self.t_submit[fut] = t0
+            self.rid[fut] = rid
+        return fut
+
+    def groups(self) -> list:
+        """[(plan, capacity, [request ids])] per dispatched batch."""
+        order = [self.rid[f] for f in self.order]
+        out, at = [], 0
+        for plan, b, cap in self.batches:
+            out.append((plan, cap, order[at:at + b]))
+            at += b
+        check(at == len(order), f"{at} requests dispatched, {len(order)} "
+              "answered")
+        return out
+
+    def latencies_ms(self, futures) -> list:
+        return [(self.t_done[f] - self.t_submit[f]) * 1e3 for f in futures]
+
+    def rate(self, *windows) -> float:
+        """Requests per second over ``windows`` (lists of futures), each
+        from its first submit to its last answer."""
+        span = sum(max(self.t_done[f] for f in w) - min(
+            self.t_submit[f] for f in w) for w in windows)
+        return sum(len(w) for w in windows) / span
+
+
+def percentile(xs, q: float) -> float:
+    import numpy as np
+
+    return float(np.percentile(np.asarray(xs), q))
+
+
+def bit_equal(a, b) -> bool:
+    from repro_torch.core.engine import PCAResult
+
+    if isinstance(a, tuple):
+        return all(bit_equal(x, y) for x, y in zip(a, b, strict=True))
+    if isinstance(a, PCAResult):
+        return all(bit_equal(getattr(a, f), getattr(b, f)) for f in (
+            "components", "explained_variance", "mean", "num_rows"))
+    return bool(a.shape == b.shape and a.dtype == b.dtype
+                and (a == b).all())
+
+
+def sign_aligned(x, ref):
+    """``x`` with each row's sign matched to ``ref``'s (singular vectors and
+    principal components are unique only up to sign)."""
+    s = (x.double() * ref.double()).sum(dim=-1, keepdim=True).sign()
+    return x.double() * (s + (s == 0).double())
+
+
+def served_vs_references(run, reqs, kind: str, single) -> dict:
+    """Every answer of ``run`` against the same batch dispatched
+    synchronously through the server's own dispatch (same engine, same
+    graph): bit for bit; and against ``single(plan, request)``, an eager
+    batch of one, within the §2 limits (float32 RᵀR 1e-4 of float64's;
+    float64 1e-9 relative, vectors up to sign)."""
+    import numpy as np
+    import torch
+
+    answers = {run.rid[f]: f.result(timeout=0) for f in run.order}
+    worst = 0.0
+    for plan, cap, rids in run.groups():
+        batch = tuple(np.stack([reqs[r][j] for r in rids])
+                      for j in range(len(reqs[rids[0]])))
+        sync = run.real_dispatch(plan, batch, cap)
+        for i, r in enumerate(rids):
+            from repro_torch.core.engine import map_result
+
+            want = map_result(lambda x: x[i], sync)
+            check(bit_equal(answers[r], want), f"{kind} request {r}: the "
+                  "served answer equals the synchronous batched dispatch "
+                  "of its batch bit for bit")
+            ref = single(plan, reqs[r])
+            got = answers[r]
+            if kind == "qr":
+                err = rel_err(gram(got), gram(ref))[1]
+                tol = 1e-4
+            elif kind == "svd":
+                err = max(rel_err(got[0], ref[0])[1],
+                          rel_err(sign_aligned(got[1], ref[1]), ref[1])[1])
+                tol = 1e-9
+            elif kind == "pca":
+                err = max(rel_err(got.explained_variance,
+                                  ref.explained_variance)[1],
+                          rel_err(got.mean, ref.mean)[1],
+                          rel_err(sign_aligned(got.components,
+                                               ref.components),
+                                  ref.components)[1])
+                tol = 1e-9
+            else:
+                err = max(rel_err(got[0], ref[0])[1],
+                          rel_err(got[1], ref[1])[1])
+                tol = 1e-9
+            check(err <= tol, f"{kind} request {r}: {err:.3e} from the "
+                  f"eager batch of one (limit {tol:g})")
+            worst = max(worst, err)
+        del batch, sync
+        torch.cuda.empty_cache()
+    return {"max_rel_err_vs_single": worst}
+
+
+def device_events(prof):
+    """(name, start µs, end µs) of every device activity in a trace."""
+    from torch.autograd import DeviceType
+
+    return [(e.name, e.time_range.start, e.time_range.end)
+            for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not e.name.startswith("Command Buffer")]
+
+
+def copy_overlap(events) -> dict:
+    """How much of the trace's host-to-device copy time ran while a kernel
+    ran: the copies of the next batch beside the current batch's kernels."""
+    kernels = sorted((s, e) for n, s, e in events if not n.startswith(
+        ("Memcpy", "Memset")))
+    merged = []
+    for s, e in kernels:
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], e)
+        else:
+            merged.append([s, e])
+    h2d = [(s, e) for n, s, e in events if "HtoD" in n]
+    total = sum(e - s for s, e in h2d)
+    over = sum(max(0.0, min(e, me) - max(s, ms))
+               for s, e in h2d for ms, me in merged)
+    return {"h2d_copies": len(h2d), "h2d_ms": total / 1e3,
+            "h2d_beside_kernels_ms": over / 1e3,
+            "h2d_beside_kernels_share": over / total if total else 0.0,
+            "copies_beside_kernels": sum(
+                1 for s, e in h2d if any(min(e, me) > max(s, ms)
+                                         for ms, me in merged))}
+
+
+def profile_served(label: str, run, reqs, batches: int) -> dict:
+    """One profiler trace over ``len(reqs)`` requests submitted while the
+    coalescer is held, then released (``batches`` batches): the port kernels
+    in the trace against the launch counters' growth (`trace_launches`),
+    kernels and copies per batch (at most `MAX_KERNELS_PER_QR`), the device's
+    busy share, and the staging copies' overlap with kernels
+    (`copy_overlap`)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import _platform
+
+    torch.cuda.synchronize()
+    before = _platform.launch_counts()
+    n_batches = len(run.batches)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run.server.pause()
+        futures = [run.submit(("profile", i), r) for i, r in enumerate(reqs)]
+        run.server.resume()
+        for f in futures:
+            f.result(timeout=600)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    counted = {k: v - before.get(k, 0)
+               for k, v in _platform.launch_counts().items()
+               if v != before.get(k, 0)}
+    check(len(run.batches) - n_batches == batches,
+          f"{label}: {len(run.batches) - n_batches} batches (expected "
+          f"{batches})")
+    from torch.autograd import DeviceType
+
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and not e.key.startswith("Command Buffer")
+              and e.key != "figaro.r0_assembly"]
+    attr = "self_device_time_total" if device and hasattr(
+        device[0], "self_device_time_total") else "self_cuda_time_total"
+    busy_us = sum(getattr(e, attr) for e in device)
+    launches = sum(e.count for e in device)
+    traced = trace_launches(label, device, counted)
+    overlap = copy_overlap(device_events(prof))
+    overlap["h2d_issued"] = batches * len(reqs[0])  # one per leaf a batch
+    per_batch = launches / batches
+    check(per_batch <= MAX_KERNELS_PER_QR,
+          f"{label}: {per_batch:.0f} kernels and copies a batch (at most "
+          f"{MAX_KERNELS_PER_QR})")
+    log(f"profile {label}: {batches} batches of {len(reqs) // batches}, wall "
+        f"{wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
+        f"({100 * busy_us / wall_us:.1f}%), {per_batch:.0f} kernels and "
+        f"copies a batch; host-to-device copies in the trace "
+        f"{overlap['h2d_copies']} of {overlap['h2d_issued']} issued, "
+        f"{overlap['h2d_ms']:.3f} ms, of which "
+        f"{overlap['h2d_beside_kernels_ms']:.3f} ms "
+        f"({100 * overlap['h2d_beside_kernels_share']:.1f}%, "
+        f"{overlap['copies_beside_kernels']} copies) beside kernels; port "
+        f"kernels in the trace {traced}")
+    for e in sorted(device, key=lambda e: -getattr(e, attr))[:8]:
+        log(f"  {getattr(e, attr) / 1e3:9.3f} ms  {e.count:6d}x  "
+            f"{e.key[:90]}")
+    return dict(overlap, wall_ms=wall_us / 1e3, busy_ms=busy_us / 1e3,
+                busy_share=busy_us / wall_us,
+                kernels_and_copies_per_batch=per_batch,
+                traced_launches=traced)
+
+
+def warm_buckets(label: str, run, reqs, caps, eng) -> dict:
+    """Two held batches per bucket (the eager first dispatch, then the
+    capture): one capture each; the graphs, graph pool and reserved memory
+    after each bucket."""
+    import torch
+
+    memory = {}
+    for cap in caps:
+        captures = eng.capture_count()
+        for rnd in range(2):
+            run.server.pause()
+            futures = [run.submit(("warm", cap, rnd, i), reqs[i])
+                       for i in range(cap)]
+            run.server.resume()
+            for f in futures:
+                f.result(timeout=600)
+        torch.cuda.synchronize()
+        check(eng.capture_count() == captures + 1,
+              f"{label}: bucket {cap} captured once")
+        memory[cap] = memory_log(f"{label} bucket {cap} (eager, then "
+                                 "captured)", eng)
+        memory[cap]["graphs"] = eng.graph_count()
+    return memory
+
+
+def serve_summary(label, run, *windows) -> dict:
+    """Requests/s over the windows (`ServedRun.rate`), latency percentiles,
+    the batch sizes dispatched and the host ms of staging."""
+    futures = [f for w in windows for f in w]
+    lat = run.latencies_ms(futures)
+    sizes = [b for _, b, _ in run.batches]
+    out = {"requests": len(futures), "requests_per_s": run.rate(*windows),
+           "p50_ms": percentile(lat, 50), "p99_ms": percentile(lat, 99),
+           "batch_sizes": sizes, "stage_ms": list(run.stage_ms)}
+    log(f"{label}: {len(futures)} requests, {out['requests_per_s']:.2f} "
+        f"requests/s, latency p50 {out['p50_ms']:.1f} ms, p99 "
+        f"{out['p99_ms']:.1f} ms; batches dispatched {sizes}; staging "
+        f"{statistics.median(run.stage_ms or [0.0]):.2f} ms a batch (median "
+        f"host ms of engine.stage)")
+    return out
+
+
+def phase_serve_full(ds, seed: int) -> dict:
+    """9a: ``ds.serve(kind="qr")`` (float32, the kernels, band assembly,
+    ``max_batch=2``, ``queue_depth=2``) over phase 4c's dataset, at the
+    yelp scale: buckets 1 and 2 warmed (eager, then captured), then 16
+    requests from two threads with 4,096 Review rows appended within
+    capacity through ``server.append`` midway (no miss, no capture), each
+    answer against the synchronous batched dispatch of its batch (bit for
+    bit) and an eager float64 batch of one (RᵀR, 1e-4); one traced window of
+    four B = 2 batches; then the B = 2 node passes and panels of one eager
+    dispatch against their plain versions."""
+    import gc
+    import threading
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _platform, _seg_scan
+
+    sess = ds._session
+    eng = sess.engine
+    eng.release_graphs(ds.plan.spec)  # phase 4c's float64 graph
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"memory_before": memory_log("phase 9a start", eng)}
+    rng = np.random.default_rng(seed + 9)
+    server = ds.serve(kind="qr", max_batch=2, queue_depth=2)
+    run = ServedRun(server)
+    try:
+        warm = request_set(ds.plan, 2, np.float32, rng)
+        out["buckets"] = warm_buckets("9a", run, warm, (1, 2), eng)
+        del warm
+        pre = request_set(ds.plan, 8, np.float32, rng)
+        reqs = {("pre", i): r for i, r in enumerate(pre)}
+        misses, captures = eng.trace_count(), eng.capture_count()
+        n_warm = len(run.batches)
+        post = []
+        barrier = threading.Barrier(3, timeout=900)
+        errors, futures = [], []
+
+        def user(t):
+            try:
+                for i in range(t, 8, 2):
+                    futures.append(run.submit(("pre", i), pre[i]))
+                barrier.wait()  # the append
+                barrier.wait()  # requests of the grown plan
+                for i in range(t, 8, 2):
+                    futures.append(run.submit(("post", i), post[i]))
+            except Exception as exc:  # raised below
+                errors.append(exc)
+
+        _platform.reset_launch_counts()
+        users = [threading.Thread(target=user, args=(t,)) for t in (0, 1)]
+        for t in users:
+            t.start()
+        barrier.wait()
+        rev = ds.tree.db["Review"]
+        pick = rng.integers(0, rev.num_rows, 4096)
+        keys = {a: rev.key_col(a)[pick].copy() for a in rev.key_attrs}
+        t0 = time.perf_counter()
+        in_cap = server.append("Review", (keys, rng.uniform(-3, 3,
+                                                            (4096, 1))))
+        out["append_s"] = time.perf_counter() - t0
+        check(in_cap, "9a: 4,096 Review rows fit Review's capacity")
+        post[:] = request_set(ds.plan, 8, np.float32, rng)
+        reqs.update({("post", i): r for i, r in enumerate(post)})
+        barrier.wait()
+        for t in users:
+            t.join(timeout=900)
+        check(not errors and not any(t.is_alive() for t in users),
+              f"9a users: {errors}")
+        server.flush()
+        launches = _platform.launch_counts()
+        for f in futures:
+            check(f.exception(timeout=0) is None,
+                  f"9a: every future answered ({f.exception(timeout=0)!r})")
+        log(f"9a launch counts over the served stream: {launches}")
+        for kname in ("node_fused", "panel_qr", "panel_qr_reg"):
+            check(launches.get(kname, 0) > 0, f"{kname} launched on the "
+                  "served path")
+        check(eng.trace_count() == misses and eng.capture_count() == captures,
+              f"9a: the stream and its in-capacity append: misses {misses} "
+              f"-> {eng.trace_count()}, captures {captures} -> "
+              f"{eng.capture_count()} (0 and 0 expected)")
+        stream = run.batches[n_warm:]
+        check(any(b == 2 for _, b, _ in stream), "9a: a coalesced B = 2 "
+              "batch")
+        run.batches[:] = stream
+        run.stage_ms[:] = run.stage_ms[n_warm:]
+        halves = [[f for f in futures if run.rid[f][0] == h]
+                  for h in ("pre", "post")]
+        out["stream"] = serve_summary("9a served qr float32 (16 requests, "
+                                      "2 threads; the append's drain and "
+                                      "refresh not counted)", run, *halves)
+        out["stream"]["requests_per_s_halves"] = [run.rate(h)
+                                                  for h in halves]
+        out["stream"]["launches"] = launches
+        out["stream"]["misses"] = eng.trace_count() - misses
+        out["stream"]["captures"] = eng.capture_count() - captures
+        log(f"9a: append 4,096 Review rows {out['append_s']:.2f} s; "
+            f"requests/s before / after it "
+            f"{out['stream']['requests_per_s_halves']}; misses and captures "
+            f"over the stream 0, 0")
+
+        def single(plan, req):
+            with eng.eager_reference():
+                return sess.qr(plan, req, dtype=torch.float64)
+
+        streamed = set(futures)
+        run.order = [f for f in run.order if f in streamed]
+        out["checks"] = served_vs_references(run, reqs, "qr", single)
+        log(f"9a: 16 answers bit-equal to their batches' synchronous "
+            f"dispatch; float32 R'R vs the eager float64 batch of one, worst "
+            f"{out['checks']['max_rel_err_vs_single']:.3e} (limit 1e-4)")
+        run.batches.clear()
+        prof_reqs = request_set(ds.plan, 8, np.float32, rng)
+        out["profile"] = profile_served("9a served qr, four B = 2 batches",
+                                        run, prof_reqs, 4)
+        out["memory"] = memory_log("phase 9a served stream", eng)
+    finally:
+        run.close()
+        server.close()
+    eng.release_graphs(ds.plan.spec)
+    del server, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The B = 2 node passes and panels, captured from one eager dispatch.
+    batch = tuple(np.stack([p, q]) for p, q in zip(*prof_reqs[:2]))
+    with Capture() as cap:
+        with eng.eager_reference():
+            eng.qr(ds.plan, batch, batched=True, batch_capacity=2,
+                   dtype=torch.float32, use_kernel=True, assembly="band",
+                   device=sess.device)
+        torch.cuda.synchronize()
+    del batch, prof_reqs
+    out["kernels_b2"] = measure_path_kernels(cap.calls, "float32",
+                                             label="B = 2 served batch")
+    del cap
+    gc.collect()
+    torch.cuda.empty_cache()
+    _seg_scan.check()
+    out["peak_reserved_gib"] = torch.cuda.max_memory_reserved() / 2**30
+    log(f"phase 9a: peak reserved {out['peak_reserved_gib']:.2f} GiB")
+    check(out["peak_reserved_gib"] < 80, "9a fits the 80 GB card")
+    return out
+
+
+SERVE_CUT_SCALE = 500_000  # 9b: yelp_like at about 1/8 of phase 4's rows
+
+
+def phase_serve_cut(seed: int) -> dict:
+    """9b: the float64 kinds on ``yelp_like(scale=500_000, cols=16)`` (the
+    shapes of phase 4 at about 1/8 of the rows: a batch of 8 float64
+    requests at the full scale would pin about 8 × 19 GiB of graph):
+    ``svd``, ``pca(k=8)`` and ``lsq("stars")`` served with ``max_batch=8``,
+    24 requests each submitted in one burst while the coalescer is held (3
+    batches of 8; svd's first runs eagerly, its second captures, pca and
+    lsq replay the same R graph), each answer against its batch's
+    synchronous dispatch (bit for bit) and an eager batch of one (1e-9
+    relative, vectors up to sign); one traced B = 8 svd window."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch import figaro
+    from repro_torch.data.relational import yelp_like
+    from repro_torch.kernels import _platform, _seg_scan
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tree = yelp_like(scale=SERVE_CUT_SCALE, cols=16)
+    sess = figaro.Session(use_kernel=True, assembly="band", device="cuda",
+                          donate_data=True)
+    ds = sess.from_tree(tree)
+    plan = ds.plan
+    eng = sess.engine
+    out = {"setup_s": time.perf_counter() - t0,
+           "r0_rows_capacity": plan.spec.r0_rows,
+           "nodes": {sp.name: sp.m for sp in plan.spec.nodes}}
+    log(f"9b: yelp_like(scale={SERVE_CUT_SCALE}, cols=16) and its capacity "
+        f"plan in {out['setup_s']:.1f} s; capacity rows {out['nodes']}, R0 "
+        f"{plan.spec.r0_rows} x {plan.spec.num_cols}")
+    rng = np.random.default_rng(seed + 90)
+    kinds = (("svd", {}), ("pca", {"k": 8}), ("lsq", {"label_col": "stars"}))
+    for kind, kw in kinds:
+        server = ds.serve(kind=kind, max_batch=8, **kw)
+        run = ServedRun(server)
+        try:
+            reqs = {i: r for i, r in enumerate(
+                request_set(plan, 24, np.float64, rng))}
+            misses, captures = eng.trace_count(), eng.capture_count()
+            _platform.reset_launch_counts()
+            server.pause()
+            futures = [run.submit(i, reqs[i]) for i in range(24)]
+            server.resume()
+            for f in futures:
+                check(f.exception(timeout=900) is None,
+                      f"9b {kind}: every future answered "
+                      f"({f.exception(timeout=0)!r})")
+            torch.cuda.synchronize()
+            launches = _platform.launch_counts()
+            for kname in ("node_fused", "panel_qr", "panel_qr_reg"):
+                check(launches.get(kname, 0) > 0, f"{kname} launched on "
+                      f"the served {kind} path")
+            res = serve_summary(f"9b served {kind} float64 (24 requests, "
+                                "max_batch 8)", run, futures)
+            check(res["batch_sizes"] == [8, 8, 8],
+                  f"9b {kind}: three B = 8 batches")
+            res.update(launches=launches,
+                       misses=eng.trace_count() - misses,
+                       captures=eng.capture_count() - captures)
+            if kind == "svd":
+                res["memory"] = memory_log("9b bucket 8 (svd: eager, then "
+                                           "captured)", eng)
+                res["memory"]["graphs"] = eng.graph_count()
+
+            def single(plan_, req, kind=kind):
+                with eng.eager_reference():
+                    if kind == "svd":
+                        return ds.svd(req)
+                    if kind == "pca":
+                        return ds.pca(req, k=8)
+                    return ds.lsq("stars", req)
+
+            res["checks"] = served_vs_references(run, reqs, kind, single)
+            log(f"9b {kind}: 24 answers bit-equal to their batches' "
+                f"synchronous dispatch; vs the eager batch of one, worst "
+                f"{res['checks']['max_rel_err_vs_single']:.3e} (limit 1e-9); "
+                f"misses {res['misses']}, captures {res['captures']}")
+            if kind == "svd":
+                run.batches.clear()
+                res["profile"] = profile_served(
+                    "9b served svd, one B = 8 batch", run,
+                    request_set(plan, 8, np.float64, rng), 1)
+            out[kind] = res
+        finally:
+            run.close()
+            server.close()
+    check(eng.capture_count() == 1, "9b: one capture (svd's bucket 8); pca "
+          "and lsq replay its R graph")
+    _seg_scan.check()
+    out["peak_reserved_gib"] = torch.cuda.max_memory_reserved() / 2**30
+    out["memory"] = memory_log("phase 9b", eng)
+    log(f"phase 9b: peak reserved {out['peak_reserved_gib']:.2f} GiB")
+    check(out["peak_reserved_gib"] < 80, "9b fits the 80 GB card")
+    del ds, sess, eng, plan
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1981,10 +2565,29 @@ def main(argv=None) -> int:
 
     log("== phase 4c: dataset surface")
     torch.cuda.reset_peak_memory_stats()
-    dataset = phase_dataset(tree, r_k, args.seed)
+    dataset, ds = phase_dataset(tree, r_k, args.seed)
     memory["phase 4c"] = dataset.pop("memory")
     del tree, r_k
     torch.cuda.empty_cache()
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+
+    log("== phase 9: serving (9a: the yelp dataset, float32 qr; 9b: a cut "
+        "yelp, the float64 kinds)")
+    serving = {"full": phase_serve_full(ds, args.seed)}
+    memory["phase 9a"] = serving["full"].pop("memory")
+    del ds
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    serving["cut"] = phase_serve_cut(args.seed)
+    memory["phase 9b"] = serving["cut"].pop("memory")
+    b2 = serving["full"].pop("kernels_b2")
+    for kname in ("node_fused", "panel_qr"):
+        one, two = per_dtype["float32"][kname], b2[kname]
+        log(f"{kname} float32 over one qr: B = 1 {one['ms']:.3f} ms against "
+            f"a {one['bound_ms']:.3f} ms bound ({one['calls']} calls); B = 2 "
+            f"{two['ms']:.3f} ms against {two['bound_ms']:.3f} "
+            f"({two['calls']} calls)")
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
     log("== phase 5: wide N")
@@ -2052,6 +2655,14 @@ def main(argv=None) -> int:
                       if k in main})
         if kname in ("node_fused", "panel_qr"):
             entry["launches_per_qr"] = per_qr.get(kname, 0)
+            two = b2[kname]
+            entry["batch2"] = {
+                "launches": serving["full"]["stream"]["launches"].get(
+                    kname, 0),
+                **{k: two[k] for k in (
+                    "max_abs_err", "max_rel_err", "ms", "plain_ms",
+                    "bound_ms", "bound_by", "library_ms", "calls",
+                    "old_bound_ms", "reflectors", "t_rel_err") if k in two}}
         if kname == "panel_qr":
             entry["variant"] = "reg"
         if kname in ("panel_qr_cluster", "panel_qr_grid"):
@@ -2094,6 +2705,7 @@ def main(argv=None) -> int:
                                           tall["first_call_ms"]},
                     "graph_vs_eager": graphs,
                     "dataset": dataset,
+                    "serving": serving,
                     "memory": memory,
                     "profile_per_qr": {"qr_f32": prof_qr, "qr_f64": prof_qr64,
                                        "wide_qr_f64": wide["profile"],

@@ -26,9 +26,16 @@ graph per R signature on the card, captured on its second dispatch
 (`core.engine`); an append within capacity replays, and a regrow or re-root
 frees the graphs of the spec it supersedes.
 
+``ds.serve(kind=...)`` (and ``Session.serve``) returns an async
+micro-batching server over the dataset's plan holder
+(`repro_torch.train.serve.make_figaro_server`): ``server.submit(request)``
+returns a future, pending requests coalesce into bucketed batches that
+replay one captured graph per bucket, and ``server.append`` and
+``ds.append`` refresh one shared plan.
+
 Not ported yet, and raising `NotImplementedError` that names the ROADMAP
-item: async serving (``Session.serve``, ``JoinDataset.serve``; A11) and
-meshes (``Session(mesh=...)``, ``shard=``, ``Session.partitioned_qr``; A12).
+item: meshes (``Session(mesh=...)``, ``shard=``, ``serve(mesh=...)``,
+``Session.partitioned_qr``; A12).
 """
 
 from __future__ import annotations
@@ -67,17 +74,19 @@ _KIND_DTYPES = {
     "least_squares": torch.float64,
 }
 
-_NOT_PORTED = {
-    "serve": "async serving (Session.serve, JoinDataset.serve) is not "
-             "ported yet (ROADMAP.md, A11)",
-    "mesh": "meshes and sharded dispatch (Session(mesh=...), shard=, "
-            "Session.partitioned_qr) are not ported yet (ROADMAP.md, A12)",
-}
+# Serving kind -> the engine pipeline whose dtype default it takes.
+_SERVE_ENGINE_KINDS = {"qr": "qr", "svd": "svd", "pca": "pca",
+                       "lsq": "least_squares"}
+assert tuple(_SERVE_ENGINE_KINDS) == SERVE_KINDS
+
+_NO_MESH = ("meshes and sharded dispatch (Session(mesh=...), shard=, "
+            "serve(mesh=...), Session.partitioned_qr) are not ported yet "
+            "(ROADMAP.md, A12)")
 
 
-def _no_shard(shard) -> None:
-    if shard is not _UNSET and shard is not None:
-        raise NotImplementedError(_NOT_PORTED["mesh"])
+def _no_mesh(mesh) -> None:
+    if mesh is not _UNSET and mesh is not None:
+        raise NotImplementedError(_NO_MESH)
 
 
 class Session:
@@ -112,8 +121,13 @@ class Session:
                  fused CUDA pass (`repro_torch.kernels.node_fused`) and the
                  TSQR panels through the CUDA `panel_qr` kernel; ``assembly``
                  ("padded" | "band") picks the R₀ materialization.
-    max_cached:  forwarded to the engine constructor; combining it with
-                 ``engine=`` raises.
+    donate_data, max_cached:
+                 forwarded to the engine constructor; combining either with
+                 ``engine=`` raises (configure the engine directly instead).
+                 Sessions default to non-donating engines (safe for repeated
+                 dispatch of the same buffers); ``max_cached`` bounds the
+                 per-kind cache (LRU, evictions counted, evicted graphs
+                 freed).
     mesh:        not ported yet: anything but ``None`` raises
                  `NotImplementedError` (ROADMAP.md, A12).
 
@@ -130,15 +144,16 @@ class Session:
                  dtype=None, bucket: bool = True, headroom: int = 0,
                  method: str = "tsqr", leaf_rows: int = 256, panel: int = 32,
                  use_kernel: bool = False, assembly: str = "padded",
+                 donate_data: bool | None = None,
                  max_cached: int | None = None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(_NOT_PORTED["mesh"])
-        if engine is not None and max_cached is not None:
-            raise ValueError("pass max_cached= to the engine's constructor "
-                             "when supplying engine=")
+        _no_mesh(mesh)
+        if engine is not None and (max_cached is not None
+                                   or donate_data is not None):
+            raise ValueError("pass max_cached=/donate_data= to the engine's "
+                             "constructor when supplying engine=")
         self.device = resolve_device(device)
         self.engine = engine if engine is not None else FigaroEngine(
-            max_cached=max_cached)
+            donate_data=bool(donate_data), max_cached=max_cached)
         self.dtype = dtype
         self.bucket = bucket
         self.headroom = headroom
@@ -203,7 +218,7 @@ class Session:
         return bool(leaves) and np.ndim(leaves[0]) == 3
 
     def _dispatch_opts(self, data, batched, shard, bucket):
-        _no_shard(shard)
+        _no_mesh(shard)
         return dict(batched=self._is_batched(data, batched),
                     bucket=self.bucket if bucket is None else bucket,
                     device=self.device)
@@ -265,17 +280,39 @@ class Session:
                               panel, use_kernel, assembly),
             **self._dispatch_opts(data, batched, shard, bucket))
 
-    def serve(self, tree_or_plan, *, kind: str = "qr", **kw):
-        """An async serving endpoint — not ported yet: ``kind`` is validated
-        first, as in the JAX package, then this raises
-        `NotImplementedError` (ROADMAP.md, A11)."""
+    def serve(self, tree_or_plan, *, kind: str = "qr", label_col=None,
+              k=None, ridge: float = 0.0, dtype=None, method=None,
+              leaf_rows=None, use_kernel=None, assembly=None, mesh=_UNSET,
+              shard_axis=None, max_batch: int = 32, queue_depth: int = 2):
+        """An async pipelined serving endpoint for one join structure (see
+        `train.serve.make_figaro_server`): ``submit(request)`` returns a
+        `FigaroFuture`, pending requests coalesce up to ``max_batch`` rows,
+        and ``queue_depth`` batches pipeline through the engine (depth >= 2
+        overlaps the next batch's host-to-device copy with the in-flight
+        dispatch). Engine, device and dtype default to this session's
+        configuration. ``tree_or_plan`` may also be a
+        `plan_cache.PlanHolder` to share plan state (what
+        `JoinDataset.serve` passes). ``mesh=`` is not ported yet (A12)."""
+        from repro_torch.train.serve import make_figaro_server
+
         validate_serve_kind(kind)
-        raise NotImplementedError(_NOT_PORTED["serve"])
+        _no_mesh(mesh)
+        target = tree_or_plan if isinstance(tree_or_plan, PlanHolder) \
+            else plan_for(tree_or_plan)
+        return make_figaro_server(
+            target, kind=kind, label_col=label_col, k=k,
+            ridge=ridge, engine=self.engine, device=self.device,
+            dtype=self._dtype_for(_SERVE_ENGINE_KINDS[kind], dtype),
+            method=self.method if method is None else method,
+            leaf_rows=self.leaf_rows if leaf_rows is None else leaf_rows,
+            use_kernel=self.use_kernel if use_kernel is None else use_kernel,
+            assembly=self.assembly if assembly is None else assembly,
+            max_batch=max_batch, queue_depth=queue_depth)
 
     def partitioned_qr(self, tree: JoinTree, num_parts: int, **kw):
         """Fact-partitioned multi-device QR — not ported yet (ROADMAP.md,
         A12)."""
-        raise NotImplementedError(_NOT_PORTED["mesh"])
+        raise NotImplementedError(_NO_MESH)
 
 
 @dataclasses.dataclass
@@ -378,9 +415,8 @@ class JoinDataset:
                  hysteresis: float = 0.5):
         self._session = session
         self._tree = tree  # pre-plan only; once built, holder.plan owns it
-        # The holder is the ONE plan state for this join (servers, once
-        # ported, share it, so an append through either surface is visible
-        # to both).
+        # The holder is the ONE plan state for this join (its servers share
+        # it, so an append through either surface is visible to both).
         self._holder = PlanHolder(
             on_regrow=None if session.bucket else self._exact_regrow)
         # figaro-plan state: the undirected edge set (so every orientation
@@ -681,11 +717,22 @@ class JoinDataset:
             ridge=ridge, **overrides)
 
     def serve(self, kind: str = "qr", *, label_col=None, **kw):
-        """An async serving endpoint over this dataset's capacity plan — not
-        ported yet: ``kind`` is validated first, as in the JAX package, and
-        then this raises `NotImplementedError` (ROADMAP.md, A11)."""
+        """An async pipelined serving endpoint over this dataset's capacity
+        plan (`train.serve.make_figaro_server`): ``submit(request)`` returns
+        a `FigaroFuture`; ``server(batch)`` blocks for its answer.
+        ``label_col`` (lsq) is an index, a bare name or ``"Node.attr"``.
+
+        The server shares this dataset's plan *holder*: ``server.append``
+        and ``ds.append`` refresh one plan state (draining the server's
+        in-flight work first), so ``ds.plan`` / ``ds.stats()`` and the
+        served plan can never fork.
+        """
         validate_serve_kind(kind)
-        raise NotImplementedError(_NOT_PORTED["serve"])
+        if label_col is not None:
+            label_col = self.column_index(label_col)
+        _ = self.plan  # build the capacity plan before sharing the holder
+        return self._session.serve(self._holder, kind=kind,
+                                   label_col=label_col, **kw)
 
 
 _DEFAULT_SESSIONS: dict[str, Session] = {}

@@ -47,7 +47,25 @@ read the same as for eager runs. `capture_count` counts captures.
 Three things stay eager, by rule, not by fallback: CPU dispatches (no graph
 on the host), numerics-sanitizer shadow dispatches, and dispatches inside
 `eager_reference` (the reference a replay is checked against) — the last
-two are never counted and never captured.
+two are never counted and never captured. Any thread may capture a
+signature another thread ran eagerly (a server's dispatch thread does).
+
+Serving (the engine half of `repro_torch.train.async_serve`):
+
+  * ``batch_capacity=`` on every batched kind pads the request batch up to
+    the given bucket by repeating the trailing request and slices the pad
+    off every output, so live batch sizes inside one bucket share one
+    signature and one graph. B=0 keeps its own signature and runs nothing.
+  * `stage` starts the host-to-device copy of a request batch on a copy
+    stream of the engine's own, from pinned host buffers, and returns the
+    staged tensors with the event that ends their copies; the dispatch that
+    consumes them makes its stream wait on that event.
+  * ``donate_data=True`` makes a caller's request tensors the dispatch's
+    to consume: the engine drops its references to them as soon as the body
+    or the graph's copy-in has read them (PCA's column moments are formed
+    before R), and nothing reads them again. ``plan.data`` is never
+    donated. Donation is a contract about buffer lifetime: it changes no
+    result.
 """
 
 from __future__ import annotations
@@ -73,7 +91,8 @@ from .join_tree import FigaroPlan, JoinTree, NodeIndex, build_plan
 from .plan_cache import bucket_spec, pad_data, pad_plan
 from .postprocess import postprocess_r0
 
-__all__ = ["FigaroEngine", "PCAResult", "default_engine", "plan_for"]
+__all__ = ["FigaroEngine", "PCAResult", "Staged", "default_engine",
+           "map_result", "plan_for"]
 
 # The options R (or R₀) depends on: the key of a captured graph beside the
 # plan and data signature.
@@ -127,18 +146,69 @@ def _column_moments(plan: FigaroPlan, data, dtype):
     return sums, total
 
 
-def _first(out):
-    """The one result of a batch of one."""
+def map_result(fn, out):
+    """``fn`` applied to every tensor of a dispatch result: a tensor, a
+    tuple of them, or a `PCAResult`."""
     if isinstance(out, tuple):
-        return tuple(o[0] for o in out)
+        return tuple(map_result(fn, o) for o in out)
     if isinstance(out, PCAResult):
-        return PCAResult(out.components[0], out.explained_variance[0],
-                         out.mean[0], out.num_rows[0])
-    return out[0]
+        return PCAResult(*(map_result(fn, getattr(out, f.name))
+                           for f in dataclasses.fields(out)))
+    return fn(out)
 
 
-def _pca_tail(plan, data, r, *, k, center, dtype):
-    sums, total = _column_moments(plan, data, dtype)
+def _repeat_pad(data, pad: int) -> list:
+    """Pad the leading request-batch axis by repeating the trailing request
+    — near-miss batch sizes then share a signature, and the pad rides
+    through a well-posed pipeline (an all-zero pad would push singular
+    systems through lsq/svd). The pad is sliced off the result."""
+    return [torch.cat([d, d[-1:].expand((pad,) + tuple(d.shape[1:]))])
+            for d in data]
+
+
+class Staged(tuple):
+    """Request leaves on the card (`FigaroEngine.stage`) and the event
+    recorded on the copy stream after their copies."""
+
+    def __new__(cls, leaves, event, device):
+        obj = super().__new__(cls, leaves)
+        obj.event = event
+        obj.device = device
+        return obj
+
+    def consume(self) -> None:
+        """Order the current stream after the copies, and keep the staged
+        memory from reuse until that stream's work on it is done."""
+        stream = torch.cuda.current_stream(self.device)
+        stream.wait_event(self.event)
+        for t in self:
+            if t.device == self.device:
+                t.record_stream(stream)
+
+
+def _empty(kind: str, plan: FigaroPlan, options):
+    """The result of a batched dispatch over no requests: every output with
+    a leading axis of 0, nothing run."""
+    n = plan.spec.num_cols
+    base = kind.removesuffix("_batched")
+
+    def z(*shape):
+        return torch.zeros((0,) + shape, dtype=options["dtype"],
+                           device=plan.device)
+
+    if base == "r0":
+        return z(plan.spec.r0_rows, n)
+    if base == "svd":
+        return z(n), z(n, n)
+    if base == "pca":
+        k = options["k"]
+        return PCAResult(z(k, n), z(k), z(n), z())
+    if base == "least_squares":
+        return z(n - 1), z()
+    return z(n, n)
+
+
+def _pca_tail(r, sums, total, *, k, center):
     mean = sums / total
     gram = r.mT @ r
     if center:
@@ -243,9 +313,16 @@ class _Graph:
 
 @shared_state({"_cache": "_cache_lock", "_graphs": "_cache_lock",
                "_warm": "_cache_lock", "_trace_counts": "_count_lock",
-               "_evictions": "_count_lock", "_captures": "_count_lock"})
+               "_evictions": "_count_lock", "_captures": "_count_lock",
+               "_copy_streams": "_stage_lock"})
 class FigaroEngine:
     """Signature cache + dispatch for the FiGaRo pipeline.
+
+    ``donate_data=True`` (default) lets each dispatch consume the request
+    tensors a caller passes (serving: request buffers belong to the dispatch
+    that answers them; see the module docstring). Tensors of ``plan.data``
+    are never donated. Pass ``donate_data=False`` when callers re-dispatch
+    the same buffers.
 
     ``max_cached=`` caps the number of cached signatures **per pipeline
     kind** (``qr``, ``qr_batched``, ...). The cache is LRU: dispatching a new
@@ -268,10 +345,12 @@ class FigaroEngine:
         "least_squares_batched": ("label_col", "ridge") + _R_OPTIONS,
     }
 
-    def __init__(self, *, max_cached: int | None = None):
+    def __init__(self, *, donate_data: bool = True,
+                 max_cached: int | None = None):
         if max_cached is not None and max_cached < 1:
             raise ValueError(f"max_cached must be >= 1 or None, "
                              f"got {max_cached}")
+        self.donate_data = bool(donate_data)
         self.max_cached = max_cached
         # Locks are created before the state they guard so the race
         # detector can resolve them mid-__init__. The cache lock guards the
@@ -281,6 +360,7 @@ class FigaroEngine:
         self._cache_lock = san_rlock("engine._cache_lock")
         self._count_lock = san_lock("engine._count_lock")
         self._graph_lock = san_lock("engine._graph_lock")
+        self._stage_lock = san_lock("engine._stage_lock")
         self._trace_counts: collections.Counter = collections.Counter()
         self._evictions: collections.Counter = collections.Counter()
         self._captures: collections.Counter = collections.Counter()
@@ -289,6 +369,7 @@ class FigaroEngine:
         self._graphs: dict = {}  # R key -> _Graph
         self._warm: set = set()  # R keys run once eagerly, not captured yet
         self._local = threading.local()  # eager_reference, per thread
+        self._copy_streams: dict = {}  # device -> `stage`'s copy stream
         # Under the graph lock: the graphs' shared memory pool and the
         # stream every capture and replay runs on.
         self._pool = None
@@ -422,9 +503,20 @@ class FigaroEngine:
         return plan, data, device
 
     def _dispatch(self, kind: str, plan: FigaroPlan, data, *, device=None,
-                  bucket: bool = False, **options):
+                  bucket: bool = False, batch_capacity: int | None = None,
+                  **options):
+        batched = kind.endswith("_batched")
+        if batch_capacity is not None and not batched:
+            raise ValueError(f"batch_capacity= requires a batched dispatch, "
+                             f"got kind={kind!r}")
+        if isinstance(data, Staged):
+            data.consume()  # before anything reads the staged tensors
+        owner = plan
         plan, data, device = self._host_inputs(plan, data, options, device,
                                                bucket)
+        # Never donate what the plan owns: later dispatches read it again.
+        donate = self.donate_data and data is not None and not any(
+            d is p for d in data for p in owner.data)
         eager = getattr(self._local, "eager", False)
         shadow = None
         if not eager and _san_state.STATE.enabled \
@@ -438,20 +530,47 @@ class FigaroEngine:
         # Every pipeline body takes data with a batch axis; a single
         # dispatch is a batch of one.
         plan, data = device_inputs(plan, data, options["dtype"], device,
-                                   kind.endswith("_batched"))
-        if eager or _san_state.STATE.shadow_active():
-            return self._eager(kind, plan, data, **options)
-        key = self._signature(kind, plan, data, {
-            k: options[k] for k in self._STATIC[kind]})
-        r_key = self._lookup(kind, key, options)
-        if r_key is None:
-            out = self._eager(kind, plan, data, **options)
-        else:
-            r = self._graph_r(kind, r_key, plan, data, options)
-            out = self._tail(kind, plan, data, r, options)
+                                   batched)
+        b_live = int(data[0].shape[0]) if batched else 1
+        if batch_capacity is not None and b_live:
+            if batch_capacity < b_live:
+                raise ValueError(
+                    f"batch_capacity={batch_capacity} smaller than the live "
+                    f"request batch ({b_live})")
+            if batch_capacity > b_live:
+                data = _repeat_pad(data, batch_capacity - b_live)
+        padded = batched and int(data[0].shape[0]) > b_live
+        with (torch.cuda.device(plan.device) if plan.device.type == "cuda"
+              else contextlib.nullcontext()):
+            out = self._run(kind, plan, data, options,
+                            eager or _san_state.STATE.shadow_active(),
+                            donate)
+        if padded:
+            out = map_result(lambda x: x[:b_live], out)  # drop the pad's
         if shadow is not None:
             _san_numerics.after_dispatch(self, shadow, out)
         return out
+
+    def _run(self, kind, plan, data, options, eager: bool, donate: bool):
+        """The signature's lookup, R (eager, or through its graph on the
+        card) and the tail, for device inputs [B, m_i, n_i]."""
+        r_key = None
+        if not eager:
+            key = self._signature(kind, plan, data, {
+                k: options[k] for k in self._STATIC[kind]})
+            r_key = self._lookup(kind, key, options)
+        if kind.endswith("_batched") and data[0].shape[0] == 0:
+            return _empty(kind, plan, options)
+        moments = None
+        if kind.removesuffix("_batched") == "pca":
+            moments = _column_moments(plan, data, options["dtype"])
+        if r_key is None:
+            r = self._body(kind, plan, data, options)
+        else:
+            r = self._graph_r(kind, r_key, plan, data, options)
+        if donate:
+            data.clear()  # consumed: nothing reads the request again
+        return self._tail(kind, r, moments, options)
 
     # -- the captured program ------------------------------------------------
 
@@ -532,67 +651,123 @@ class FigaroEngine:
                               panel=options["panel"],
                               use_kernel=options["use_kernel"])
 
-    def _tail(self, kind, plan, data, r, options):
+    def _tail(self, kind, r, moments, options):
         """The eager N×N part after R, and the batch of one unwrapped."""
         base = kind.removesuffix("_batched")
         if base == "svd":
             _, s, vt = torch.linalg.svd(r)
             out = (s, vt)
         elif base == "pca":
-            out = _pca_tail(plan, data, r, k=options["k"],
-                            center=options["center"], dtype=options["dtype"])
+            out = _pca_tail(r, *moments, k=options["k"],
+                            center=options["center"])
         elif base == "least_squares":
             out = _least_squares_tail(r, label_col=options["label_col"],
                                       ridge=options["ridge"])
         else:  # r0, qr
             out = r
-        return out if kind.endswith("_batched") else _first(out)
+        return out if kind.endswith("_batched") else map_result(
+            lambda x: x[0], out)
 
-    def _eager(self, kind, plan, data, **options):
-        """One dispatch run eagerly: the body, then the tail."""
-        return self._tail(kind, plan, data,
-                          self._body(kind, plan, data, options), options)
+    def stage(self, data, *, shard=None, device=None) -> tuple:
+        """Start the host-to-device copy of request leaves ahead of their
+        dispatch.
+
+        Each leaf not already on the card is copied into a pinned host
+        buffer (a copy from pageable memory would not overlap anything) and
+        from there, asynchronously, on a copy stream of the engine's own; an
+        event recorded after the copies travels with the returned `Staged`
+        tuple, and the dispatch that consumes it makes its stream wait on
+        that event. So a serving queue of depth 2 stages the next batch
+        while the current one runs. A leaf given as a list of arrays (the
+        requests of a coalesced batch) is concatenated along the batch axis
+        as it is copied into the pinned buffer. Leaves already on the card
+        pass through unchanged; on the CPU nothing is staged. ``shard=`` is
+        not ported yet (ROADMAP.md, A12).
+        """
+        if shard is not None:
+            raise NotImplementedError(
+                "sharded staging (stage(shard=...)) is not ported yet "
+                "(ROADMAP.md, A12)")
+        device = resolve_device(device)
+        if device.type != "cuda":
+            return tuple(data)
+        with self._stage_lock:
+            stream = self._copy_streams.get(device)
+            if stream is None:
+                stream = self._copy_streams[device] = torch.cuda.Stream(
+                    device)
+        leaves = []
+        with torch.cuda.device(device), torch.cuda.stream(stream):
+            for d in data:
+                parts = [torch.as_tensor(p) for p in
+                         (d if isinstance(d, list) else [d])]
+                if all(p.device == device for p in parts):
+                    leaves.append(parts[0] if len(parts) == 1
+                                  else torch.cat(parts))
+                    continue
+                pinned = torch.empty(
+                    (sum(p.shape[0] for p in parts),) + parts[0].shape[1:],
+                    dtype=parts[0].dtype, pin_memory=True)
+                at = 0
+                for p in parts:
+                    pinned[at:at + p.shape[0]].copy_(p)
+                    at += p.shape[0]
+                leaves.append(pinned.to(device, non_blocking=True))
+            event = torch.cuda.Event()
+            event.record(stream)
+        return Staged(leaves, event, device)
 
     # -- public API ----------------------------------------------------------
 
     def r0(self, plan: FigaroPlan, data=None, *, batched: bool = False,
-           bucket: bool = False, dtype=torch.float32,
-           use_kernel: bool = False, assembly: str = "padded",
-           device=None) -> torch.Tensor:
+           bucket: bool = False, batch_capacity: int | None = None,
+           dtype=torch.float32, use_kernel: bool = False,
+           assembly: str = "padded", device=None) -> torch.Tensor:
         """R₀ of Algorithm 2; ``batched`` expects [B, m_i, n_i] data.
 
         ``bucket=True`` pads the plan (and data rows) to its power-of-two
         capacities first; R₀ then carries extra all-zero rows at the
-        capacity layout. ``use_kernel`` routes each node through the fused
-        CUDA pass (`kernels/node_fused`); ``assembly`` ("padded" | "band")
-        picks the R₀ materialization (see `core.figaro`).
+        capacity layout. ``batch_capacity`` (requires ``batched=True``) pads
+        a partial request batch up to the given bucket (repeating the
+        trailing request; the pad is sliced off the result), so the cache
+        and the captured graphs track batch *buckets*, not every live batch
+        size — the serving queue (`train.async_serve`) picks its buckets
+        this way. ``use_kernel`` routes each node through the fused CUDA
+        pass (`kernels/node_fused`); ``assembly`` ("padded" | "band") picks
+        the R₀ materialization (see `core.figaro`).
         """
         return self._dispatch("r0_batched" if batched else "r0", plan, data,
-                              bucket=bucket, device=device, dtype=dtype,
+                              bucket=bucket, batch_capacity=batch_capacity,
+                              device=device, dtype=dtype,
                               use_kernel=use_kernel, assembly=assembly)
 
     def qr(self, plan: FigaroPlan, data=None, *, batched: bool = False,
-           bucket: bool = False, dtype=torch.float32, method: str = "tsqr",
-           leaf_rows: int = 256, panel: int = 32, use_kernel: bool = False,
+           bucket: bool = False, batch_capacity: int | None = None,
+           dtype=torch.float32, method: str = "tsqr", leaf_rows: int = 256,
+           panel: int = 32, use_kernel: bool = False,
            assembly: str = "padded", device=None) -> torch.Tensor:
         """Upper-triangular R of the join's QR ([B, N, N] when batched)."""
         return self._dispatch(
             "qr_batched" if batched else "qr", plan, data, bucket=bucket,
-            device=device, dtype=dtype, method=method, leaf_rows=leaf_rows,
-            panel=panel, use_kernel=use_kernel, assembly=assembly)
+            batch_capacity=batch_capacity, device=device, dtype=dtype,
+            method=method, leaf_rows=leaf_rows, panel=panel,
+            use_kernel=use_kernel, assembly=assembly)
 
     def svd(self, plan: FigaroPlan, data=None, *, batched: bool = False,
-            bucket: bool = False, dtype=torch.float64, method: str = "tsqr",
-            leaf_rows: int = 256, panel: int = 32, use_kernel: bool = False,
+            bucket: bool = False, batch_capacity: int | None = None,
+            dtype=torch.float64, method: str = "tsqr", leaf_rows: int = 256,
+            panel: int = 32, use_kernel: bool = False,
             assembly: str = "padded", device=None):
         """Singular values + right-singular vectors of the join matrix."""
         return self._dispatch(
             "svd_batched" if batched else "svd", plan, data, bucket=bucket,
-            device=device, dtype=dtype, method=method, leaf_rows=leaf_rows,
-            panel=panel, use_kernel=use_kernel, assembly=assembly)
+            batch_capacity=batch_capacity, device=device, dtype=dtype,
+            method=method, leaf_rows=leaf_rows, panel=panel,
+            use_kernel=use_kernel, assembly=assembly)
 
     def pca(self, plan: FigaroPlan, data=None, *, batched: bool = False,
-            bucket: bool = False, k: int | None = None, center: bool = True,
+            bucket: bool = False, batch_capacity: int | None = None,
+            k: int | None = None, center: bool = True,
             dtype=torch.float64, method: str = "tsqr", leaf_rows: int = 256,
             panel: int = 32, use_kernel: bool = False,
             assembly: str = "padded", device=None) -> PCAResult:
@@ -601,23 +776,24 @@ class FigaroEngine:
         k = n if k is None else min(k, n)
         return self._dispatch(
             "pca_batched" if batched else "pca", plan, data, bucket=bucket,
-            device=device, k=k, center=center, dtype=dtype, method=method,
-            leaf_rows=leaf_rows, panel=panel, use_kernel=use_kernel,
-            assembly=assembly)
+            batch_capacity=batch_capacity, device=device, k=k, center=center,
+            dtype=dtype, method=method, leaf_rows=leaf_rows, panel=panel,
+            use_kernel=use_kernel, assembly=assembly)
 
     def least_squares(self, plan: FigaroPlan, label_col: int, data=None, *,
                       batched: bool = False, bucket: bool = False,
-                      ridge: float = 0.0, dtype=torch.float64,
-                      method: str = "tsqr", leaf_rows: int = 256,
-                      panel: int = 32, use_kernel: bool = False,
-                      assembly: str = "padded", device=None):
+                      batch_capacity: int | None = None, ridge: float = 0.0,
+                      dtype=torch.float64, method: str = "tsqr",
+                      leaf_rows: int = 256, panel: int = 32,
+                      use_kernel: bool = False, assembly: str = "padded",
+                      device=None):
         """argmin_β ‖A[:, feats]·β − A[:, label]‖² over the unmaterialized join."""
         return self._dispatch(
             "least_squares_batched" if batched else "least_squares", plan,
-            data, bucket=bucket, device=device, label_col=label_col,
-            ridge=float(ridge), dtype=dtype, method=method,
-            leaf_rows=leaf_rows, panel=panel, use_kernel=use_kernel,
-            assembly=assembly)
+            data, bucket=bucket, batch_capacity=batch_capacity,
+            device=device, label_col=label_col, ridge=float(ridge),
+            dtype=dtype, method=method, leaf_rows=leaf_rows, panel=panel,
+            use_kernel=use_kernel, assembly=assembly)
 
 
 def _plan_arg_error(arg_name: str, value) -> str:
@@ -639,11 +815,12 @@ _DEFAULT_ENGINE: FigaroEngine | None = None
 
 
 def default_engine() -> FigaroEngine:
-    """Process-wide shared engine — the cross-call signature cache behind the
+    """Process-wide shared engine (non-donating, safe for repeated dispatch of
+    the same buffers) — the cross-call signature cache behind the
     module-level `figaro_qr` / `svd_over_join` convenience APIs."""
     global _DEFAULT_ENGINE
     if _DEFAULT_ENGINE is None:
-        _DEFAULT_ENGINE = FigaroEngine()
+        _DEFAULT_ENGINE = FigaroEngine(donate_data=False)
     return _DEFAULT_ENGINE
 
 

@@ -298,9 +298,8 @@ class PlanHolder:
 
     A `JoinDataset` and every server attached to it share a single holder,
     so an append through *either* surface is visible to both — there is
-    exactly one plan state per join, never a silent fork. The port has no
-    server yet (ROADMAP.md, item A11); `attach` / `drain` keep the JAX
-    package's contract for when it has.
+    exactly one plan state per join, never a silent fork
+    (`repro_torch.train.async_serve` servers `attach` here).
 
     ``refresh(rows_per_node)`` is the one mutation path: it first **drains**
     every attached server (in-flight and queued requests were validated and

@@ -11,9 +11,10 @@ sign, R after `normalize_sign`. The lifecycle cases hold the port's
 signature-miss counters to the JAX package's trace counters (the lazy
 capacity plan, appends before and after it, regrows, ``bucket=False``),
 ``stats()`` to JAX's dict (same keys, same values apart from the counters'
-engine-specific ones), and the parts not ported yet (``mesh=``,
-``shard=``, ``serve``, ``partitioned_qr``) to `NotImplementedError` naming
-ROADMAP items A11 and A12. The port runs on the CPU.
+engine-specific ones), ``serve`` (Session and dataset) to the dataset's own
+answers and the JAX package's server, ``donate_data`` validation, and the
+parts not ported yet (``mesh=``, ``shard=``, ``partitioned_qr``) to
+`NotImplementedError` naming ROADMAP item A12. The port runs on the CPU.
 """
 
 import functools
@@ -550,7 +551,7 @@ def test_ingest_and_from_tree_type_errors():
         sess.from_tree({"root": None})
 
 
-# -- not ported yet: serving (A11) and meshes (A12) -----------------------------
+# -- not ported yet: meshes (A12); serving kinds validated first ---------------
 
 
 def test_serving_and_meshes_raise_not_implemented_naming_the_roadmap():
@@ -564,11 +565,11 @@ def test_serving_and_meshes_raise_not_implemented_naming_the_roadmap():
         sess.qr(dt.plan, shard=(object(), "data"))
     with pytest.raises(NotImplementedError, match="A12"):
         sess.partitioned_qr(dt.tree, 2)
-    with pytest.raises(NotImplementedError, match="A11"):
-        dt.serve(kind="qr")
-    with pytest.raises(NotImplementedError, match="A11"):
-        sess.serve(dt.plan, kind="lsq")
-    # the kind is still validated first, with the list of kinds
+    with pytest.raises(NotImplementedError, match="A12"):
+        dt.serve(kind="qr", mesh=object())
+    with pytest.raises(NotImplementedError, match="A12"):
+        sess.serve(dt.plan, kind="lsq", label_col=0, mesh=object())
+    # the kind is validated first, with the list of kinds
     with pytest.raises(ValueError, match=r"supported kinds: qr, svd, pca"):
         dt.serve(kind="nope")
     with pytest.raises(ValueError, match="supported kinds"):
@@ -576,6 +577,49 @@ def test_serving_and_meshes_raise_not_implemented_naming_the_roadmap():
     assert figaro.SERVE_KINDS == jfig.SERVE_KINDS == ("qr", "svd", "pca",
                                                       "lsq")
     assert dt.qr(shard=None).shape == (5, 5)  # shard=None is no mesh
+
+
+# -- serving through the façade (Session.serve, JoinDataset.serve) --------------
+
+
+@pytest.mark.parametrize("corner", PORT_CORNERS, ids=CORNER_IDS)
+def test_dataset_and_session_serve_round_trips(corner):
+    """``ds.serve`` and ``sess.serve`` answer like the dataset's own
+    compute methods and the JAX package's ``ds.serve`` (float64, 1e-9);
+    ``label_col`` resolves by column name; the session's dtype policy
+    applies (qr float32 unless pinned)."""
+    ts, dt, tj, dj = _star_pair(corner)
+    data = tuple(np.asarray(d) for d in dt.plan.data)
+    jdata = tuple(np.asarray(d) for d in dj.plan.data)
+    s_lsq = dt.serve(kind="lsq", label_col="price", dtype=torch.float64)
+    j_lsq = dj.serve(kind="lsq", label_col="price", dtype=jnp.float64)
+    got, want = s_lsq(data), j_lsq(jdata)
+    assert np.allclose(got[0].numpy(), np.asarray(want[0]), atol=ATOL)
+    assert np.allclose(got[1].numpy(), np.asarray(want[1]), atol=ATOL)
+    beta, _ = dt.lsq("price", dtype=torch.float64)
+    assert np.allclose(got[0].numpy(), beta.numpy(), atol=ATOL)
+    s_qr = ts.serve(dt.plan, kind="qr")
+    r32 = s_qr(data)
+    assert r32.dtype == torch.float32
+    s_pca = dt.serve(kind="pca", k=2)
+    pca = s_pca(data)
+    want = dt.pca(k=2)
+    assert np.allclose(pca.explained_variance.numpy(),
+                       want.explained_variance.numpy(), atol=ATOL)
+    for server in (s_lsq, j_lsq, s_qr, s_pca):
+        server.close()
+
+
+def test_session_donate_data_forwarded_and_validated():
+    engine = FigaroEngine()
+    with pytest.raises(ValueError, match="donate_data"):
+        figaro.Session(device="cpu", engine=engine, donate_data=True)
+    with pytest.raises(ValueError, match="donate_data"):
+        figaro.Session(device="cpu", engine=engine, donate_data=False)
+    assert figaro.Session(device="cpu",
+                          donate_data=True).engine.donate_data is True
+    assert figaro.Session(device="cpu").engine.donate_data is False
+    assert jfig.Session(donate_data=True).engine.donate_data is True
 
 
 def test_figaro_module_exports():
@@ -587,5 +631,7 @@ def test_figaro_module_exports():
     assert figaro.TableSet is api.TableSet
     assert figaro.PlanHolder is PlanHolder
     assert figaro.FigaroEngine is FigaroEngine
+    assert set(figaro.__all__) == set(jfig.__all__)
     assert set(figaro.__all__) >= {"Session", "TableSet", "JoinDataset",
-                                   "PlanHolder", "SERVE_KINDS"}
+                                   "PlanHolder", "AsyncFigaroServer",
+                                   "FigaroFuture", "SERVE_KINDS"}

@@ -16,7 +16,10 @@ launch counts which variant (``panel_qr_reg``, ``_cluster``, ``_grid``) ran. The
 engine's captured program: a replay equals the eager body bit for bit, an
 append within capacity replays (no capture), a regrow captures once, replays
 add the capture's launch counts, an evicted graph frees its memory, and two
-threads share one signature's graph. flash_attention,
+threads share one signature's graph. Serving: a thread captures a signature
+another thread ran eagerly, a served batch equals its synchronous batched
+dispatch bit for bit, `stage` copies on the engine's copy stream, and a
+batched node pass past 2³¹ elements keeps its offsets. flash_attention,
 elementwise: 2e-5 absolute in float32 and 1e-12 in float64 (the JAX
 package's own kernel-vs-oracle bound, tests/test_flash_kernel.py, and
 float64 rounding); in bfloat16 one bfloat16 step, |got − want| ≤
@@ -852,3 +855,142 @@ def test_replay_alternating_plans_of_one_signature():
         r = dss[i].qr(dtype=torch.float64)
         assert _rel(r.cpu(), want[i]) <= 1e-9
     assert sess.engine.trace_count() == 1 and sess.engine.capture_count() == 1
+
+
+# -- serving: captures from any thread, served batches, staging ---------------
+
+
+def test_worker_thread_captures_a_signature_warmed_on_the_main_thread():
+    """The main thread runs a signature's first (eager) dispatch; a fresh
+    thread (no cuBLAS handle of its own yet) makes the second, which
+    captures, and its replay answers as eager."""
+    _need_card()
+    import threading
+
+    tree = yelp_like(scale=400, cols=3)
+    sess = figaro.Session(use_kernel=True, assembly="band")
+    sess.qr(tree, dtype=torch.float64)  # eager, on this thread
+    got, errors = {}, []
+
+    def worker():
+        try:
+            got["r"] = sess.qr(tree, dtype=torch.float64)
+            got["captures"] = sess.engine.capture_count()
+            got["again"] = sess.qr(tree, dtype=torch.float64)
+        except Exception as exc:  # surfaced below
+            errors.append(exc)
+
+    t = threading.Thread(target=worker)
+    t.start()
+    t.join(timeout=300)
+    assert not t.is_alive() and not errors, errors
+    assert got["captures"] == 1 and sess.engine.graph_count() == 1
+    with sess.engine.eager_reference():
+        eager = sess.qr(tree, dtype=torch.float64)
+    assert torch.equal(got["r"], eager) and torch.equal(got["again"], eager)
+    assert torch.equal(sess.qr(tree, dtype=torch.float64), eager)
+    assert sess.engine.capture_count() == 1
+
+
+@pytest.mark.parametrize("kind", ["qr", "svd"])
+def test_served_batch_equals_its_synchronous_batched_dispatch(kind):
+    """Three requests coalesced into one B=3 batch (bucket 4), three times:
+    eager, then the capture, then a replay. Each answer equals the same
+    batch dispatched synchronously at the same capacity bit for bit, and
+    an eager batch of one at 1e-9; the node pass and panel_qr launched."""
+    _need_card()
+    tree = yelp_like(scale=400, cols=3)
+    sess = figaro.Session(use_kernel=True, assembly="band")
+    ds = sess.from_tree(tree)
+    server = ds.serve(kind=kind, dtype=torch.float64, max_batch=4)
+    rng = np.random.default_rng(5)
+    reqs = [tuple(np.asarray(d) * rng.uniform(0.5, 2.0, np.shape(d)[-1])
+                  for d in ds.plan.data) for _ in range(3)]
+    _platform.reset_launch_counts()
+    for _ in range(3):
+        server.pause()
+        futures = [server.submit(r) for r in reqs]
+        server.resume()
+        answers = [f.result(timeout=300) for f in futures]
+    launches = _platform.launch_counts()
+    assert launches.get("node_fused", 0) > 0 and launches.get("panel_qr", 0)
+    assert sess.engine.capture_count() == 1
+    batch = tuple(np.stack([r[j] for r in reqs]) for j in range(len(reqs[0])))
+    sync = getattr(sess.engine, kind)(
+        ds.plan, batch, batched=True, batch_capacity=4, dtype=torch.float64,
+        use_kernel=True, assembly="band")
+    assert sess.engine.capture_count() == 1
+    for i, got in enumerate(answers):
+        want = sync[i] if kind == "qr" else (sync[0][i], sync[1][i])
+        assert _bitwise(got, want), i
+        with sess.engine.eager_reference():
+            one = getattr(ds, kind)(reqs[i], dtype=torch.float64)
+        if kind == "qr":
+            assert _rel(postprocess.normalize_sign(got),
+                        postprocess.normalize_sign(one)) <= 1e-9
+        else:
+            assert _rel(got[0], one[0]) <= 1e-9
+    server.close()
+
+
+def test_stage_copies_on_the_engines_copy_stream():
+    """`stage` copies from pinned buffers on the engine's copy stream: its
+    event completes while the current stream is still busy, and the
+    dispatch that consumes the staged batch (waiting on that event) answers
+    as the unstaged one through the same graph, bit for bit."""
+    _need_card()
+    from repro_torch.core.engine import Staged
+    from repro_torch.core.join_tree import build_plan
+
+    plan = build_plan(yelp_like(scale=400, cols=3))
+    eng = figaro.Session(use_kernel=True, assembly="band",
+                         donate_data=True).engine
+    batch = tuple(np.stack([np.asarray(d)] * 2) for d in plan.data)
+    # the kernel path: deterministic (the plain one sums with atomics)
+    kw = dict(batched=True, dtype=torch.float64, use_kernel=True,
+              assembly="band")
+    eng.qr(plan, batch, **kw)  # eager
+    want = eng.qr(plan, batch, **kw)  # the capture's replay
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000_000)  # keeps the current stream busy ~1 s
+    staged = eng.stage(batch)
+    assert isinstance(staged, Staged) and staged.device.type == "cuda"
+    staged.event.synchronize()
+    assert not torch.cuda.current_stream().query(), \
+        "the staged copy waited for the current stream"
+    # a leaf given as the parts of a coalesced batch is concatenated
+    parts = eng.stage(tuple([d[:1], d[1:]] for d in batch))
+    parts.event.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(parts, staged, strict=True))
+    got = eng.qr(plan, staged, **kw)
+    assert torch.equal(got, want)
+    on_card = eng.stage(staged)  # leaves already on the card pass through
+    assert all(a is b for a, b in zip(on_card, staged))
+
+
+def test_node_pass_batch_offsets_past_int32():
+    """A batched node pass whose B·m·n passes 2³¹ elements (each matrix
+    below it): the last rows of the last batch, where a 32-bit offset would
+    wrap, against the plain version on those rows (segments of 64 rows, so
+    a segment-aligned slice is a pass of its own)."""
+    _need_card()
+    b, m, n, seg = 3, 1 << 25, 24, 64
+    assert b * m * n > 2 ** 31 > m * n
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(31)
+    pos = torch.arange(m, device=dev) % seg
+    last = torch.arange(seg - 1, m, seg, device=dev)
+    live = torch.ones(m // seg, dtype=torch.bool, device=dev)
+    w = torch.rand(m, generator=g, device=dev) + 0.5
+    es = torch.rand(m, generator=g, device=dev) + 0.5
+    data = torch.randn(b, m, n, generator=g, device=dev)
+    slab, heads, norms = nk.fused_node_pass(data, w, pos, es, last, live)
+    _seg_scan.check()
+    for bi, lo in ((b - 1, m - 4096), (0, 0)):
+        hi, s0, s1 = lo + 4096, lo // seg, (lo + 4096) // seg
+        want = nr.fused_node_pass_ref(data[bi:bi + 1, lo:hi], w[lo:hi],
+                                      pos[lo:hi], es[lo:hi],
+                                      last[s0:s1] - lo, live[s0:s1])
+        assert _rel(slab[bi:bi + 1, lo:hi], want[0]) <= TOL[torch.float32]["nf"]
+        assert _rel(heads[bi:bi + 1, s0:s1], want[1]) <= TOL[torch.float32]["nf"]
+        assert _rel(norms[s0:s1], want[2]) <= TOL[torch.float32]["nf"]

@@ -6,8 +6,9 @@ the port's `FigaroEngine` and `PlanHolder` under two threads), a thread
 exiting with a lock held, retrace attribution naming the diverged component
 of the port's signature, shadow dispatches neither counting nor retracing,
 the float32 error within the paper's database-size budget (the same budget
-as the JAX package's on the same plan), the NaN tripwire and sampling. It
-also holds every lock and thread of `repro_torch` to the sanitizer's
+as the JAX package's on the same plan), the NaN tripwire and sampling,
+and the two async-server storms of tests/test_sanitizer_stress.py on the
+port's server. It also holds every lock and thread of `repro_torch` to the sanitizer's
 wrappers: no raw ``threading.Lock/RLock/Condition/Thread`` outside
 ``sanitizer/``. The port runs on the CPU.
 """
@@ -335,6 +336,151 @@ def test_jax_budget_on_the_same_dispatch_matches():
 
 
 # -- routing: every lock and thread of the port goes through the wrappers ----
+
+
+# -- the async server under the sanitizer (tests/test_sanitizer_stress.py) ------
+
+N_SUBMITTERS = 3
+SUBMITS_PER_THREAD = 5
+N_APPENDS = 3
+N_STATS_READERS = 2
+
+
+def _star_ds(session):
+    rng = np.random.default_rng(7)
+    tables = {
+        "Orders": ({"cust": np.arange(20) % 8, "prod": np.arange(20) % 4},
+                   rng.normal(size=(20, 2)), ["amount", "qty"]),
+        "Customers": ({"cust": np.arange(8)},
+                      rng.normal(size=(8, 2)), ["age", "income"]),
+        "Products": ({"prod": np.arange(4)},
+                     rng.normal(size=(4, 1)), ["price"]),
+    }
+    return session.ingest(tables).join(
+        "Orders", [("Orders", "Customers"), ("Orders", "Products")])
+
+
+def test_threaded_submit_append_stats_zero_findings(san):
+    """Several threads hammer one port `AsyncFigaroServer` with interleaved
+    submit / append / stats under the armed sanitizer (retrace tripwire on
+    after warming every batch bucket): no finding, every future resolves,
+    and each thread's futures resolve in its submission order."""
+    from repro_torch import figaro
+
+    sess = figaro.Session(headroom=16, device="cpu")
+    ds = _star_ds(sess)
+    server = ds.serve(kind="qr", dtype=torch.float64, max_batch=4)
+    # Warm every batch bucket the storm can coalesce into (capacities 1, 2
+    # and 4 with max_batch=4), THEN arm the retrace tripwire.
+    warm = lambda: tuple(np.asarray(d) for d in ds.plan.data)
+    for group in (1, 2, 3):
+        server.pause()
+        futs = [server.submit(warm()) for _ in range(group)]
+        server.resume()
+        for f in futs:
+            f.result(timeout=120)
+    sanitizer.expect_no_retrace()
+
+    resolved = []  # (submitter_id, seq), appended in resolution order
+    resolved_lock = threading.Lock()
+    errors = []
+
+    def record(tid, seq):
+        def cb(fut):
+            with resolved_lock:
+                resolved.append((tid, seq))
+        return cb
+
+    n = ds.plan.num_cols
+
+    def submitter(tid):
+        rng = np.random.default_rng(tid)
+        try:
+            futures = []
+            for seq in range(SUBMITS_PER_THREAD):
+                req = tuple(rng.normal(size=np.shape(d))
+                            for d in ds.plan.data)
+                fut = server.submit(req)
+                fut.add_done_callback(record(tid, seq))
+                futures.append(fut)
+            for fut in futures:
+                assert fut.result(timeout=120).shape == (n, n)
+        except BaseException as e:  # surfaced after the join below
+            errors.append(e)
+
+    def appender():
+        try:
+            for step in range(N_APPENDS):
+                in_cap = server.append(
+                    "Orders", ({"cust": np.array([step]),
+                                "prod": np.array([step % 4])},
+                               np.ones((1, 2)) * step))
+                assert in_cap, "append within headroom must stay in capacity"
+        except BaseException as e:
+            errors.append(e)
+
+    def stats_reader():
+        try:
+            for _ in range(20):
+                st = ds.stats()
+                assert st["nodes"]["Orders"]["live_rows"] >= 20
+        except BaseException as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=submitter, args=(tid,))
+               for tid in range(N_SUBMITTERS)]
+    threads.append(threading.Thread(target=appender))
+    threads += [threading.Thread(target=stats_reader)
+                for _ in range(N_STATS_READERS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300.0)
+    assert not any(t.is_alive() for t in threads), "stress thread hung"
+    assert errors == [], errors
+
+    server.flush()
+    server.close()
+    with resolved_lock:
+        done = list(resolved)
+    assert len(done) == N_SUBMITTERS * SUBMITS_PER_THREAD
+    for tid in range(N_SUBMITTERS):
+        seqs = [seq for t, seq in done if t == tid]
+        assert seqs == sorted(seqs), \
+            f"thread {tid} futures resolved out of submission order: {seqs}"
+    assert sanitizer.findings() == [], "\n" + sanitizer.report()
+    st = ds.stats()
+    assert st["appends"] == N_APPENDS and st["regrows"] == 0
+
+
+def test_two_servers_one_holder_under_sanitizer(san):
+    """Sibling servers share the PlanHolder; appends through one stay
+    race-free and visible through the other while both dispatch."""
+    from repro_torch import figaro
+
+    sess = figaro.Session(headroom=16, device="cpu")
+    ds = _star_ds(sess)
+    s1 = ds.serve(kind="qr", dtype=torch.float64)
+    s2 = ds.serve(kind="qr", dtype=torch.float64)
+    req = lambda: tuple(np.asarray(d) for d in ds.plan.data)
+
+    def pump(server):
+        for _ in range(3):
+            server.submit(req()).result(timeout=120)
+
+    t1 = threading.Thread(target=pump, args=(s1,))
+    t2 = threading.Thread(target=pump, args=(s2,))
+    t1.start()
+    t2.start()
+    t1.join(timeout=300.0)
+    t2.join(timeout=300.0)
+    assert not t1.is_alive() and not t2.is_alive()
+    assert s1.append("Orders", ({"cust": np.array([0]),
+                                 "prod": np.array([0])}, np.ones((1, 2))))
+    assert ds.plan is s2.plan, "holder forked between sibling servers"
+    s1.close()
+    s2.close()
+    assert sanitizer.findings() == [], "\n" + sanitizer.report()
 
 
 _RAW = {"Lock", "RLock", "Condition", "Thread"}
