@@ -117,6 +117,29 @@ result line):
                 to sign), one profiled B = 8 batch, one capture in all (pca
                 and lsq replay svd's R graph). Each part's peak reserved
                 memory must stay under 80 GB.
+  10. distribution — (run after 9, its graphs released) 10a:
+                ``Session(use_kernel=True, assembly="band")
+                .partitioned_qr(tree, 4)`` on phase 4's tree in float64,
+                without a mesh: `partition_fact_table` and the four plan
+                builds timed on the host, the median of 3 wall times beside
+                phase 4's float64 ``qr`` (replayed), launches (node_fused
+                and panel_qr must launch) and captures, R against phase
+                4's float64 ``qr`` at 1e-9 relative, peak reserved memory
+                under 80 GB. 10b: a one-rank NCCL group on ``cuda:0`` (a
+                `FileStore` in a temporary directory, a timeout) and its
+                ``make_data_mesh()``: `distributed_postprocess_r0` of phase
+                4's float64 R₀ (capacity rows) with ``use_kernel=True``
+                (one block: ``panel_qr_grid`` must launch) against
+                `postprocess_r0` of the same R₀, both timed;
+                `distributed_qr_r` of a random float64 [2²², 32] from
+                ``--seed`` against `postprocess_r0`; a B = 2 float64
+                ``svd`` through ``Session(mesh=mesh)`` on 9b's
+                configuration (eager, then captured) against the same
+                session without a mesh; ``partitioned_qr(tree, 4,
+                mesh=mesh)`` against 10a; each at 1e-9 relative (vectors
+                up to sign), the group destroyed at the end. A mesh of one
+                rank issues no collective; nothing falls back to gloo or
+                the CPU.
   5. wide     — a float64 ``qr`` over a star of three wide relations
                 (N = 512 columns, a few thousand rows) through
                 ``Session(use_kernel=True)``, timed as the median of 3
@@ -163,9 +186,9 @@ result line):
   8. summary  — one ``{"kernels": [...]}`` line, then, last, the
                 ``{"ok": true, "device": {...}}`` line.
 
-Each of phases 4–7 (and 5b, 9a, 9b) drives one path of the port with the
-launch counters zeroed just before and read just after, and fails if a
-kernel of that path did not launch (in phase 9 the server's dispatch
+Each of phases 4–7 (and 5b, 9a, 9b, 10a, 10b) drives one path of the port
+with the launch counters zeroed just before and read just after, and fails
+if a kernel of that path did not launch (in phase 9 the server's dispatch
 thread launches them; the counts are process-wide). Every profiled ``qr`` (`profile_once`) also holds
 the trace to the counters: each port kernel of the path (the node pass's
 scan, panel_qr's three variants) ran as many times in the trace as the
@@ -1859,6 +1882,235 @@ def phase_serve_cut(seed: int) -> dict:
     return out
 
 
+# -- phase 10: distribution ---------------------------------------------------
+
+DIST_PARTS = 4  # fact partitions of phase 10
+DIST_QR_SHAPE = (1 << 22, 32)  # 10b's random tall matrix (float64)
+DIST_BATCH = 2  # 10b's sharded svd batch, on 9b's configuration
+
+
+def phase_partitioned(tree, r64, qr64_ms: float) -> dict:
+    """10a: ``Session(use_kernel=True, assembly="band").partitioned_qr(tree,
+    4)`` in float64 on phase 4's tree, no mesh: the partitions run one after
+    another on the card through the session's engine (a graph each from the
+    second call) and their Rs are TSQR-combined there. Host seconds of
+    `partition_fact_table` and of the four plan builds; the median of 3
+    wall times beside phase 4's float64 ``qr``; the launches (counters
+    zeroed around the timed calls) and captures; R against phase 4's
+    float64 plan-level ``qr`` at 1e-9 relative; peak reserved memory."""
+    import torch
+    from repro_torch import figaro
+    from repro_torch.core.distributed import partition_fact_table
+    from repro_torch.core.join_tree import build_plan
+    from repro_torch.kernels import _platform, _seg_scan
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    parts = partition_fact_table(tree, DIST_PARTS)
+    out = {"partition_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    plans = [build_plan(t) for t in parts]
+    out["plan_builds_s"] = time.perf_counter() - t0
+    out["partitions"] = [{"rows": {sp.name: sp.m for sp in p.spec.nodes},
+                          "r0_rows": p.spec.r0_rows} for p in plans]
+    log(f"10a: partition_fact_table(tree, {DIST_PARTS}) "
+        f"{out['partition_s']:.2f} s, the four plan builds "
+        f"{out['plan_builds_s']:.2f} s; R0 rows "
+        f"{[p['r0_rows'] for p in out['partitions']]}")
+    del parts, plans
+    sess = figaro.Session(use_kernel=True, assembly="band", device="cuda")
+    _platform.reset_launch_counts()
+    r, med, times, warm = wall(lambda: sess.partitioned_qr(tree, DIST_PARTS),
+                               REPS)
+    out["launches"] = _platform.launch_counts()
+    calls = REPS + 1
+    out["launches_per_call"] = {k: v / calls
+                                for k, v in out["launches"].items()}
+    for kname in ("node_fused", "panel_qr", "panel_qr_reg"):
+        check(out["launches"].get(kname, 0) > 0,
+              f"{kname} launched on the partitioned path")
+    out.update(wall_ms=med * 1e3, wall_ms_runs=[x * 1e3 for x in times],
+               first_call_ms=warm * 1e3, qr64_ms=qr64_ms,
+               captures=sess.engine.capture_count(),
+               misses=sess.engine.trace_count())
+    err_abs, out["r_rel_err"] = rel_err(r, r64)
+    log(f"10a partitioned_qr float64: median {out['wall_ms']:.1f} ms of "
+        f"{[round(x, 1) for x in out['wall_ms_runs']]} (first call "
+        f"{out['first_call_ms']:.1f} ms) against phase 4's float64 qr "
+        f"{qr64_ms:.1f} ms; {out['misses']} misses, {out['captures']} "
+        f"captures; launches over {calls} calls {out['launches']}; R vs "
+        f"phase 4's float64 qr: max abs err {err_abs:.3e}, relative "
+        f"{out['r_rel_err']:.3e} (tol 1e-9)")
+    check(out["r_rel_err"] <= 1e-9, "10a: partitioned R matches the qr")
+    _seg_scan.check()
+    out["peak_reserved_gib"] = torch.cuda.max_memory_reserved() / 2**30
+    out["memory"] = memory_log("phase 10a", sess.engine)
+    check(out["peak_reserved_gib"] < 80, "10a fits the 80 GB card")
+    return out, sess, r
+
+
+def phase_nccl_mesh(tree, plan, sess, r_part, seed: int) -> dict:
+    """10b: a one-rank NCCL group on ``cuda:0`` (a `FileStore` in a
+    temporary directory, a timeout, the communicator made eagerly through
+    ``device_id``) and its data mesh: `distributed_postprocess_r0` of phase
+    4's float64 R₀ with the panel kernel (its one block, taller than 4,096
+    rows, takes the grid variant) against `postprocess_r0` of the same R₀;
+    `distributed_qr_r` of a random float64 [2²², 32] from ``--seed``; a
+    sharded B = 2 float64 ``svd`` on 9b's configuration against the same
+    session without a mesh; ``partitioned_qr`` over the mesh against 10a.
+    Each at 1e-9 relative (vectors up to sign); the launch counters zeroed
+    around each; the group destroyed at the end, whatever happened."""
+    import datetime
+    import gc
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import figaro
+    from repro_torch.core.distributed import (distributed_postprocess_r0,
+                                              distributed_qr_r)
+    from repro_torch.core.join_tree import build_plan
+    from repro_torch.core.postprocess import postprocess_r0
+    from repro_torch.data.relational import yelp_like
+    from repro_torch.kernels import _platform, _seg_scan
+    from repro_torch.launch.mesh import make_data_mesh
+
+    out = {}
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(str(pathlib.Path(tmp) / "store"), 1),
+            rank=0, world_size=1, timeout=datetime.timedelta(seconds=300),
+            device_id=torch.device("cuda", 0))
+        try:
+            mesh = make_data_mesh()
+            check(mesh.size == 1 and mesh.backend == "nccl"
+                  and mesh.device == torch.device("cuda", 0),
+                  f"a one-rank NCCL mesh on cuda:0 ({mesh})")
+            log(f"10b: NCCL {torch.cuda.nccl.version()} group of one rank; "
+                f"mesh {mesh.shape} on {mesh.device}")
+
+            # 1. the TSQR combine of phase 4's R0 (capacity rows)
+            torch.cuda.reset_peak_memory_stats()
+            r0 = sess.r0(plan, dtype=torch.float64)
+            torch.cuda.synchronize()
+            _platform.reset_launch_counts()
+            r_d, t_d, ts_d, _ = wall(lambda: distributed_postprocess_r0(
+                r0, mesh, use_kernel=True), REPS)
+            launches = _platform.launch_counts()
+            check(launches.get("panel_qr_grid", 0) > 0,
+                  "10b: panel_qr_grid launched in distributed_postprocess_r0")
+            r_t, t_t, ts_t, _ = wall(lambda: postprocess_r0(
+                r0, use_kernel=True), REPS)
+            r_p, t_p, ts_p, _ = wall(lambda: postprocess_r0(r0), REPS)
+            err = rel_err(r_d, r_p)[1]
+            out["postprocess"] = {
+                "r0_rows": int(r0.shape[0]), "launches": launches,
+                "distributed_ms": t_d * 1e3,
+                "distributed_ms_runs": [x * 1e3 for x in ts_d],
+                "postprocess_kernel_ms": t_t * 1e3,
+                "postprocess_kernel_ms_runs": [x * 1e3 for x in ts_t],
+                "postprocess_plain_ms": t_p * 1e3,
+                "postprocess_plain_ms_runs": [x * 1e3 for x in ts_p],
+                "r_rel_err": err,
+                "r_rel_err_vs_kernel_tsqr": rel_err(r_d, r_t)[1],
+                "peak_reserved_gib":
+                    torch.cuda.max_memory_reserved() / 2**30}
+            log(f"10b distributed_postprocess_r0 (R0 {tuple(r0.shape)} "
+                f"float64, use_kernel=True): median {t_d * 1e3:.1f} ms; "
+                f"postprocess_r0 TSQR with the kernel {t_t * 1e3:.1f} ms, "
+                f"plain {t_p * 1e3:.1f} ms; launches {launches}; R vs the "
+                f"plain postprocess_r0 relative {err:.3e} (tol 1e-9)")
+            check(err <= 1e-9, "10b: distributed_postprocess_r0 matches "
+                  "postprocess_r0")
+            del r0, r_d, r_t, r_p
+            torch.cuda.empty_cache()
+
+            # 2. a random tall matrix
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            a = torch.randn(DIST_QR_SHAPE, dtype=torch.float64,
+                            device="cuda", generator=gen)
+            _platform.reset_launch_counts()
+            r_a, t_a, _, _ = wall(lambda: distributed_qr_r(
+                a, mesh, use_kernel=True), REPS)
+            launches = _platform.launch_counts()
+            check(launches.get("panel_qr_grid", 0) > 0,
+                  "10b: panel_qr_grid launched in distributed_qr_r")
+            err = rel_err(r_a, postprocess_r0(a))[1]
+            out["tall"] = {"shape": list(DIST_QR_SHAPE), "ms": t_a * 1e3,
+                           "launches": launches, "r_rel_err": err}
+            log(f"10b distributed_qr_r {list(DIST_QR_SHAPE)} float64: median "
+                f"{t_a * 1e3:.1f} ms; launches {launches}; R vs "
+                f"postprocess_r0 relative {err:.3e} (tol 1e-9)")
+            check(err <= 1e-9, "10b: distributed_qr_r matches postprocess_r0")
+            del a, r_a
+            torch.cuda.empty_cache()
+
+            # 3. a sharded svd batch on 9b's configuration
+            cut = build_plan(yelp_like(scale=SERVE_CUT_SCALE, cols=16))
+            rng = np.random.default_rng(seed + 100)
+            reqs = request_set(cut, DIST_BATCH, np.float64, rng)
+            batch = tuple(np.stack([r[j] for r in reqs])
+                          for j in range(len(reqs[0])))
+            meshed = figaro.Session(mesh=mesh, use_kernel=True,
+                                    assembly="band", device="cuda")
+            lone = figaro.Session(use_kernel=True, assembly="band",
+                                  device="cuda")
+            _platform.reset_launch_counts()
+            got = [meshed.svd(cut, batch, batched=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            launches = _platform.launch_counts()
+            for kname in ("node_fused", "panel_qr", "panel_qr_reg"):
+                check(launches.get(kname, 0) > 0,
+                      f"{kname} launched on the sharded svd")
+            s_w, vt_w = lone.svd(cut, batch, batched=True)
+            errs = [max(rel_err(s, s_w)[1],
+                        rel_err(sign_aligned(vt, vt_w), vt_w)[1])
+                    for s, vt in got]
+            out["sharded_svd"] = {
+                "batch": DIST_BATCH, "launches": launches,
+                "captures": meshed.engine.capture_count(),
+                "misses": meshed.engine.trace_count(),
+                "max_rel_err": max(errs)}
+            log(f"10b sharded svd B = {DIST_BATCH} float64 on "
+                f"yelp_like(scale={SERVE_CUT_SCALE}): eager, then captured; "
+                f"{out['sharded_svd']['misses']} misses, "
+                f"{out['sharded_svd']['captures']} captures; launches "
+                f"{launches}; vs the session without a mesh relative "
+                f"{max(errs):.3e} (tol 1e-9)")
+            check(max(errs) <= 1e-9, "10b: sharded svd matches unsharded")
+            check(meshed.engine.capture_count() == 1,
+                  "10b: the sharded svd's second call captured its graph")
+            del got, meshed, lone, cut, batch, reqs
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # 4. the partitions over the mesh, through 10a's engine
+            _platform.reset_launch_counts()
+            t0 = time.perf_counter()
+            r_m = sess.partitioned_qr(tree, DIST_PARTS, mesh=mesh)
+            torch.cuda.synchronize()
+            t_m = time.perf_counter() - t0
+            launches = _platform.launch_counts()
+            for kname in ("node_fused", "panel_qr"):
+                check(launches.get(kname, 0) > 0,
+                      f"{kname} launched on the partitioned path over the "
+                      f"mesh")
+            err = rel_err(r_m, r_part)[1]
+            out["partitioned_mesh"] = {"ms": t_m * 1e3, "launches": launches,
+                                       "r_rel_err": err}
+            log(f"10b partitioned_qr(tree, {DIST_PARTS}, mesh=mesh): "
+                f"{t_m * 1e3:.1f} ms; launches {launches}; R vs 10a "
+                f"relative {err:.3e} (tol 1e-9)")
+            check(err <= 1e-9, "10b: partitions over the mesh match 10a")
+            _seg_scan.check()
+        finally:
+            dist.destroy_process_group()
+    out["memory"] = memory_log("phase 10b")
+    return out
+
+
 # -- phase 3 (random panels, flash cases) --------------------------------------
 
 def check_random_panels() -> dict:
@@ -2567,7 +2819,6 @@ def main(argv=None) -> int:
     torch.cuda.reset_peak_memory_stats()
     dataset, ds = phase_dataset(tree, r_k, args.seed)
     memory["phase 4c"] = dataset.pop("memory")
-    del tree, r_k
     torch.cuda.empty_cache()
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
@@ -2581,6 +2832,23 @@ def main(argv=None) -> int:
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     serving["cut"] = phase_serve_cut(args.seed)
     memory["phase 9b"] = serving["cut"].pop("memory")
+    gc.collect()
+    torch.cuda.empty_cache()  # phase 9's graphs went with its engines
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+
+    log("== phase 10: distribution (10a: partitioned_qr on the card; 10b: a "
+        "one-rank NCCL mesh)")
+    distribution = {}
+    distribution["partitioned"], dist_sess, r_part = phase_partitioned(
+        tree, r_k, graphs["yelp_qr_f64"]["replay"]["median_wall_ms"])
+    memory["phase 10a"] = distribution["partitioned"].pop("memory")
+    distribution["nccl"] = phase_nccl_mesh(tree, plan, dist_sess, r_part,
+                                           args.seed)
+    memory["phase 10b"] = distribution["nccl"].pop("memory")
+    del dist_sess, r_part, tree, r_k
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     b2 = serving["full"].pop("kernels_b2")
     for kname in ("node_fused", "panel_qr"):
         one, two = per_dtype["float32"][kname], b2[kname]
@@ -2706,6 +2974,7 @@ def main(argv=None) -> int:
                     "graph_vs_eager": graphs,
                     "dataset": dataset,
                     "serving": serving,
+                    "distribution": distribution,
                     "memory": memory,
                     "profile_per_qr": {"qr_f32": prof_qr, "qr_f64": prof_qr64,
                                        "wide_qr_f64": wide["profile"],

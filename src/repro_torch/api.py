@@ -33,9 +33,12 @@ returns a future, pending requests coalesce into bucketed batches that
 replay one captured graph per bucket, and ``server.append`` and
 ``ds.append`` refresh one shared plan.
 
-Not ported yet, and raising `NotImplementedError` that names the ROADMAP
-item: meshes (``Session(mesh=...)``, ``shard=``, ``serve(mesh=...)``,
-``Session.partitioned_qr``; A12).
+Distribution: ``Session(mesh=make_data_mesh())`` splits every batched
+dispatch's request axis over the ranks of a data mesh (one process per
+rank, `torch.distributed`; ``shard=`` overrides it per call), and
+``Session.partitioned_qr`` runs fact-partitioned FiGaRo, partitions spread
+over the mesh's ranks and combined by the butterfly TSQR
+(`repro_torch.core.distributed`).
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ from repro_torch.core.plan_cache import (PlanHolder, _append_rows,
                                          pad_data, pad_plan, spec_fits)
 from repro_torch.core.relation import Database, full_reduce
 from repro_torch.kernels._platform import resolve_device
+from repro_torch.launch.mesh import resolve_shard
 from repro_torch.planner import (DatabaseStats, Replanner, choose_root,
                                  explain_text, rank_orientations,
                                  validate_names)
@@ -78,16 +82,6 @@ _KIND_DTYPES = {
 _SERVE_ENGINE_KINDS = {"qr": "qr", "svd": "svd", "pca": "pca",
                        "lsq": "least_squares"}
 assert tuple(_SERVE_ENGINE_KINDS) == SERVE_KINDS
-
-_NO_MESH = ("meshes and sharded dispatch (Session(mesh=...), shard=, "
-            "serve(mesh=...), Session.partitioned_qr) are not ported yet "
-            "(ROADMAP.md, A12)")
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not _UNSET and mesh is not None:
-        raise NotImplementedError(_NO_MESH)
-
 
 class Session:
     """Owns the compute configuration of the join-factorization stack.
@@ -128,8 +122,13 @@ class Session:
                  dispatch of the same buffers); ``max_cached`` bounds the
                  per-kind cache (LRU, evictions counted, evicted graphs
                  freed).
-    mesh:        not ported yet: anything but ``None`` raises
-                 `NotImplementedError` (ROADMAP.md, A12).
+    mesh:        a `launch.mesh.DataMesh` (`make_data_mesh`); batched
+                 dispatches split their request axis over
+                 ``mesh[shard_axis]`` (one cache entry per (plan
+                 signature, mesh signature) on each rank), and
+                 `partitioned_qr` spreads its partitions over the ranks.
+                 ``device`` must be the mesh's device for this rank.
+                 ``None`` = single-device dispatch.
 
     Capacity vs live size: **capacity** is static — each node's bucketed
     ``(rows, keys, parent-keys)`` and the R₀ row layout are part of the plan
@@ -141,17 +140,22 @@ class Session:
     """
 
     def __init__(self, *, engine: FigaroEngine | None = None, mesh=None,
-                 dtype=None, bucket: bool = True, headroom: int = 0,
-                 method: str = "tsqr", leaf_rows: int = 256, panel: int = 32,
+                 shard_axis: str = "data", dtype=None, bucket: bool = True,
+                 headroom: int = 0, method: str = "tsqr",
+                 leaf_rows: int = 256, panel: int = 32,
                  use_kernel: bool = False, assembly: str = "padded",
                  donate_data: bool | None = None,
                  max_cached: int | None = None, device=None):
-        _no_mesh(mesh)
         if engine is not None and (max_cached is not None
                                    or donate_data is not None):
             raise ValueError("pass max_cached=/donate_data= to the engine's "
                              "constructor when supplying engine=")
         self.device = resolve_device(device)
+        if mesh is not None:
+            mesh, shard_axis = resolve_shard(mesh, shard_axis)
+            mesh.check_device(self.device)
+        self.mesh = mesh
+        self.shard_axis = shard_axis
         self.engine = engine if engine is not None else FigaroEngine(
             donate_data=bool(donate_data), max_cached=max_cached)
         self.dtype = dtype
@@ -217,9 +221,16 @@ class Session:
         leaves = list(data)
         return bool(leaves) and np.ndim(leaves[0]) == 3
 
+    def _shard_for(self, batched: bool):
+        if not batched or self.mesh is None:
+            return None
+        return (self.mesh, self.shard_axis)
+
     def _dispatch_opts(self, data, batched, shard, bucket):
-        _no_mesh(shard)
-        return dict(batched=self._is_batched(data, batched),
+        batched = self._is_batched(data, batched)
+        return dict(batched=batched,
+                    shard=self._shard_for(batched) if shard is _UNSET
+                    else shard,
                     bucket=self.bucket if bucket is None else bucket,
                     device=self.device)
 
@@ -289,14 +300,13 @@ class Session:
         `FigaroFuture`, pending requests coalesce up to ``max_batch`` rows,
         and ``queue_depth`` batches pipeline through the engine (depth >= 2
         overlaps the next batch's host-to-device copy with the in-flight
-        dispatch). Engine, device and dtype default to this session's
-        configuration. ``tree_or_plan`` may also be a
+        dispatch). Engine, device, mesh and dtype default to this
+        session's configuration. ``tree_or_plan`` may also be a
         `plan_cache.PlanHolder` to share plan state (what
-        `JoinDataset.serve` passes). ``mesh=`` is not ported yet (A12)."""
+        `JoinDataset.serve` passes)."""
         from repro_torch.train.serve import make_figaro_server
 
         validate_serve_kind(kind)
-        _no_mesh(mesh)
         target = tree_or_plan if isinstance(tree_or_plan, PlanHolder) \
             else plan_for(tree_or_plan)
         return make_figaro_server(
@@ -307,12 +317,27 @@ class Session:
             leaf_rows=self.leaf_rows if leaf_rows is None else leaf_rows,
             use_kernel=self.use_kernel if use_kernel is None else use_kernel,
             assembly=self.assembly if assembly is None else assembly,
+            mesh=self.mesh if mesh is _UNSET else mesh,
+            shard_axis=self.shard_axis if shard_axis is None else shard_axis,
             max_batch=max_batch, queue_depth=queue_depth)
 
-    def partitioned_qr(self, tree: JoinTree, num_parts: int, **kw):
-        """Fact-partitioned multi-device QR — not ported yet (ROADMAP.md,
-        A12)."""
-        raise NotImplementedError(_NO_MESH)
+    def partitioned_qr(self, tree: JoinTree, num_parts: int, *, mesh=_UNSET,
+                       dtype=None, method=None, use_kernel=None,
+                       assembly=None):
+        """Fact-partitioned QR (`core.distributed.partitioned_figaro_qr`)
+        through this session's engine, device and mesh; float64 unless the
+        session or the call pins a dtype."""
+        from repro_torch.core.distributed import partitioned_figaro_qr
+
+        return partitioned_figaro_qr(
+            tree, num_parts, engine=self.engine,
+            mesh=self.mesh if mesh is _UNSET else mesh,
+            axis=self.shard_axis, device=self.device,
+            dtype=(dtype if dtype is not None else
+                   self.dtype if self.dtype is not None else torch.float64),
+            method=self.method if method is None else method,
+            use_kernel=self.use_kernel if use_kernel is None else use_kernel,
+            assembly=self.assembly if assembly is None else assembly)
 
 
 @dataclasses.dataclass

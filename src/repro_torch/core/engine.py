@@ -60,6 +60,15 @@ Serving (the engine half of `repro_torch.train.async_serve`):
     stream of the engine's own, from pinned host buffers, and returns the
     staged tensors with the event that ends their copies; the dispatch that
     consumes them makes its stream wait on that event.
+  * ``shard=mesh`` (or ``shard=(mesh, axis)``, a `launch.mesh.DataMesh`)
+    splits the request axis of a batched dispatch over the ranks of a data
+    mesh, one process per rank, each calling the dispatch with the whole
+    batch: the batch is padded to a multiple of the axis by repeating the
+    trailing request, each rank runs its rows through its own cache entry
+    (keyed on the mesh's signature as well) and captured graph, and
+    `torch.distributed.all_gather` hands every rank the whole batch's
+    answers, outside any graph. A mesh of one rank issues no collective.
+    ``stage(shard=)`` copies only this rank's rows ahead of the dispatch.
   * ``donate_data=True`` makes a caller's request tensors the dispatch's
     to consume: the engine drops its references to them as soon as the body
     or the graph's copy-in has read them (PCA's column moments are formed
@@ -80,6 +89,7 @@ import torch
 
 from repro_torch.kernels import _platform
 from repro_torch.kernels._platform import resolve_device
+from repro_torch.launch.mesh import resolve_shard
 from repro_torch.sanitizer import _state as _san_state
 from repro_torch.sanitizer import retrace as _san_retrace
 from repro_torch.sanitizer.locks import san_lock, san_rlock
@@ -167,23 +177,67 @@ def _repeat_pad(data, pad: int) -> list:
 
 
 class Staged(tuple):
-    """Request leaves on the card (`FigaroEngine.stage`) and the event
-    recorded on the copy stream after their copies."""
+    """Request leaves staged by `FigaroEngine.stage` and the event recorded
+    on the copy stream after their copies (None on the CPU). ``shard`` is
+    None, or (mesh key, live size, padded size) for the rows of one rank
+    that ``stage(shard=)`` copied."""
 
-    def __new__(cls, leaves, event, device):
+    def __new__(cls, leaves, event, device, shard=None):
         obj = super().__new__(cls, leaves)
         obj.event = event
         obj.device = device
+        obj.shard = shard
         return obj
 
     def consume(self) -> None:
         """Order the current stream after the copies, and keep the staged
         memory from reuse until that stream's work on it is done."""
+        if self.event is None:
+            return
         stream = torch.cuda.current_stream(self.device)
         stream.wait_event(self.event)
         for t in self:
             if t.device == self.device:
                 t.record_stream(stream)
+
+
+def _sharded_size(b: int, batch_capacity: int | None, p: int) -> int:
+    """The request axis of a sharded dispatch: ``b`` live requests padded
+    to ``batch_capacity``, then to a multiple of the axis size ``p``."""
+    if batch_capacity is not None and batch_capacity < b:
+        raise ValueError(f"batch_capacity={batch_capacity} smaller than the "
+                         f"live request batch ({b})")
+    return -(-max(b, batch_capacity or 0) // p) * p
+
+
+def _rows_of(leaf, lo: int, hi: int, b: int) -> list:
+    """Rows [lo, hi) of a leaf of ``b`` requests (an array, or the list of
+    its requests' arrays), as a list of parts; rows past ``b`` repeat the
+    trailing request (the pad of `_repeat_pad`)."""
+    parts = [torch.as_tensor(x) for x in
+             (leaf if isinstance(leaf, list) else [leaf])]
+    out, at = [], 0
+    for x in parts:
+        start, stop = max(lo, at), min(hi, at + x.shape[0])
+        if start < stop:
+            out.append(x[start - at:stop - at])
+        at += x.shape[0]
+    short = (hi - lo) - sum(x.shape[0] for x in out)
+    if short:
+        last = next(x for x in reversed(parts) if x.shape[0])[-1:]
+        out.append(last.expand((short,) + tuple(last.shape[1:])))
+    return out
+
+
+def _all_gather(mesh, x: torch.Tensor) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along the leading axis, in rank
+    order, on every rank."""
+    import torch.distributed as dist
+
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(mesh.size)]
+    dist.all_gather(parts, x, group=mesh.group)
+    return torch.cat(parts)
 
 
 def _empty(kind: str, plan: FigaroPlan, options):
@@ -417,17 +471,22 @@ class FigaroEngine:
             return len(self._graphs)
 
     @staticmethod
-    def _signature(kind: str, plan: FigaroPlan, data, options) -> tuple:
+    def _signature(kind: str, plan: FigaroPlan, data, options,
+                   mesh_key=None) -> tuple:
+        """The cache key: kind, device, plan spec and masks, data shapes,
+        static options, and the mesh of a sharded dispatch (its signature
+        and axis; None unsharded), whose data are this rank's rows."""
         masks = tuple(ix.row_mask is None for ix in plan.index)
         shapes = tuple((tuple(d.shape), str(d.dtype)) for d in data)
         return (kind, str(plan.device), plan.spec, masks, shapes,
-                tuple(sorted(options.items())))
+                tuple(sorted(options.items())), mesh_key)
 
     @staticmethod
     def _r_key(kind: str, key: tuple, options) -> tuple | None:
         """The R graph a signature replays: its plan and data signature, the
-        R options, and whether it stops at R₀; None for a CPU dispatch."""
-        _, device, spec, masks, shapes, _ = key
+        R options, and whether it stops at R₀; None for a CPU dispatch. A
+        rank's sharded dispatch replays the graph of its local rows."""
+        _, device, spec, masks, shapes, _, _ = key
         if not device.startswith("cuda"):
             return None
         return (kind.startswith("r0"), device, spec, masks, shapes,
@@ -504,12 +563,20 @@ class FigaroEngine:
 
     def _dispatch(self, kind: str, plan: FigaroPlan, data, *, device=None,
                   bucket: bool = False, batch_capacity: int | None = None,
-                  **options):
+                  shard=None, mesh_key=None, **options):
         batched = kind.endswith("_batched")
         if batch_capacity is not None and not batched:
             raise ValueError(f"batch_capacity= requires a batched dispatch, "
                              f"got kind={kind!r}")
+        if shard is not None:
+            return self._sharded(kind, plan, data, shard, device=device,
+                                 bucket=bucket,
+                                 batch_capacity=batch_capacity, **options)
         if isinstance(data, Staged):
+            if data.shard is not None and mesh_key is None:
+                raise ValueError("a batch staged with shard= holds one "
+                                 "rank's rows: dispatch it with the same "
+                                 "shard=")
             data.consume()  # before anything reads the staged tensors
         owner = plan
         plan, data, device = self._host_inputs(plan, data, options, device,
@@ -544,20 +611,21 @@ class FigaroEngine:
               else contextlib.nullcontext()):
             out = self._run(kind, plan, data, options,
                             eager or _san_state.STATE.shadow_active(),
-                            donate)
+                            donate, mesh_key)
         if padded:
             out = map_result(lambda x: x[:b_live], out)  # drop the pad's
         if shadow is not None:
             _san_numerics.after_dispatch(self, shadow, out)
         return out
 
-    def _run(self, kind, plan, data, options, eager: bool, donate: bool):
+    def _run(self, kind, plan, data, options, eager: bool, donate: bool,
+             mesh_key=None):
         """The signature's lookup, R (eager, or through its graph on the
         card) and the tail, for device inputs [B, m_i, n_i]."""
         r_key = None
         if not eager:
             key = self._signature(kind, plan, data, {
-                k: options[k] for k in self._STATIC[kind]})
+                k: options[k] for k in self._STATIC[kind]}, mesh_key)
             r_key = self._lookup(kind, key, options)
         if kind.endswith("_batched") and data[0].shape[0] == 0:
             return _empty(kind, plan, options)
@@ -571,6 +639,60 @@ class FigaroEngine:
         if donate:
             data.clear()  # consumed: nothing reads the request again
         return self._tail(kind, r, moments, options)
+
+    def _sharded(self, kind, plan, data, shard, *, device, bucket,
+                 batch_capacity, **options):
+        """A batched dispatch split over a data mesh: the request axis padded
+        to a multiple of the axis by repeating the trailing request, this
+        rank's rows through its own cached (and, on the card, captured)
+        dispatch, every rank's answers gathered to every rank outside any
+        graph, and the pad cut off. One rank issues no collective."""
+        mesh, axis = resolve_shard(shard)
+        if not kind.endswith("_batched"):
+            raise ValueError(
+                f"shard= requires a batched dispatch, got kind={kind!r}")
+        if data is None:
+            # plan.data is per-node [m_i, n_i]: no request axis to split.
+            raise ValueError(
+                "shard= needs an explicit [B, m_i, n_i] data batch")
+        device = mesh.check_device(device)
+        if plan.device is not None and plan.device != device:
+            raise ValueError(f"the plan lives on {plan.device}, not on the "
+                             f"mesh's device {device} for this rank")
+        p, rank = mesh.size, mesh.local_rank()
+        mesh_key = (mesh.signature, axis)
+        tag = None
+        if isinstance(data, Staged):
+            data.consume()  # before anything reads the staged tensors
+            tag = data.shard
+        if tag is not None:
+            key, b, padded = tag
+            want = _sharded_size(b, batch_capacity, p)
+            if (key, padded) != (mesh_key, want):
+                raise ValueError(
+                    f"batch staged for mesh {key} at {padded} requests, "
+                    f"dispatched on mesh {mesh_key} at {want}")
+            local = list(data)
+        else:
+            b = len(data[0])
+            if b == 0:
+                # Nothing to split: the unsharded batched dispatch answers
+                # with empty results of the right shapes.
+                return self._dispatch(kind, plan, data, device=device,
+                                      bucket=bucket,
+                                      batch_capacity=batch_capacity,
+                                      **options)
+            q = _sharded_size(b, batch_capacity, p) // p
+            local = []
+            for d in data:
+                parts = _rows_of(d, rank * q, (rank + 1) * q, b)
+                local.append(parts[0] if len(parts) == 1
+                             else torch.cat(parts))
+        out = self._dispatch(kind, plan, local, device=device, bucket=bucket,
+                             mesh_key=mesh_key, **options)
+        if p > 1:
+            out = map_result(lambda x: _all_gather(mesh, x), out)
+        return map_result(lambda x: x[:b], out)
 
     # -- the captured program ------------------------------------------------
 
@@ -681,16 +803,35 @@ class FigaroEngine:
         while the current one runs. A leaf given as a list of arrays (the
         requests of a coalesced batch) is concatenated along the batch axis
         as it is copied into the pinned buffer. Leaves already on the card
-        pass through unchanged; on the CPU nothing is staged. ``shard=`` is
-        not ported yet (ROADMAP.md, A12).
+        pass through unchanged; on the CPU nothing is staged.
+
+        With ``shard=mesh`` (or ``(mesh, axis)``) the batch is padded as a
+        sharded dispatch pads it (to a multiple of the axis, repeating the
+        trailing request) and only this rank's rows are copied, to the
+        mesh's device for this rank (on the CPU too). The `Staged` carries
+        the mesh, the live size and the padded size: a dispatch with the
+        same ``shard=`` takes it as its local rows as they are, and raises
+        if its mesh or padded size differs.
         """
+        shard_tag = None
         if shard is not None:
-            raise NotImplementedError(
-                "sharded staging (stage(shard=...)) is not ported yet "
-                "(ROADMAP.md, A12)")
+            mesh, axis = resolve_shard(shard)
+            device = mesh.check_device(device)
+            first = data[0] if data else []
+            b = sum(map(len, first)) if isinstance(first, list) \
+                else len(first)
+            if b:
+                padded = _sharded_size(b, None, mesh.size)
+                q = padded // mesh.size
+                lo = mesh.local_rank() * q
+                data = [_rows_of(d, lo, lo + q, b) for d in data]
+                shard_tag = ((mesh.signature, axis), b, padded)
         device = resolve_device(device)
         if device.type != "cuda":
-            return tuple(data)
+            if shard_tag is None:
+                return tuple(data)
+            return Staged([parts[0] if len(parts) == 1 else torch.cat(parts)
+                           for parts in data], None, device, shard_tag)
         with self._stage_lock:
             stream = self._copy_streams.get(device)
             if stream is None:
@@ -715,12 +856,13 @@ class FigaroEngine:
                 leaves.append(pinned.to(device, non_blocking=True))
             event = torch.cuda.Event()
             event.record(stream)
-        return Staged(leaves, event, device)
+        return Staged(leaves, event, device, shard_tag)
 
     # -- public API ----------------------------------------------------------
 
     def r0(self, plan: FigaroPlan, data=None, *, batched: bool = False,
-           bucket: bool = False, batch_capacity: int | None = None,
+           shard=None, bucket: bool = False,
+           batch_capacity: int | None = None,
            dtype=torch.float32, use_kernel: bool = False,
            assembly: str = "padded", device=None) -> torch.Tensor:
         """R₀ of Algorithm 2; ``batched`` expects [B, m_i, n_i] data.
@@ -732,41 +874,50 @@ class FigaroEngine:
         trailing request; the pad is sliced off the result), so the cache
         and the captured graphs track batch *buckets*, not every live batch
         size — the serving queue (`train.async_serve`) picks its buckets
-        this way. ``use_kernel`` routes each node through the fused CUDA
+        this way. ``shard`` (a `launch.mesh.DataMesh` or ``(mesh, axis)``;
+        requires ``batched=True``) splits the request batch over the mesh:
+        each rank answers its rows and every rank returns the whole batch's
+        answers. ``use_kernel`` routes each node through the fused CUDA
         pass (`kernels/node_fused`); ``assembly`` ("padded" | "band") picks
         the R₀ materialization (see `core.figaro`).
         """
         return self._dispatch("r0_batched" if batched else "r0", plan, data,
-                              bucket=bucket, batch_capacity=batch_capacity,
+                              shard=shard, bucket=bucket,
+                              batch_capacity=batch_capacity,
                               device=device, dtype=dtype,
                               use_kernel=use_kernel, assembly=assembly)
 
     def qr(self, plan: FigaroPlan, data=None, *, batched: bool = False,
-           bucket: bool = False, batch_capacity: int | None = None,
+           shard=None, bucket: bool = False,
+           batch_capacity: int | None = None,
            dtype=torch.float32, method: str = "tsqr", leaf_rows: int = 256,
            panel: int = 32, use_kernel: bool = False,
            assembly: str = "padded", device=None) -> torch.Tensor:
         """Upper-triangular R of the join's QR ([B, N, N] when batched)."""
         return self._dispatch(
-            "qr_batched" if batched else "qr", plan, data, bucket=bucket,
+            "qr_batched" if batched else "qr", plan, data, shard=shard,
+            bucket=bucket,
             batch_capacity=batch_capacity, device=device, dtype=dtype,
             method=method, leaf_rows=leaf_rows, panel=panel,
             use_kernel=use_kernel, assembly=assembly)
 
     def svd(self, plan: FigaroPlan, data=None, *, batched: bool = False,
-            bucket: bool = False, batch_capacity: int | None = None,
+            shard=None, bucket: bool = False,
+            batch_capacity: int | None = None,
             dtype=torch.float64, method: str = "tsqr", leaf_rows: int = 256,
             panel: int = 32, use_kernel: bool = False,
             assembly: str = "padded", device=None):
         """Singular values + right-singular vectors of the join matrix."""
         return self._dispatch(
-            "svd_batched" if batched else "svd", plan, data, bucket=bucket,
+            "svd_batched" if batched else "svd", plan, data, shard=shard,
+            bucket=bucket,
             batch_capacity=batch_capacity, device=device, dtype=dtype,
             method=method, leaf_rows=leaf_rows, panel=panel,
             use_kernel=use_kernel, assembly=assembly)
 
     def pca(self, plan: FigaroPlan, data=None, *, batched: bool = False,
-            bucket: bool = False, batch_capacity: int | None = None,
+            shard=None, bucket: bool = False,
+            batch_capacity: int | None = None,
             k: int | None = None, center: bool = True,
             dtype=torch.float64, method: str = "tsqr", leaf_rows: int = 256,
             panel: int = 32, use_kernel: bool = False,
@@ -775,13 +926,15 @@ class FigaroEngine:
         n = plan.spec.num_cols
         k = n if k is None else min(k, n)
         return self._dispatch(
-            "pca_batched" if batched else "pca", plan, data, bucket=bucket,
+            "pca_batched" if batched else "pca", plan, data, shard=shard,
+            bucket=bucket,
             batch_capacity=batch_capacity, device=device, k=k, center=center,
             dtype=dtype, method=method, leaf_rows=leaf_rows, panel=panel,
             use_kernel=use_kernel, assembly=assembly)
 
     def least_squares(self, plan: FigaroPlan, label_col: int, data=None, *,
-                      batched: bool = False, bucket: bool = False,
+                      batched: bool = False, shard=None,
+                      bucket: bool = False,
                       batch_capacity: int | None = None, ridge: float = 0.0,
                       dtype=torch.float64, method: str = "tsqr",
                       leaf_rows: int = 256, panel: int = 32,
@@ -790,7 +943,7 @@ class FigaroEngine:
         """argmin_β ‖A[:, feats]·β − A[:, label]‖² over the unmaterialized join."""
         return self._dispatch(
             "least_squares_batched" if batched else "least_squares", plan,
-            data, bucket=bucket, batch_capacity=batch_capacity,
+            data, shard=shard, bucket=bucket, batch_capacity=batch_capacity,
             device=device, label_col=label_col, ridge=float(ridge),
             dtype=dtype, method=method, leaf_rows=leaf_rows, panel=panel,
             use_kernel=use_kernel, assembly=assembly)

@@ -1,20 +1,135 @@
-"""Serving batch buckets, the one part of the JAX package's
-``launch/mesh.py`` that one card needs.
+"""The serving data mesh and batch buckets of the JAX package's
+``launch/mesh.py``.
+
+`DataMesh` is a 1-D ``"data"`` axis over the ranks of a `torch.distributed`
+process group: one rank per device and one process per rank, so a mesh of
+P ranks is P processes, each on its own device (a card under NCCL, the CPU
+under gloo). `make_data_mesh` builds it; `FigaroEngine`'s ``shard=`` splits
+a request batch over it and `repro_torch.core.distributed` runs the TSQR
+combine across it. Without an initialized process group the mesh is this
+process alone (one rank, no group), and nothing on it issues a collective.
 
 `serving_batch_capacity` picks the request-batch capacity the async serving
 queue (`repro_torch.train.async_serve`) dispatches a coalesced micro-batch
-at. The meshes of that module are not ported yet: the serving data mesh
-(`make_data_mesh`) is ROADMAP item A12, the production and host meshes of
-the LM scaffolding (`make_production_mesh`, `make_host_mesh`) item A14.6;
-each raises `NotImplementedError` naming its item.
+at. The production and host meshes of the LM scaffolding
+(`make_production_mesh`, `make_host_mesh`) are ROADMAP item A14.6 and raise
+`NotImplementedError` naming it.
 """
 
 from __future__ import annotations
 
-from repro_torch.core.plan_cache import next_pow2
+import dataclasses
+import os
 
-__all__ = ["serving_batch_capacity", "make_data_mesh",
-           "make_production_mesh", "make_host_mesh"]
+import torch
+
+from repro_torch.core.plan_cache import next_pow2
+from repro_torch.kernels._platform import resolve_device
+
+__all__ = ["DataMesh", "resolve_shard", "serving_batch_capacity",
+           "make_data_mesh", "make_production_mesh", "make_host_mesh"]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DataMesh:
+    """A 1-D ``"data"`` axis of ``size`` ranks.
+
+    ``group`` is the process group of the ranks (None for a mesh of this
+    process alone), ``ranks`` their global ranks in axis order, ``rank``
+    this process's place on the axis (None when the process holds no rank
+    of the mesh: it cannot dispatch on it), ``device`` this rank's device.
+    ``shape`` reads like the JAX package's ``Mesh.shape``."""
+
+    group: object
+    size: int
+    rank: int | None
+    device: torch.device
+    ranks: tuple[int, ...]
+    backend: str | None
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return {"data": self.size}
+
+    @property
+    def signature(self) -> tuple:
+        """What a dispatch on this mesh compiles against, beside its axis:
+        the axis size, this rank's place on it and the backend."""
+        return (self.size, self.rank, self.backend)
+
+    def check_device(self, device=None) -> torch.device:
+        """This rank's device; ``device``, when given, must name it."""
+        if device is not None and resolve_device(device) != self.device:
+            raise ValueError(f"device {device} is not the mesh's device "
+                             f"{self.device} for this rank")
+        return self.device
+
+    def local_rank(self) -> int:
+        """This process's place on the axis; raises outside the mesh."""
+        if self.rank is None:
+            raise ValueError(
+                f"this process holds no rank of the mesh over global ranks "
+                f"{list(self.ranks)}; it cannot dispatch on it")
+        return self.rank
+
+
+def resolve_shard(shard, axis: str = "data") -> tuple[DataMesh, str]:
+    """``mesh`` or ``(mesh, axis)`` → (mesh, axis), validated."""
+    mesh, axis = shard if isinstance(shard, tuple) else (shard, axis)
+    if not isinstance(mesh, DataMesh):
+        raise TypeError(f"expected a DataMesh (launch.mesh.make_data_mesh) "
+                        f"or (mesh, axis), got {type(mesh).__name__}")
+    if axis not in mesh.shape:
+        raise ValueError(
+            f"shard axis {axis!r} not in mesh axes {tuple(mesh.shape)}")
+    return mesh, axis
+
+
+def make_data_mesh(num_devices: int | None = None, *, device=None,
+                   timeout=None) -> DataMesh:
+    """1-D ``data`` mesh over the first ``num_devices`` ranks (default: all).
+
+    With `torch.distributed` initialized, the mesh spans the first
+    ``num_devices`` ranks of the world, one device each: ``cuda:LOCAL_RANK``
+    under NCCL (``LOCAL_RANK`` defaults to the global rank), the CPU under
+    gloo. Every rank of the world must call this, since a group of fewer
+    ranks is made by the collective ``new_group``; a rank outside the mesh
+    gets one it cannot dispatch on. Without a process group the mesh is this
+    process alone, on ``resolve_device(device)``. ``timeout`` (a
+    `datetime.timedelta`) bounds the collectives of a group of fewer ranks
+    than the world (default: torch's for the backend); the whole world's
+    mesh uses the world's group, with its own timeout. Any size works; the
+    butterfly combine folds non-power-of-two axes."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        if num_devices not in (None, 1):
+            raise ValueError(f"num_devices={num_devices} outside [1, 1]")
+        return DataMesh(group=None, size=1, rank=0,
+                        device=resolve_device(device), ranks=(0,),
+                        backend=None)
+    world = dist.get_world_size()
+    n = world if num_devices is None else num_devices
+    if not 1 <= n <= world:
+        raise ValueError(f"num_devices={n} outside [1, {world}]")
+    me = dist.get_rank()
+    backend = str(dist.get_backend())
+    if backend == "nccl":
+        local = int(os.environ.get("LOCAL_RANK", me))
+        if not 0 <= local < torch.cuda.device_count():
+            raise ValueError(f"LOCAL_RANK={local} names no card of this "
+                             f"host ({torch.cuda.device_count()} cards)")
+        rank_device = torch.device("cuda", local)
+    else:
+        rank_device = torch.device("cpu")
+    if device is not None and resolve_device(device) != rank_device:
+        raise ValueError(f"device {device} is not this rank's device "
+                         f"{rank_device} under {backend}")
+    ranks = tuple(range(n))
+    group = dist.group.WORLD if n == world else dist.new_group(
+        list(ranks), timeout=timeout)
+    return DataMesh(group=group, size=n, rank=me if me < n else None,
+                    device=rank_device, ranks=ranks, backend=backend)
 
 
 def serving_batch_capacity(b: int, *, axis_size: int = 1) -> int:
@@ -23,8 +138,8 @@ def serving_batch_capacity(b: int, *, axis_size: int = 1) -> int:
     The next power of two, rounded up to a multiple of the serving mesh's
     ``data`` axis (``axis_size``; 1 on one card), so the engine's cache and
     its captured graphs key on a handful of batch *buckets* instead of every
-    live batch size. B=0 has no trailing request to repeat; it keeps its own
-    (empty) signature.
+    live batch size, and a sharded dispatch never re-pads. B=0 has no
+    trailing request to repeat; it keeps its own (empty) signature.
     """
     if b <= 0:
         return 0
@@ -32,12 +147,6 @@ def serving_batch_capacity(b: int, *, axis_size: int = 1) -> int:
     if axis_size > 1:
         cap = -(-cap // axis_size) * axis_size
     return cap
-
-
-def make_data_mesh(num_devices: int | None = None):
-    """The serving data mesh — not ported yet (ROADMAP.md, A12)."""
-    raise NotImplementedError("make_data_mesh (the serving data mesh) is not "
-                              "ported yet (ROADMAP.md, A12)")
 
 
 def make_production_mesh(*, multi_pod: bool = False):

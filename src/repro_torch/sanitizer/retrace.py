@@ -24,7 +24,7 @@ from ._state import STATE, trimmed_stack
 #: Components of the engine dispatch key, in order. Kept in sync with
 #: ``FigaroEngine._signature``'s cache-key layout: one element per key slot.
 KEY_COMPONENTS = ("kind", "device", "plan_spec", "mask_layout",
-                  "data_abstract", "options")
+                  "data_abstract", "options", "mesh")
 
 _lock = threading.Lock()
 _last_key: dict[str, tuple] = {}

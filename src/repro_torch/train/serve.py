@@ -24,6 +24,7 @@ from repro_torch.core.engine import FigaroEngine, _plan_arg_error
 from repro_torch.core.join_tree import FigaroPlan
 from repro_torch.core.plan_cache import PlanHolder
 from repro_torch.kernels._platform import resolve_device
+from repro_torch.launch.mesh import resolve_shard
 from repro_torch.train.async_serve import (AsyncFigaroServer, FigaroFuture,
                                            SERVE_KINDS, validate_serve_kind)
 
@@ -85,17 +86,28 @@ def make_figaro_server(plan: FigaroPlan | PlanHolder, *, kind: str = "qr",
     never a fork).
 
     Without ``engine=``, the server builds a donating engine (request
-    tensors are consumed by the dispatch that answers them). ``mesh=`` is
-    not ported yet (ROADMAP.md, A12). `repro_torch.figaro`
-    (`Session.serve` / `JoinDataset.serve`) is the façade over this
-    constructor — it fills engine, device and dtype from the session and
-    resolves ``label_col`` by column name.
+    tensors are consumed by the dispatch that answers them). With a
+    one-rank ``mesh`` (`launch.mesh.DataMesh`) the batch capacities are
+    aligned to ``mesh[shard_axis]`` and every batch dispatches through
+    ``shard=(mesh, shard_axis)``, as in the JAX package. A mesh of more
+    ranks raises `NotImplementedError` (ROADMAP.md, A12.2): each rank's
+    server would coalesce on its own timing and send different batches
+    into one collective. `repro_torch.figaro` (`Session.serve` /
+    `JoinDataset.serve`) is the façade over this constructor — it fills
+    engine, device, mesh and dtype from the session and resolves
+    ``label_col`` by column name.
     """
     validate_serve_kind(kind, label_col=label_col, check_label=True)
-    if mesh is not None:
-        raise NotImplementedError("serving over a mesh (mesh=) is not ported "
-                                  "yet (ROADMAP.md, A12)")
     device = resolve_device(device)
+    shard = None
+    if mesh is not None:
+        shard = resolve_shard(mesh, shard_axis)
+        mesh.check_device(device)
+        if mesh.size > 1:
+            raise NotImplementedError(
+                f"serving over a mesh of {mesh.size} ranks is ROADMAP.md "
+                f"item A12.2 (a controller on rank 0 that decides each "
+                f"batch and broadcasts it); a one-rank mesh serves")
     if isinstance(plan, PlanHolder):
         holder = plan
     else:
@@ -107,7 +119,7 @@ def make_figaro_server(plan: FigaroPlan | PlanHolder, *, kind: str = "qr",
     # use_kernel / assembly are part of every dispatch's signature, so the
     # serving graphs are the fused-kernel / band-assembly programs when the
     # session (or caller) asked for them.
-    common = dict(batched=True, dtype=dtype, method=method,
+    common = dict(batched=True, shard=shard, dtype=dtype, method=method,
                   leaf_rows=leaf_rows, use_kernel=use_kernel,
                   assembly=assembly, device=device)
     dispatch = {
@@ -122,6 +134,7 @@ def make_figaro_server(plan: FigaroPlan | PlanHolder, *, kind: str = "qr",
             **common),
     }[kind]
     server = FigaroServer(holder, dispatch, engine=engine, device=device,
+                          axis_size=1 if mesh is None else mesh.size,
                           max_batch=max_batch, queue_depth=queue_depth)
     holder.attach(server)
     return server

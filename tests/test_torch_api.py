@@ -13,8 +13,9 @@ capacity plan, appends before and after it, regrows, ``bucket=False``),
 ``stats()`` to JAX's dict (same keys, same values apart from the counters'
 engine-specific ones), ``serve`` (Session and dataset) to the dataset's own
 answers and the JAX package's server, ``donate_data`` validation, and the
-parts not ported yet (``mesh=``, ``shard=``, ``partitioned_qr``) to
-`NotImplementedError` naming ROADMAP item A12. The port runs on the CPU.
+mesh arguments (``mesh=``, ``shard=``) to their validation, a one-rank
+mesh's answers and ``partitioned_qr`` to the JAX session's. The port runs
+on the CPU.
 """
 
 import functools
@@ -36,6 +37,7 @@ from repro_torch.core.plan_cache import build_capacity_plan
 from repro_torch.core.postprocess import normalize_sign
 from repro_torch.core.relation import Database
 from repro_torch.data import relational as trel
+from repro_torch.launch.mesh import make_data_mesh
 
 ATOL = 1e-9
 PORT_CORNERS = [(False, "padded"), (True, "band")]
@@ -551,24 +553,37 @@ def test_ingest_and_from_tree_type_errors():
         sess.from_tree({"root": None})
 
 
-# -- not ported yet: meshes (A12); serving kinds validated first ---------------
+# -- meshes (A12) on the façade; serving kinds validated first -----------------
 
 
-def test_serving_and_meshes_raise_not_implemented_naming_the_roadmap():
+def test_meshes_on_the_facade_validate_and_match_jax():
+    """``mesh=``/``shard=`` take a `DataMesh` (anything else is a
+    `TypeError`); ``partitioned_qr`` gives the JAX session's R; a dataset
+    serves and dispatches over a one-rank mesh with the unsharded answers."""
     sess = figaro.Session(device="cpu")
-    _, dt, _, _ = _star_pair()
-    with pytest.raises(NotImplementedError, match="A12"):
+    _, dt, sj, dj = _star_pair()
+    with pytest.raises(TypeError, match="DataMesh"):
         figaro.Session(device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(TypeError, match="DataMesh"):
         dt.qr(shard=object())
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(TypeError, match="DataMesh"):
         sess.qr(dt.plan, shard=(object(), "data"))
-    with pytest.raises(NotImplementedError, match="A12"):
-        sess.partitioned_qr(dt.tree, 2)
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(TypeError, match="DataMesh"):
         dt.serve(kind="qr", mesh=object())
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(TypeError, match="DataMesh"):
         sess.serve(dt.plan, kind="lsq", label_col=0, mesh=object())
+    r = sess.partitioned_qr(dt.tree, 2)
+    assert r.dtype == torch.float64
+    _close(normalize_sign(r), sj.partitioned_qr(dj.tree, 2))
+    mesh = make_data_mesh(device="cpu")
+    batch = tuple(np.stack([d, 2.0 * d]) for d in dt.plan.data)
+    server = dt.serve(kind="qr", mesh=mesh, dtype=torch.float64)
+    try:
+        served = server(batch)
+    finally:
+        server.close()
+    _close(served, dt.qr(batch, dtype=torch.float64))
+    _close(dt.qr(batch, dtype=torch.float64, shard=mesh), served)
     # the kind is validated first, with the list of kinds
     with pytest.raises(ValueError, match=r"supported kinds: qr, svd, pca"):
         dt.serve(kind="nope")

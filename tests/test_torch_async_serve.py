@@ -1,19 +1,21 @@
 """The port's async serving (`repro_torch.train.async_serve`,
 `repro_torch.train.serve`, `repro_torch.launch.mesh`) on the CPU.
 
-The counterpart of every test of tests/test_async_serve.py but the mesh one
-(A12): batch buckets, ``batch_capacity=`` sharing one signature across live
-sizes, coalesced answers equal to the synchronous batched dispatch bit for
-bit, futures in submission order, sub-batches, B=0/B=1, validation and
-poisoned-dispatch isolation, interleaved submit/append with no signature
-miss, the shared plan holder, pause/append, ``max_batch``, abandoned
-threads and constructor validation. Then the port's server against the JAX
+The counterpart of every test of tests/test_async_serve.py: batch buckets,
+``batch_capacity=`` sharing one signature across live sizes, coalesced
+answers equal to the synchronous batched dispatch bit for bit, futures in
+submission order, sub-batches, B=0/B=1, validation and poisoned-dispatch
+isolation, interleaved submit/append with no signature miss, the shared
+plan holder, pause/append, ``max_batch``, abandoned threads, constructor
+validation, and a server over a one-rank data mesh (one of more ranks
+raises, naming ROADMAP item A12.2). Then the port's server against the JAX
 package's (`repro.train.serve.make_figaro_server`) for every serving kind:
 the same requests (numpy, from a seed), float64, answers equal to 1e-9
 relative (R after `normalize_sign`, singular vectors and components up to
 sign). Last, the engine's serving contract: ``donate_data`` drops the
 engine's references once the request is consumed and changes no result;
-``stage`` passes everything through on the CPU. The port runs on the CPU.
+``stage`` passes everything through on the CPU, and ``stage(shard=)`` takes
+a rank's rows. The port runs on the CPU.
 """
 
 import gc
@@ -38,7 +40,8 @@ from repro_torch.core.join_tree import JoinTree, build_plan
 from repro_torch.core.plan_cache import PlanHolder, build_capacity_plan
 from repro_torch.core.postprocess import normalize_sign
 from repro_torch.core.relation import Database, full_reduce
-from repro_torch.launch.mesh import make_data_mesh, serving_batch_capacity
+from repro_torch.launch.mesh import (DataMesh, make_data_mesh,
+                                     serving_batch_capacity)
 from repro_torch.train import async_serve as asv
 from repro_torch.train.async_serve import FigaroFuture
 from repro_torch.train.serve import (AsyncFigaroServer, FigaroServer,
@@ -99,8 +102,10 @@ def test_serving_batch_capacity_buckets():
     assert serving_batch_capacity(1, axis_size=3) == 3
     assert serving_batch_capacity(5, axis_size=3) == 9
     assert serving_batch_capacity(4, axis_size=2) == 4
-    with pytest.raises(NotImplementedError, match="A12"):
-        make_data_mesh()
+    # the serving mesh on one process: one rank, axis size 1
+    assert make_data_mesh(device="cpu").shape == {"data": 1}
+    with pytest.raises(ValueError, match=r"outside \[1, 1\]"):
+        make_data_mesh(2, device="cpu")
 
 
 def test_engine_batch_capacity_shares_signature_across_live_sizes(rng):
@@ -443,11 +448,43 @@ def test_constructor_validation():
         AsyncFigaroServer(PlanHolder(), lambda *a: None)
     with pytest.raises(ValueError, match="needs label_col"):
         make_figaro_server(cap, kind="lsq", device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(TypeError, match="DataMesh"):
         make_figaro_server(cap, kind="qr", mesh=object(), device="cpu")
+    mesh = make_data_mesh(device="cpu")
+    with pytest.raises(ValueError, match="axis"):
+        make_figaro_server(cap, kind="qr", mesh=mesh, shard_axis="model",
+                           device="cpu")
+    # several ranks: each would coalesce on its own (ROADMAP.md, A12.2)
+    two = DataMesh(group=None, size=2, rank=0, device=mesh.device,
+                   ranks=(0, 1), backend="gloo")
+    with pytest.raises(NotImplementedError, match="A12.2"):
+        make_figaro_server(cap, kind="qr", mesh=two, device="cpu")
     if not torch.cuda.is_available():  # the card by default, no fallback
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make_figaro_server(cap, kind="qr")
+
+
+# -- the server over a one-rank data mesh --------------------------------------
+
+
+def test_async_server_over_data_mesh_matches_per_sample(rng):
+    plan = build_plan(_star_tree())
+    engine = FigaroEngine(donate_data=False)
+    mesh = make_data_mesh(device="cpu")
+    server = make_figaro_server(plan, kind="qr", dtype=F64, engine=engine,
+                                mesh=mesh, device="cpu")
+    reqs = _requests(plan, rng, 3)
+    server.pause()
+    futures = [server.submit(r) for r in reqs]
+    server.resume()
+    ref = FigaroEngine(donate_data=False)
+    for f, req in zip(futures, reqs):
+        ri = ref.qr(plan, list(req), dtype=F64, device="cpu")
+        torch.testing.assert_close(
+            f.result(timeout=60), ri, rtol=0,
+            atol=1e-10 * max(float(ri.abs().max()), 1.0))
+    assert engine.trace_count("qr_batched") == 1
+    server.close()
 
 
 # -- the port's server against the JAX package's ------------------------------
@@ -582,12 +619,21 @@ def test_session_donate_data_validation(monkeypatch):
     server.close()
 
 
-def test_stage_on_the_cpu_passes_through_and_shard_raises(rng):
+def test_stage_on_the_cpu_passes_through_and_shard_takes_rank_rows(rng):
+    """On the CPU nothing is staged; ``stage(shard=)`` takes this rank's
+    rows of the padded batch (all of them on one rank, parts of a leaf
+    concatenated) and tags them for the sharded dispatch."""
     plan = build_plan(_star_tree())
     engine = FigaroEngine()
     batch = _stack(_requests(plan, rng, 2))
     staged = engine.stage(batch, device="cpu")
     assert not isinstance(staged, Staged)
     assert all(s is d for s, d in zip(staged, batch))
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(TypeError, match="DataMesh"):
         engine.stage(batch, shard=object(), device="cpu")
+    mesh = make_data_mesh(device="cpu")
+    parts = tuple([d[:1], d[1:]] for d in batch)
+    staged = engine.stage(parts, shard=mesh)
+    assert isinstance(staged, Staged) and staged.shard[1:] == (2, 2)
+    for s_leaf, d in zip(staged, batch):
+        assert torch.equal(s_leaf, torch.as_tensor(d))

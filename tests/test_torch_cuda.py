@@ -994,3 +994,51 @@ def test_node_pass_batch_offsets_past_int32():
         assert _rel(slab[bi:bi + 1, lo:hi], want[0]) <= TOL[torch.float32]["nf"]
         assert _rel(heads[bi:bi + 1, s0:s1], want[1]) <= TOL[torch.float32]["nf"]
         assert _rel(norms[s0:s1], want[2]) <= TOL[torch.float32]["nf"]
+
+
+def test_one_rank_nccl_mesh_dispatches_on_the_card(tmp_path):
+    """A one-rank NCCL group on the card: its data mesh is ``cuda:0``; a
+    sharded dispatch (the batch staged with ``stage(shard=)`` too) answers
+    as the unsharded one through the same graph, bit for bit, and the
+    distributed QR of a tall matrix runs its panels on the grid kernel and
+    equals `postprocess_r0` within 1e-9. A mesh of one rank issues no
+    collective, so nothing here needs a peer."""
+    _need_card()
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed
+    from repro_torch.core.join_tree import build_plan
+    from repro_torch.launch.mesh import make_data_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=60),
+        device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_data_mesh()
+        assert mesh.size == 1 and mesh.backend == "nccl"
+        assert mesh.device == torch.device("cuda", 0)
+        plan = build_plan(yelp_like(scale=400, cols=3))
+        eng = figaro.Session(use_kernel=True, assembly="band").engine
+        batch = tuple(np.stack([np.asarray(d), 2.0 * np.asarray(d),
+                                np.asarray(d)]) for d in plan.data)
+        kw = dict(batched=True, dtype=torch.float64, use_kernel=True,
+                  assembly="band")
+        eng.qr(plan, batch, **kw)  # eager
+        want = eng.qr(plan, batch, **kw)  # the capture's replay
+        got = eng.qr(plan, batch, shard=mesh, **kw)  # the same graph
+        assert torch.equal(got, want)
+        staged = eng.stage(batch, shard=mesh)
+        assert staged.device == mesh.device and staged.shard[1:] == (3, 3)
+        assert torch.equal(eng.qr(plan, staged, shard=mesh, **kw), want)
+        a = torch.randn(1 << 14, 24, dtype=torch.float64, device="cuda")
+        _platform.reset_launch_counts()
+        r = distributed.distributed_qr_r(a, mesh, use_kernel=True)
+        assert _platform.launch_counts().get("panel_qr_grid", 0) > 0
+        r_ref = postprocess.postprocess_r0(a)
+        assert _rel(r, r_ref) < 1e-9
+    finally:
+        dist.destroy_process_group()

@@ -40,6 +40,7 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
                  "repro_torch.figaro", "repro_torch.core.plan_cache",
                  "repro_torch.train.async_serve", "repro_torch.train.serve",
                  "repro_torch.launch", "repro_torch.launch.mesh",
+                 "repro_torch.core.distributed",
                  "repro_torch.sanitizer",
                  "repro_torch.sanitizer._state", "repro_torch.sanitizer.locks",
                  "repro_torch.sanitizer.races",

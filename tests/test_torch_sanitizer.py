@@ -203,8 +203,8 @@ def test_thread_exit_holding_lock_flagged(san):
 
 def test_retrace_attribution_names_diverged_component(san):
     """The port's signature is (kind, device, plan spec, mask layout, data
-    shapes and dtypes, options): a new dtype changes the data's dtype and the
-    options, a different plan the spec (and the data shapes)."""
+    shapes and dtypes, options, mesh): a new dtype changes the data's dtype
+    and the options, a different plan the spec (and the data shapes)."""
     sanitizer.STATE.numerics = False
     plan = build_plan(retailer_like(scale=20, cols=2))
     engine = FigaroEngine()
@@ -228,7 +228,7 @@ def test_retrace_attribution_names_diverged_component(san):
                                                      "data_abstract"]
     assert san_retrace.KEY_COMPONENTS == (
         "kind", "device", "plan_spec", "mask_layout", "data_abstract",
-        "options")
+        "options", "mesh")
 
 
 def test_shadow_dispatches_do_not_bump_or_retrace(san):
