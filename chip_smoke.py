@@ -137,9 +137,22 @@ result line):
                 configuration (eager, then captured) against the same
                 session without a mesh; ``partitioned_qr(tree, 4,
                 mesh=mesh)`` against 10a; each at 1e-9 relative (vectors
-                up to sign), the group destroyed at the end. A mesh of one
-                rank issues no collective; nothing falls back to gloo or
-                the CPU.
+                up to sign). 10c, in the same group (10a's and 10b's
+                graphs released first): 9b's configuration served through
+                ``Session(mesh=mesh)`` for ``svd``, ``pca(k=3)`` and
+                ``lsq("stars")`` (float64, ``max_batch=8``), each kind on
+                two datasets of the same tables, one served over the mesh
+                and one by the same session without a mesh: 24 held
+                requests, 512 Review rows appended within capacity
+                (``server.append``), CheckIn rows past its capacity
+                (``ds.append``, a regrow), 24 more requests; every answer
+                over the mesh bit-equal to the one without, no collective
+                issued (`CountCollectives`), node_fused and panel_qr
+                launched (counters zeroed around the meshed streams),
+                requests/s beside 9b's, peak reserved memory under 80 GB.
+                The group is destroyed at the end. A mesh of one rank
+                issues no collective; nothing falls back to gloo or the
+                CPU.
   5. wide     — a float64 ``qr`` over a star of three wide relations
                 (N = 512 columns, a few thousand rows) through
                 ``Session(use_kernel=True)``, timed as the median of 3
@@ -186,7 +199,7 @@ result line):
   8. summary  — one ``{"kernels": [...]}`` line, then, last, the
                 ``{"ok": true, "device": {...}}`` line.
 
-Each of phases 4–7 (and 5b, 9a, 9b, 10a, 10b) drives one path of the port
+Each of phases 4–7 (and 5b, 9a, 9b, 10a, 10b, 10c) drives one path of the port
 with the launch counters zeroed just before and read just after, and fails
 if a kernel of that path did not launch (in phase 9 the server's dispatch
 thread launches them; the counts are process-wide). Every profiled ``qr`` (`profile_once`) also holds
@@ -1949,7 +1962,8 @@ def phase_partitioned(tree, r64, qr64_ms: float) -> dict:
     return out, sess, r
 
 
-def phase_nccl_mesh(tree, plan, sess, r_part, seed: int) -> dict:
+def phase_nccl_mesh(tree, plan, sess, r_part, seed: int,
+                    rates_9b: dict) -> dict:
     """10b: a one-rank NCCL group on ``cuda:0`` (a `FileStore` in a
     temporary directory, a timeout, the communicator made eagerly through
     ``device_id``) and its data mesh: `distributed_postprocess_r0` of phase
@@ -1959,7 +1973,9 @@ def phase_nccl_mesh(tree, plan, sess, r_part, seed: int) -> dict:
     sharded B = 2 float64 ``svd`` on 9b's configuration against the same
     session without a mesh; ``partitioned_qr`` over the mesh against 10a.
     Each at 1e-9 relative (vectors up to sign); the launch counters zeroed
-    around each; the group destroyed at the end, whatever happened."""
+    around each. Then, in the same group and with 10a's and 10b's graphs
+    released, 10c (`phase_serve_mesh`). The group is destroyed at the end,
+    whatever happened."""
     import datetime
     import gc
     import tempfile
@@ -2105,9 +2121,194 @@ def phase_nccl_mesh(tree, plan, sess, r_part, seed: int) -> dict:
                 f"relative {err:.3e} (tol 1e-9)")
             check(err <= 1e-9, "10b: partitions over the mesh match 10a")
             _seg_scan.check()
+            out["memory"] = memory_log("phase 10b")
+
+            # 10c: a served stream over the mesh, in the same group
+            del r_m
+            release_all_graphs(sess.engine)
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["served"] = phase_serve_mesh(mesh, seed, rates_9b)
         finally:
             dist.destroy_process_group()
-    out["memory"] = memory_log("phase 10b")
+    return out
+
+
+def release_all_graphs(engine) -> None:
+    """Free every captured graph of ``engine`` (its cache entries stay)."""
+    for spec in {k[2] for k in list(engine._graphs)}:
+        engine.release_graphs(spec)
+
+
+class CountCollectives:
+    """Counts calls of the collectives of `torch.distributed` the port can
+    issue, while the block runs."""
+
+    NAMES = ("all_gather", "all_reduce", "broadcast", "scatter",
+             "broadcast_object_list", "all_gather_object",
+             "batch_isend_irecv", "send", "recv")
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.calls, self._saved = [], {}
+        for name in self.NAMES:
+            fn = self._saved[name] = getattr(dist, name)
+
+            def counted(*args, _fn=fn, _name=name, **kwargs):
+                self.calls.append(_name)
+                return _fn(*args, **kwargs)
+
+            setattr(dist, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        for name, fn in self._saved.items():
+            setattr(dist, name, fn)
+        return False
+
+
+MESH_SERVE_REQUESTS = 24  # 10c: requests of each stream, as 9b's
+
+
+def held_stream(server, reqs) -> tuple[list, float]:
+    """``reqs`` submitted while the coalescer is held, then released: the
+    answers in order and the requests/s from the first submit to the last
+    answer."""
+    server.pause()
+    t0 = time.perf_counter()
+    futures = [server.submit(r) for r in reqs]
+    server.resume()
+    answers = [f.result(timeout=900) for f in futures]
+    return answers, len(reqs) / (time.perf_counter() - t0)
+
+
+def phase_serve_mesh(mesh, seed: int, rates_9b: dict) -> dict:
+    """10c, in 10b's one-rank NCCL group: 9b's configuration
+    (``yelp_like(scale=500_000, cols=16)``, float64, the kernels, band
+    assembly, ``max_batch=8``) served through ``Session(mesh=mesh)`` for
+    ``svd``, ``pca(k=3)`` and ``lsq("stars")``. For each kind two datasets
+    of the same tables: one served over the mesh, one through the same
+    session without a mesh (``mesh=None``). Each gets 24 held requests (3
+    batches of 8), an append within capacity (``server.append``: 512
+    Review rows over existing keys), a regrowing one (``ds.append``:
+    CheckIn rows past its capacity) and 24 more requests; every answer of
+    the meshed server equals the unmeshed one bit for bit, the phase issues
+    no collective, node_fused and panel_qr launch over each kind (counters
+    zeroed around the meshed streams), requests/s beside 9b's, peak
+    reserved memory under 80 GB."""
+    import numpy as np
+    import torch
+    from repro_torch import figaro
+    from repro_torch.data.relational import yelp_like
+    from repro_torch.kernels import _platform, _seg_scan
+
+    torch.cuda.reset_peak_memory_stats()
+    tree = yelp_like(scale=SERVE_CUT_SCALE, cols=16)
+    sess = figaro.Session(mesh=mesh, use_kernel=True, assembly="band",
+                          device="cuda", donate_data=True)
+    eng = sess.engine
+    rng = np.random.default_rng(seed + 110)
+    out = {}
+    with CountCollectives() as counted:
+        for kind, kw in (("svd", {}), ("pca", {"k": 3}),
+                         ("lsq", {"label_col": "stars"})):
+            meshed_ds, lone_ds = sess.from_tree(tree), sess.from_tree(tree)
+            meshed = meshed_ds.serve(kind=kind, max_batch=8, **kw)
+            lone = lone_ds.serve(kind=kind, max_batch=8, mesh=None, **kw)
+            res = {"launches": {}, "requests_per_s": [],
+                   "requests_per_s_no_mesh": []}
+            equal = True
+            try:
+                # Before the appends the meshed server goes first (its
+                # stream runs the new spec eagerly, then captures it; the
+                # other replays), after them (the regrown spec) the other.
+                for first in ("meshed", "lone"):
+                    reqs = request_set(meshed_ds.plan, MESH_SERVE_REQUESTS,
+                                       np.float64, rng)
+                    answers = {}
+                    for which in ((first, "lone") if first == "meshed"
+                                  else (first, "meshed")):
+                        _platform.reset_launch_counts()
+                        answers[which], rate = held_stream(
+                            meshed if which == "meshed" else lone, reqs)
+                        torch.cuda.synchronize()
+                        if which == "meshed":
+                            for k, v in _platform.launch_counts().items():
+                                res["launches"][k] = \
+                                    res["launches"].get(k, 0) + v
+                        res["requests_per_s" if which == "meshed"
+                            else "requests_per_s_no_mesh"].append(rate)
+                    equal &= all(bit_equal(a, b) for a, b in zip(
+                        answers["meshed"], answers["lone"], strict=True))
+                    del answers, reqs
+                    if first == "meshed":
+                        res["appends"] = serve_mesh_appends(
+                            (meshed, lone), (meshed_ds, lone_ds), rng)
+            finally:
+                meshed.close()
+                lone.close()
+            for kname in ("node_fused", "panel_qr", "panel_qr_reg"):
+                check(res["launches"].get(kname, 0) > 0,
+                      f"10c {kname} launched on the served {kind} path over "
+                      f"the mesh")
+            check(equal, f"10c {kind}: every answer over the mesh equals "
+                  f"the server's without a mesh bit for bit")
+            log(f"10c served {kind} float64 over the one-rank NCCL mesh: "
+                f"{MESH_SERVE_REQUESTS} requests before and after the "
+                f"appends at {res['requests_per_s']} requests/s (without a "
+                f"mesh {res['requests_per_s_no_mesh']}; 9b "
+                f"{rates_9b[kind]}); answers bit-equal; launches "
+                f"{res['launches']}")
+            out[kind] = res
+            release_all_graphs(eng)
+            del meshed, lone, meshed_ds, lone_ds
+            gc.collect()
+            torch.cuda.empty_cache()
+    out["collectives"] = len(counted.calls)
+    check(not counted.calls, f"10c: a server over a one-rank mesh issues "
+          f"no collective (it issued {counted.calls})")
+    _seg_scan.check()
+    out["peak_reserved_gib"] = torch.cuda.max_memory_reserved() / 2**30
+    log(f"phase 10c: no collective; peak reserved "
+        f"{out['peak_reserved_gib']:.2f} GiB")
+    check(out["peak_reserved_gib"] < 80, "10c fits the 80 GB card")
+    out["memory"] = memory_log("phase 10c", eng)
+    return out
+
+
+def serve_mesh_appends(servers, datasets, rng) -> dict:
+    """10c's appends, the same on both datasets: 512 Review rows over
+    existing keys through each ``server.append`` (within capacity), then
+    CheckIn rows past its capacity through each ``ds.append`` (a regrow)."""
+    import numpy as np
+
+    nodes = datasets[0].stats()["nodes"]
+    review = datasets[0].tree.db["Review"]
+    checkin = datasets[0].tree.db["CheckIn"]
+    grow = nodes["CheckIn"]["capacity_rows"] - nodes["CheckIn"][
+        "live_rows"] + 1024
+    pick = rng.integers(0, review.num_rows, 512)
+    rows_review = ({a: review.key_col(a)[pick].copy()
+                    for a in review.key_attrs},
+                   rng.uniform(-3, 3, (512, review.data.shape[1])))
+    pick = rng.integers(0, checkin.num_rows, grow)
+    keys_checkin = {a: checkin.key_col(a)[pick].copy()
+                    for a in checkin.key_attrs}
+    data_checkin = rng.uniform(-3, 3, (grow, checkin.data.shape[1]))
+    out = {"review_rows": 512, "checkin_rows": grow, "append_s": []}
+    for server, ds in zip(servers, datasets, strict=True):
+        t0 = time.perf_counter()
+        check(server.append("Review", rows_review),
+              "10c: 512 Review rows fit Review's capacity")
+        check(not ds.append("CheckIn", keys_checkin, data_checkin),
+              f"10c: {grow} CheckIn rows overflow CheckIn's capacity")
+        out["append_s"].append(time.perf_counter() - t0)
+    log(f"10c appends: 512 Review rows within capacity, then {grow} "
+        f"CheckIn rows (a regrow), {[round(t, 2) for t in out['append_s']]} "
+        f"s (over the mesh, without)")
     return out
 
 
@@ -2842,9 +3043,12 @@ def main(argv=None) -> int:
     distribution["partitioned"], dist_sess, r_part = phase_partitioned(
         tree, r_k, graphs["yelp_qr_f64"]["replay"]["median_wall_ms"])
     memory["phase 10a"] = distribution["partitioned"].pop("memory")
-    distribution["nccl"] = phase_nccl_mesh(tree, plan, dist_sess, r_part,
-                                           args.seed)
+    distribution["nccl"] = phase_nccl_mesh(
+        tree, plan, dist_sess, r_part, args.seed,
+        {k: serving["cut"][k]["requests_per_s"] for k in ("svd", "pca",
+                                                          "lsq")})
     memory["phase 10b"] = distribution["nccl"].pop("memory")
+    memory["phase 10c"] = distribution["nccl"]["served"].pop("memory")
     del dist_sess, r_part, tree, r_k
     gc.collect()
     torch.cuda.empty_cache()

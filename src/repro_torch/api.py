@@ -303,7 +303,10 @@ class Session:
         dispatch). Engine, device, mesh and dtype default to this
         session's configuration. ``tree_or_plan`` may also be a
         `plan_cache.PlanHolder` to share plan state (what
-        `JoinDataset.serve` passes)."""
+        `JoinDataset.serve` passes). Over a mesh of P > 1 ranks every rank
+        calls this with the same tables and options; rank 0's server takes
+        the requests and the others follow its stream (`make_figaro_server`).
+        """
         from repro_torch.train.serve import make_figaro_server
 
         validate_serve_kind(kind)
@@ -751,6 +754,12 @@ class JoinDataset:
         and ``ds.append`` refresh one plan state (draining the server's
         in-flight work first), so ``ds.plan`` / ``ds.stats()`` and the
         served plan can never fork.
+
+        Over a session mesh of P > 1 ranks every rank builds its dataset
+        from the same tables and calls ``serve`` alike. Rank 0 submits; its
+        ``ds.append`` (and a re-root it decides) reaches every rank's
+        dataset through the server's stream, while another rank's
+        ``ds.append`` raises until the server is closed.
         """
         validate_serve_kind(kind)
         if label_col is not None:

@@ -646,7 +646,12 @@ class FigaroEngine:
         to a multiple of the axis by repeating the trailing request, this
         rank's rows through its own cached (and, on the card, captured)
         dispatch, every rank's answers gathered to every rank outside any
-        graph, and the pad cut off. One rank issues no collective."""
+        graph, and the pad cut off. One rank issues no collective.
+
+        On more ranks, every rank's local step (its rows, its dispatch) is
+        agreed on the mesh's control group before the gather
+        (`DataMesh.agree`): if one rank raised, every rank raises the same
+        `RankDispatchError` naming it, and none enters the gather."""
         mesh, axis = resolve_shard(shard)
         if not kind.endswith("_batched"):
             raise ValueError(
@@ -655,16 +660,48 @@ class FigaroEngine:
             # plan.data is per-node [m_i, n_i]: no request axis to split.
             raise ValueError(
                 "shard= needs an explicit [B, m_i, n_i] data batch")
+        p = mesh.size
+        mesh.check_control()
+        mesh_key = (mesh.signature, axis)
+        tag = data.shard if isinstance(data, Staged) else None
+        if tag is not None:
+            b = tag[1]
+        else:
+            b = len(data[0])
+            if b == 0:
+                # Nothing to split: the unsharded batched dispatch answers
+                # with empty results of the right shapes.
+                return self._dispatch(kind, plan, data,
+                                      device=mesh.check_device(device),
+                                      bucket=bucket,
+                                      batch_capacity=batch_capacity,
+                                      **options)
+        error = None
+        try:
+            out = self._local_rows(kind, plan, data, mesh, mesh_key, tag,
+                                   device=device, bucket=bucket,
+                                   batch_capacity=batch_capacity, **options)
+        except Exception as e:  # agreed below: no rank gathers alone
+            if p == 1:
+                raise
+            error = e
+        if p > 1:
+            mesh.agree(error)
+            out = map_result(lambda x: _all_gather(mesh, x), out)
+        return map_result(lambda x: x[:b], out)
+
+    def _local_rows(self, kind, plan, data, mesh, mesh_key, tag, *, device,
+                    bucket, batch_capacity, **options):
+        """This rank's part of a sharded dispatch: its rows of the padded
+        batch (or the rows ``stage(shard=)`` tagged) through its own
+        dispatch."""
         device = mesh.check_device(device)
         if plan.device is not None and plan.device != device:
             raise ValueError(f"the plan lives on {plan.device}, not on the "
                              f"mesh's device {device} for this rank")
         p, rank = mesh.size, mesh.local_rank()
-        mesh_key = (mesh.signature, axis)
-        tag = None
         if isinstance(data, Staged):
             data.consume()  # before anything reads the staged tensors
-            tag = data.shard
         if tag is not None:
             key, b, padded = tag
             want = _sharded_size(b, batch_capacity, p)
@@ -675,24 +712,14 @@ class FigaroEngine:
             local = list(data)
         else:
             b = len(data[0])
-            if b == 0:
-                # Nothing to split: the unsharded batched dispatch answers
-                # with empty results of the right shapes.
-                return self._dispatch(kind, plan, data, device=device,
-                                      bucket=bucket,
-                                      batch_capacity=batch_capacity,
-                                      **options)
             q = _sharded_size(b, batch_capacity, p) // p
             local = []
             for d in data:
                 parts = _rows_of(d, rank * q, (rank + 1) * q, b)
                 local.append(parts[0] if len(parts) == 1
                              else torch.cat(parts))
-        out = self._dispatch(kind, plan, local, device=device, bucket=bucket,
-                             mesh_key=mesh_key, **options)
-        if p > 1:
-            out = map_result(lambda x: _all_gather(mesh, x), out)
-        return map_result(lambda x: x[:b], out)
+        return self._dispatch(kind, plan, local, device=device, bucket=bucket,
+                              mesh_key=mesh_key, **options)
 
     # -- the captured program ------------------------------------------------
 
@@ -790,7 +817,9 @@ class FigaroEngine:
         return out if kind.endswith("_batched") else map_result(
             lambda x: x[0], out)
 
-    def stage(self, data, *, shard=None, device=None) -> tuple:
+    def stage(self, data, *, shard=None, device=None,
+              batch_capacity: int | None = None,
+              live: int | None = None) -> tuple:
         """Start the host-to-device copy of request leaves ahead of their
         dispatch.
 
@@ -806,12 +835,15 @@ class FigaroEngine:
         pass through unchanged; on the CPU nothing is staged.
 
         With ``shard=mesh`` (or ``(mesh, axis)``) the batch is padded as a
-        sharded dispatch pads it (to a multiple of the axis, repeating the
-        trailing request) and only this rank's rows are copied, to the
-        mesh's device for this rank (on the CPU too). The `Staged` carries
-        the mesh, the live size and the padded size: a dispatch with the
-        same ``shard=`` takes it as its local rows as they are, and raises
-        if its mesh or padded size differs.
+        sharded dispatch pads it (to ``batch_capacity``, then to a multiple
+        of the axis, repeating the trailing request) and only this rank's
+        rows are copied, to the mesh's device for this rank (on the CPU
+        too). The `Staged` carries the mesh, the live size and the padded
+        size: a dispatch with the same ``shard=`` and ``batch_capacity=``
+        takes it as its local rows as they are, and raises if its mesh or
+        padded size differs. With ``live=b`` the leaves already hold only
+        this rank's rows of such a padded batch of ``b`` live requests (what
+        a serving controller sends each rank): they are staged as they are.
         """
         shard_tag = None
         if shard is not None:
@@ -820,12 +852,25 @@ class FigaroEngine:
             first = data[0] if data else []
             b = sum(map(len, first)) if isinstance(first, list) \
                 else len(first)
+            if live is not None:
+                b = live
             if b:
-                padded = _sharded_size(b, None, mesh.size)
+                padded = _sharded_size(b, batch_capacity, mesh.size)
                 q = padded // mesh.size
-                lo = mesh.local_rank() * q
-                data = [_rows_of(d, lo, lo + q, b) for d in data]
+                if live is None:
+                    lo = mesh.local_rank() * q
+                    data = [_rows_of(d, lo, lo + q, b) for d in data]
+                else:
+                    data = [d if isinstance(d, list) else [d] for d in data]
+                    rows = {sum(map(len, d)) for d in data}
+                    if rows != {q}:
+                        raise ValueError(
+                            f"live={b} at {padded} requests over "
+                            f"{mesh.size} ranks gives each rank {q} rows; "
+                            f"the leaves hold {sorted(rows)}")
                 shard_tag = ((mesh.signature, axis), b, padded)
+        elif live is not None:
+            raise ValueError("live= needs shard=")
         device = resolve_device(device)
         if device.type != "cuda":
             if shard_tag is None:

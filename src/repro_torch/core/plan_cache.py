@@ -38,6 +38,9 @@ re-ingests, and re-pads — into the *same* capacities when the new live sizes
 still fit (the same signature: the engine replays its captured program), or
 grown buckets when they don't (one signature miss, reported by the changed
 spec). `PlanHolder` owns one such plan for a `JoinDataset`.
+`plan_signature(plan)` digests a plan's structure, so that the ranks of a
+mesh can check that they hold the same plan, and `replan_onto` rebuilds a
+re-root that another rank decided.
 
 A copy of the JAX package's ``core/plan_cache.py`` with tensors for data.
 """
@@ -45,6 +48,7 @@ A copy of the JAX package's ``core/plan_cache.py`` with tensors for data.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import weakref
 from typing import Callable, Mapping
 
@@ -65,6 +69,8 @@ __all__ = [
     "build_capacity_plan",
     "refresh_plan",
     "spec_fits",
+    "plan_signature",
+    "replan_onto",
     "PlanHolder",
 ]
 
@@ -290,7 +296,46 @@ def refresh_plan(
     return out
 
 
+def plan_signature(plan: FigaroPlan) -> str:
+    """A digest of what a dispatch on ``plan`` computes over: its spec and
+    every index and mask array (the join's structure and live sizes; not
+    the data, which requests replace). Plans built from the same tables
+    have the same signature in every process. Cached on the plan."""
+    cached = plan.__dict__.get("_signature")
+    if cached is not None:
+        return cached
+    digest = hashlib.blake2b(repr(plan.spec).encode(), digest_size=16)
+    for ix in plan.index:
+        for field in dataclasses.fields(ix):
+            value = getattr(ix, field.name)
+            for a in ([value[k] for k in sorted(value)]
+                      if isinstance(value, dict) else [value]):
+                if a is None:
+                    digest.update(b"-")
+                    continue
+                if isinstance(a, torch.Tensor):
+                    a = a.cpu().numpy()
+                digest.update(np.ascontiguousarray(a, dtype=np.float64
+                                                   if field.name == "row_mask"
+                                                   else np.int64).data)
+    out = plan.__dict__["_signature"] = digest.hexdigest()
+    return out
+
+
+def replan_onto(plan: FigaroPlan, parent: Mapping[str, str | None],
+                cap_spec: PlanSpec, headroom: int = 0) -> FigaroPlan:
+    """``plan``'s tables on the rooted join tree of ``parent`` (a parent map,
+    in the order that fixes the column layout), padded into ``cap_spec``:
+    the plan a re-root installs, rebuilt from the decision alone."""
+    tree = JoinTree(plan.source_tree.db, dict(parent))
+    out = pad_plan(build_plan(tree), cap_spec)
+    out.source_tree = tree
+    out.capacity_headroom = headroom
+    return out
+
+
 @shared_state({"_plan": "_lock", "_servers": "_lock",
+               "_controller": "_lock",
                "appends": "_lock", "regrows": "_lock",
                "reroots": "_lock", "append_volume": "_lock"})
 class PlanHolder:
@@ -317,6 +362,13 @@ class PlanHolder:
     (``append_volumes()``) — the raw signal the adaptive re-rooting policy
     (`repro_torch.planner.replan.Replanner`) keys off — and exposes
     ``replace(plan)``, the drain-then-install path a re-root uses.
+
+    While a server over a mesh of several ranks is attached as its
+    controller (`attach_controller`), ``refresh`` and ``replace`` drain and
+    then hand the change to that server (``route``): on rank 0 its dispatch
+    thread applies the change here (`apply_refresh`, `apply_replace`) and
+    streams it to every rank at the same point of the stream; on another
+    rank ``route`` raises, since changes come from rank 0.
     """
 
     def __init__(self, plan: FigaroPlan | None = None, *,
@@ -327,6 +379,7 @@ class PlanHolder:
         self._on_regrow = on_regrow
         self._plan = plan
         self._servers: weakref.WeakSet = weakref.WeakSet()
+        self._controller = None  # a weakref to a mesh server, or None
         self.appends = 0
         self.regrows = 0
         self.reroots = 0
@@ -347,6 +400,28 @@ class PlanHolder:
         plan swaps. Held weakly — dropping the server detaches it."""
         with self._lock:
             self._servers.add(server)
+
+    def attach_controller(self, server) -> None:
+        """Route this holder's changes through ``server`` (a server over a
+        mesh of several ranks; anything with ``route(op, payload)``). One at
+        a time: a second live one raises."""
+        with self._lock:
+            live = self._controller() if self._controller else None
+            if live is not None and live is not server:
+                raise ValueError(
+                    "this plan already streams through a live server over "
+                    "the mesh; close it before serving the plan again")
+            self._controller = weakref.ref(server)
+
+    def detach_controller(self, server) -> None:
+        with self._lock:
+            if self._controller is not None \
+                    and self._controller() in (server, None):
+                self._controller = None
+
+    def _routed(self):
+        with self._lock:
+            return self._controller() if self._controller else None
 
     def drain(self) -> None:
         """Block until every attached server has answered its queue.
@@ -389,6 +464,14 @@ class PlanHolder:
         """Drain attached servers, then install a *structurally different*
         plan (adaptive re-root)."""
         self.drain()
+        controller = self._routed()
+        if controller is not None:
+            controller.route("replace", plan)
+            return
+        self.apply_replace(plan)
+
+    def apply_replace(self, plan: FigaroPlan) -> None:
+        """`replace` without the drain and the routing: the stream's step."""
         with self._lock:
             if self._plan is None:
                 raise ValueError("PlanHolder has no plan yet — build one "
@@ -404,6 +487,13 @@ class PlanHolder:
         capacities grew (one signature miss on the next dispatch).
         """
         self.drain()
+        controller = self._routed()
+        if controller is not None:
+            return controller.route("append", new_rows_per_node)
+        return self.apply_refresh(new_rows_per_node)
+
+    def apply_refresh(self, new_rows_per_node) -> bool:
+        """`refresh` without the drain and the routing: the stream's step."""
         with self._lock:
             if self._plan is None:
                 raise ValueError("PlanHolder has no plan yet — build one "

@@ -9,6 +9,12 @@ a request batch over it and `repro_torch.core.distributed` runs the TSQR
 combine across it. Without an initialized process group the mesh is this
 process alone (one rank, no group), and nothing on it issues a collective.
 
+At P > 1 the mesh also holds a host-side control group (gloo, over the
+same ranks, with the mesh's timeout): a server over the mesh streams its
+batch headers and each rank's request rows on it
+(`repro_torch.train.async_serve`), and every sharded dispatch agrees on it,
+before its gather, whether any rank failed (`DataMesh.agree`).
+
 `serving_batch_capacity` picks the request-batch capacity the async serving
 queue (`repro_torch.train.async_serve`) dispatches a coalesced micro-batch
 at. The production and host meshes of the LM scaffolding
@@ -19,6 +25,7 @@ at. The production and host meshes of the LM scaffolding
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import os
 
 import torch
@@ -26,8 +33,20 @@ import torch
 from repro_torch.core.plan_cache import next_pow2
 from repro_torch.kernels._platform import resolve_device
 
-__all__ = ["DataMesh", "resolve_shard", "serving_batch_capacity",
-           "make_data_mesh", "make_production_mesh", "make_host_mesh"]
+__all__ = ["DataMesh", "RankDispatchError", "resolve_shard",
+           "serving_batch_capacity", "make_data_mesh", "make_production_mesh",
+           "make_host_mesh"]
+
+
+class RankDispatchError(RuntimeError):
+    """Raised on every rank of a mesh when one rank's part of a collective
+    step failed: ``rank`` is the lowest failing rank on the mesh's axis and
+    ``message`` its error, as that rank rendered it."""
+
+    def __init__(self, rank: int, message: str):
+        super().__init__(f"rank {rank} of the mesh failed: {message}")
+        self.rank = rank
+        self.message = message
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -38,7 +57,10 @@ class DataMesh:
     process alone), ``ranks`` their global ranks in axis order, ``rank``
     this process's place on the axis (None when the process holds no rank
     of the mesh: it cannot dispatch on it), ``device`` this rank's device.
-    ``shape`` reads like the JAX package's ``Mesh.shape``."""
+    ``control`` is the host-side gloo group over the same ranks that
+    carries a server's stream and the ranks' agreement (None on one rank),
+    ``timeout`` the bound of its collectives. ``shape`` reads like the JAX
+    package's ``Mesh.shape``."""
 
     group: object
     size: int
@@ -46,6 +68,8 @@ class DataMesh:
     device: torch.device
     ranks: tuple[int, ...]
     backend: str | None
+    control: object = None
+    timeout: datetime.timedelta | None = None
 
     @property
     def shape(self) -> dict[str, int]:
@@ -72,6 +96,41 @@ class DataMesh:
                 f"{list(self.ranks)}; it cannot dispatch on it")
         return self.rank
 
+    def check_control(self) -> None:
+        """Raise unless a mesh of several ranks has its control group."""
+        if self.size > 1 and self.control is None:
+            raise ValueError(
+                f"a mesh of {self.size} ranks needs its control group; make "
+                f"it with make_data_mesh under an initialized process group")
+
+    def agree(self, error: BaseException | None) -> None:
+        """Every rank's verdict on a step it just ran locally (``error`` is
+        None when it succeeded), agreed on the control group before any
+        rank goes on to a collective that needs every rank's part.
+
+        One flag all-reduce (the lowest failing rank, or the axis size);
+        when a rank failed, that rank broadcasts its message and every rank
+        raises the same `RankDispatchError`. On one rank ``error`` is
+        raised as it is, and nothing is exchanged."""
+        if self.size == 1:
+            if error is not None:
+                raise error
+            return
+        import torch.distributed as dist
+
+        self.check_control()
+        flag = torch.tensor([self.size if error is None
+                             else self.local_rank()], dtype=torch.int64)
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=self.control)
+        first = int(flag[0])
+        if first == self.size:
+            return
+        message = [None if error is None
+                   else f"{type(error).__name__}: {error}"]
+        dist.broadcast_object_list(message, src=self.ranks[first],
+                                   group=self.control)
+        raise RankDispatchError(first, message[0]) from error
+
 
 def resolve_shard(shard, axis: str = "data") -> tuple[DataMesh, str]:
     """``mesh`` or ``(mesh, axis)`` → (mesh, axis), validated."""
@@ -97,9 +156,12 @@ def make_data_mesh(num_devices: int | None = None, *, device=None,
     gets one it cannot dispatch on. Without a process group the mesh is this
     process alone, on ``resolve_device(device)``. ``timeout`` (a
     `datetime.timedelta`) bounds the collectives of a group of fewer ranks
-    than the world (default: torch's for the backend); the whole world's
-    mesh uses the world's group, with its own timeout. Any size works; the
-    butterfly combine folds non-power-of-two axes."""
+    than the world (default: the world's); the whole world's mesh uses the
+    world's group, with its own timeout. At more than one rank a gloo
+    control group over the same ranks, with that timeout, is made too (a
+    group of its own under gloo as well, so the CPU runs what NCCL ranks
+    run). Any size works; the butterfly combine folds non-power-of-two
+    axes."""
     import torch.distributed as dist
 
     if not (dist.is_available() and dist.is_initialized()):
@@ -126,10 +188,27 @@ def make_data_mesh(num_devices: int | None = None, *, device=None,
         raise ValueError(f"device {device} is not this rank's device "
                          f"{rank_device} under {backend}")
     ranks = tuple(range(n))
+    if timeout is None:
+        timeout = _world_timeout(backend)
     group = dist.group.WORLD if n == world else dist.new_group(
         list(ranks), timeout=timeout)
+    control = None if n == 1 else dist.new_group(
+        list(ranks), timeout=timeout, backend="gloo")
     return DataMesh(group=group, size=n, rank=me if me < n else None,
-                    device=rank_device, ranks=ranks, backend=backend)
+                    device=rank_device, ranks=ranks, backend=backend,
+                    control=control, timeout=timeout)
+
+
+def _world_timeout(backend: str) -> datetime.timedelta:
+    """The timeout the world's group was made with (torch's default for the
+    backend when the group does not say)."""
+    import torch.distributed as dist
+
+    device = torch.device("cuda" if backend == "nccl" else "cpu")
+    try:
+        return dist.group.WORLD._get_backend(device).options._timeout
+    except (AttributeError, RuntimeError):
+        return datetime.timedelta(minutes=10 if backend == "nccl" else 30)
 
 
 def serving_batch_capacity(b: int, *, axis_size: int = 1) -> int:

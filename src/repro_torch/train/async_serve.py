@@ -30,6 +30,25 @@ feature-sets; `AsyncFigaroServer` turns that into a small pipeline:
     sizes stay within capacity), so the owning `JoinDataset`'s plan and
     ``stats()`` never fork from the server's.
 
+Over a data mesh of P > 1 ranks (one process per rank) every rank builds
+the server and rank 0 controls it. Rank 0's server has the whole surface
+above; its dispatch thread streams each step on the mesh's control group
+(`launch.mesh.DataMesh`): a batch header (live size, bucketed capacity,
+padded size, rank 0's plan signature, each leaf's shape and dtype), then
+each rank's rows of the padded batch alone (``scatter``); appends and
+re-roots of the shared plan holder at the same point of the stream; a stop
+when it closes (and, while idle, a keep-alive within the group's timeout).
+Every other rank (a follower) runs its dispatch thread on that stream from
+construction on: it stages its rows (`FigaroEngine.stage` with ``live=``),
+dispatches them through ``shard=`` and applies plan changes to its own
+holder; its ``submit``, ``__call__``, ``append``, ``pause`` and ``resume``
+raise, and its ``close`` returns when rank 0 closes. On every rank only the
+dispatch thread issues collectives, in stream order. A sharded dispatch
+agrees across ranks before its gather (`DataMesh.agree`), so a batch that
+fails on one rank fails on all; rank 0 then sends each of its requests
+alone, and only the poisoned request's future fails. At P = 1 nothing of
+this runs and the server issues no collective.
+
 The synchronous `FigaroServer` (`train.serve`) is a thin
 ``submit(...).result()`` wrapper over this machinery. Its threads and locks
 go through the port's sanitizer (`san_thread`, `san_lock`,
@@ -39,18 +58,22 @@ go through the port's sanitizer (`san_thread`, `san_lock`,
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import functools
 import queue
 import threading
+import time
 import weakref
 
 import numpy as np
 import torch
 
-from repro_torch.core.engine import map_result
+from repro_torch.core.engine import _rows_of, _sharded_size, map_result
 from repro_torch.core.join_tree import FigaroPlan
-from repro_torch.core.plan_cache import PlanHolder, pad_data
+from repro_torch.core.plan_cache import (PlanHolder, pad_data,
+                                         plan_signature, replan_onto)
 from repro_torch.kernels._platform import resolve_device
+from repro_torch.launch.mesh import RankDispatchError, serving_batch_capacity
 from repro_torch.sanitizer.locks import san_condition, san_lock
 from repro_torch.sanitizer.races import shared_state
 from repro_torch.sanitizer.threads import san_thread
@@ -118,6 +141,144 @@ class _Request:
 _SHUTDOWN = object()
 
 
+class _Control:
+    """A change of the shared plan (``"append"`` rows or a ``"replace"``
+    plan) that rank 0's caller thread queues for its dispatch thread, which
+    applies it and streams it to the other ranks."""
+
+    __slots__ = ("op", "payload", "future")
+
+    def __init__(self, op: str, payload):
+        self.op = op
+        self.payload = payload
+        self.future = concurrent.futures.Future()
+
+    def _fail(self, error: BaseException) -> None:
+        if not self.future.done():
+            self.future.set_exception(error)
+
+
+@shared_state({"_broken": "_lock", "_last_send": "_lock"})
+class _MeshLink:
+    """One rank's end of a server's stream on the mesh's control group:
+    rank 0 sends, the others receive. It holds no reference to the server,
+    so the dispatch loop of a collected server can still send the stop.
+    Only the dispatch thread calls its collectives."""
+
+    def __init__(self, mesh, config: dict):
+        import torch.distributed as dist
+
+        self._lock = san_lock("server.link")
+        self.dist = dist
+        self.mesh = mesh
+        self.config = config
+        self.src = mesh.ranks[0]
+        self.rank = mesh.local_rank()
+        # A follower waits on the next header for at most the group's
+        # timeout: rank 0 sends a keep-alive well within it while idle.
+        self.keepalive = mesh.timeout.total_seconds() / 4 \
+            if mesh.timeout is not None else 15.0
+        self.ready: concurrent.futures.Future = concurrent.futures.Future()
+        self._broken: BaseException | None = None
+        self._last_send = time.monotonic()
+
+    @property
+    def broken(self) -> BaseException | None:
+        with self._lock:
+            return self._broken
+
+    @contextlib.contextmanager
+    def collective(self):
+        """Collectives of the stream: an error other than the ranks' agreed
+        failure breaks it (every later step fails at once)."""
+        with self._lock:
+            if self._broken is not None:
+                raise RuntimeError(f"the serving stream over the mesh "
+                                   f"broke: {self._broken}")
+        try:
+            yield
+        except RankDispatchError:
+            raise
+        except Exception as e:
+            with self._lock:
+                self._broken = e
+            raise
+
+    def handshake(self) -> None:
+        """Every rank's server configuration against rank 0's: a mismatch
+        raises `ValueError` on every rank. Sets ``ready``."""
+        try:
+            got = [None] * self.mesh.size
+            with self.collective():
+                self.dist.all_gather_object(got, self.config,
+                                            group=self.mesh.control)
+            differ = {r: sorted(k for k in c if c[k] != got[0].get(k))
+                      for r, c in enumerate(got) if c != got[0]}
+            if differ:
+                raise ValueError(
+                    "every rank must serve the same plan with the same "
+                    "options; these ranks differ from rank 0 in: "
+                    + "; ".join(f"rank {r}: {', '.join(ks)}"
+                                for r, ks in sorted(differ.items())))
+        except BaseException as e:
+            self.ready.set_exception(e)
+            return
+        self.ready.set_result(None)
+
+    def send(self, header: dict) -> None:
+        with self.collective():
+            self.dist.broadcast_object_list([header], src=self.src,
+                                            group=self.mesh.control)
+        with self._lock:
+            self._last_send = time.monotonic()
+
+    def recv(self) -> dict:
+        box = [None]
+        with self.collective():
+            self.dist.broadcast_object_list(box, src=self.src,
+                                            group=self.mesh.control)
+        return box[0]
+
+    def scatter(self, parts, shape, dtype) -> torch.Tensor:
+        """This rank's part: rank 0 passes every rank's (``parts``), the
+        others None."""
+        out = torch.empty(shape, dtype=dtype)
+        with self.collective():
+            self.dist.scatter(out, parts, src=self.src,
+                              group=self.mesh.control)
+        return out
+
+    def agree(self, error: BaseException | None) -> None:
+        with self.collective():
+            self.mesh.agree(error)
+
+    def fail(self, error: BaseException) -> None:
+        """Break the stream with ``error`` (a fault outside the
+        collectives: the other ranks see the stream stop)."""
+        with self._lock:
+            if self._broken is None:
+                self._broken = error
+
+    def keep_alive(self) -> None:
+        """A no-op header when nothing was sent for a keep-alive period."""
+        with self._lock:
+            due = self._broken is None and \
+                time.monotonic() - self._last_send >= self.keepalive
+        if due:
+            try:
+                self.send({"op": "noop"})
+            except Exception:  # noqa: BLE001 — the stream is broken now
+                pass
+
+    def stop(self) -> None:
+        """Release the followers (nothing to send on a broken stream)."""
+        if self.broken is None:
+            try:
+                self.send({"op": "stop"})
+            except Exception:  # noqa: BLE001 — the stream is broken now
+                pass
+
+
 def _slice_out(out, offset: int, b: int, single: bool):
     """This request's slice of a coalesced batch output."""
     if single:
@@ -154,12 +315,13 @@ def _concat(parts):
 # abandoned server can be garbage-collected; its finalizer posts _SHUTDOWN and
 # the threads exit instead of leaking for the life of the process.
 
-def _wait_gate(server_ref):
+def _wait_gate(server_ref, link=None):
     """Wait out a pause() hold WITHOUT keeping the server strongly
     referenced: a paused, abandoned server must stay collectable (its
     finalizer posts the shutdown sentinel) — blocking inside a server method
     would pin it alive, and its threads, forever. Returns the live server
-    once the gate is open, or None if it was collected meanwhile."""
+    once the gate is open, or None if it was collected meanwhile. A
+    controller keeps its followers' stream alive meanwhile."""
     while True:
         server = server_ref()
         if server is None:
@@ -168,15 +330,36 @@ def _wait_gate(server_ref):
         del server
         if gate.wait(timeout=0.2):
             return server_ref()
+        if link is not None:
+            link.keep_alive()
 
 
-def _dispatch_loop(server_ref, in_q, out_q):
+def _next_item(in_q, link):
+    """The next queue entry; a controller sends keep-alives while idle."""
+    if link is None:
+        return in_q.get()
+    while True:
+        try:
+            return in_q.get(timeout=link.keepalive / 2)
+        except queue.Empty:
+            link.keep_alive()
+
+
+def _dispatch_loop(server_ref, in_q, out_q, link=None):
+    if link is not None:  # a controller: the ranks agree first
+        link.handshake()
+        if link.ready.exception() is not None:
+            out_q.put(_SHUTDOWN)
+            return
     leftover = None
     while True:
-        item = leftover if leftover is not None else in_q.get()
+        item = leftover if leftover is not None else _next_item(in_q, link)
         leftover = None
-        server = _wait_gate(server_ref) if item is not _SHUTDOWN else None
+        server = _wait_gate(server_ref, link) if item is not _SHUTDOWN \
+            else None
         if item is _SHUTDOWN or server is None:
+            if link is not None:
+                link.stop()
             # Shut down on the queue handles, NOT through the server: when
             # the finalizer of a GC'd server posts _SHUTDOWN, the weakref is
             # already dead — the completion thread must still be released,
@@ -194,10 +377,34 @@ def _dispatch_loop(server_ref, in_q, out_q):
             out_q.put(_SHUTDOWN)
             return
         try:
-            leftover = server._dispatch_one(item)
+            if isinstance(item, _Control):
+                server._apply_control(item)
+            else:
+                leftover = server._dispatch_one(item)
         except BaseException as e:  # defensive: the loop must survive
             server._fail_item(item, e)
         del server
+
+
+def _follow_loop(server, link):
+    """A follower's dispatch thread: rank 0's stream until its stop."""
+    link.handshake()
+    if link.ready.exception() is not None:
+        return
+    while True:
+        try:
+            header = link.recv()
+        except Exception:  # noqa: BLE001 — kept in link.broken for close()
+            return
+        if header["op"] == "stop":
+            return
+        try:
+            server._follow(header)
+        except RankDispatchError:
+            continue  # failed on every rank: rank 0 answers for it
+        except Exception as e:  # noqa: BLE001 — close() raises it
+            link.fail(e)
+            return
 
 
 def _complete_loop(server_ref, out_q):
@@ -256,11 +463,17 @@ class AsyncFigaroServer:
         release the coalescer (pause + submit + resume dispatches one
         maximally-coalesced batch deterministically — useful for warm-up and
         for tests asserting coalesced-batch identities).
+
+    With ``mesh=(mesh, axis)`` the batch capacities align to the axis;
+    over P > 1 ranks the server is rank 0's controller or another rank's
+    follower (module docstring), and ``config`` is what every rank must
+    share with rank 0 (checked at construction, on every rank, by the
+    dispatch thread).
     """
 
     def __init__(self, holder: PlanHolder, dispatch_fn, *, engine=None,
-                 device=None, axis_size: int = 1, max_batch: int = 32,
-                 queue_depth: int = 2):
+                 device=None, max_batch: int = 32, queue_depth: int = 2,
+                 mesh=None, config=None):
         if holder.plan is None:
             raise ValueError("AsyncFigaroServer needs a holder with a built "
                              "plan")
@@ -268,8 +481,7 @@ class AsyncFigaroServer:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         if queue_depth < 1:
             raise ValueError(f"queue_depth must be >= 1, got {queue_depth}")
-        from repro_torch.launch.mesh import serving_batch_capacity
-
+        axis_size = 1 if mesh is None else mesh[0].size
         self._holder = holder
         self._dispatch_fn = dispatch_fn  # (plan, batch, batch_capacity) -> out
         self._capacity_for = functools.partial(serving_batch_capacity,
@@ -296,6 +508,46 @@ class AsyncFigaroServer:
         self._closed = False
         self._threads: list | None = None  # the two worker threads
         self._finalizer = weakref.finalize(self, self._in_q.put, _SHUTDOWN)
+        # Over P > 1 ranks: this rank's end of the stream, and the engine's
+        # staging of this rank's rows and release of superseded graphs.
+        streamed = mesh is not None and mesh[0].size > 1
+        if streamed:
+            mesh[0].check_control()
+            if engine is None:
+                raise ValueError("a server over a mesh of several ranks "
+                                 "needs its engine (it stages each rank's "
+                                 "rows)")
+        self._link = _MeshLink(mesh[0], config or {}) if streamed else None
+        self._stage_rows = functools.partial(
+            engine.stage, shard=mesh, device=device) if streamed else None
+        self._release_graphs = engine.release_graphs if streamed else None
+        if streamed:
+            self._start_stream()
+
+    def _start_stream(self) -> None:
+        """Join the mesh's stream: attach to the holder as its router,
+        start the dispatch thread, and wait for its check of every rank's
+        configuration against rank 0's."""
+        self._holder.attach_controller(self)
+        self._ensure_threads()
+        try:
+            self._link.ready.result()
+        except BaseException:
+            self._holder.detach_controller(self)
+            with self._close_lock:
+                self._closed = True
+            raise
+
+    @property
+    def _follower(self) -> bool:
+        return self._link is not None and self._link.rank != 0
+
+    def _refuse_on_follower(self, what: str) -> None:
+        if self._follower:
+            raise RuntimeError(
+                f"{what} is rank 0's: a server over the mesh takes requests "
+                f"and plan changes on rank 0 only (this is rank "
+                f"{self._link.rank}, which follows rank 0's stream)")
 
     # -- plan lifecycle (shared with the owning JoinDataset) -----------------
 
@@ -321,8 +573,23 @@ class AsyncFigaroServer:
         dataset with adaptive re-rooting (``ds.append``) may additionally
         swap the orientation at the same drain point; requests submitted
         after the swap validate against — and are answered on — the new
-        plan's layout."""
+        plan's layout. Over a mesh, the change rides rank 0's stream to
+        every rank, before any batch submitted after it."""
+        self._refuse_on_follower("append")
         return self._holder.refresh({node: rows})
+
+    def route(self, op: str, payload):
+        """Apply a change of the shared plan (``"append"`` rows, or a
+        ``"replace"`` plan) through the stream: rank 0's dispatch thread
+        applies it and sends it to every rank. The holder calls this after
+        its drain; it blocks until every rank applied the change."""
+        self._refuse_on_follower(f"a plan {op}")
+        item = _Control(op, payload)
+        with self._close_lock:
+            if self._closed:
+                raise RuntimeError("server is closed")
+            self._in_q.put(item)
+        return item.future.result()
 
     # -- submission ----------------------------------------------------------
 
@@ -330,6 +597,7 @@ class AsyncFigaroServer:
         """Enqueue one request ([m_i, n_i] leaves) or a sub-batch
         ([B, m_i, n_i]); returns a `FigaroFuture` resolved in submission
         order. Validation failures resolve this future alone."""
+        self._refuse_on_follower("submit")
         item = _Request()
         try:
             self._prepare(item, request)
@@ -402,13 +670,19 @@ class AsyncFigaroServer:
             if self._threads is not None:
                 return
             ref = weakref.ref(self)
-            threads = [
-                san_thread(_dispatch_loop,
-                           args=(ref, self._in_q, self._out_q),
-                           name="figaro-serve-dispatch", daemon=True),
-                san_thread(_complete_loop, args=(ref, self._out_q),
-                           name="figaro-serve-complete", daemon=True),
-            ]
+            if self._follower:  # holds the server until rank 0's stop
+                threads = [san_thread(_follow_loop, args=(self, self._link),
+                                      name="figaro-serve-dispatch",
+                                      daemon=True)]
+            else:
+                threads = [
+                    san_thread(_dispatch_loop,
+                               args=(ref, self._in_q, self._out_q,
+                                     self._link),
+                               name="figaro-serve-dispatch", daemon=True),
+                    san_thread(_complete_loop, args=(ref, self._out_q),
+                               name="figaro-serve-complete", daemon=True),
+                ]
             for t in threads:
                 t.start()
             self._threads = threads
@@ -432,7 +706,9 @@ class AsyncFigaroServer:
             # sub-batch that would push the group past max_batch (a single
             # oversized submit still dispatches alone — it cannot be split);
             # the popped item seeds the next group, preserving FIFO order.
-            if nxt is _SHUTDOWN or (nxt.error is None and (
+            # A plan change ends the group too.
+            if nxt is _SHUTDOWN or isinstance(nxt, _Control) or (
+                    nxt.error is None and (
                     (live_sig is not None and nxt.sig != live_sig)
                     or total_b + nxt.b > self.max_batch)):
                 leftover = nxt
@@ -444,7 +720,9 @@ class AsyncFigaroServer:
         live = [it for it in group if it.error is None]
         payload = None
         self._depth_sem.acquire()  # ≤ queue_depth coalesced batches in flight
-        if live:
+        if live and self._link is not None and total_b:
+            payload = self._stream_group(live, total_b)
+        elif live:
             try:
                 if len(live) == 1:
                     data = live[0].arrays
@@ -461,15 +739,144 @@ class AsyncFigaroServer:
                 out = self._dispatch_fn(live[0].plan, data,
                                         self._capacity_for(total_b) or None)
                 del data  # donated: the dispatch consumed the staged batch
-                payload = (out, _ready_event(out), None)
+                payload = (out, _ready_event(out), None, None)
             except Exception as e:
-                payload = (None, None, e)
+                payload = (None, None, e, None)
         self._out_q.put((group, live, payload))
         return leftover
 
+    # -- the stream over a mesh (rank 0) --------------------------------------
+
+    def _stream_group(self, live, total_b):
+        """A coalesced group through the stream. If the ranks agree that it
+        failed, each request goes again alone, as a batch of its own, so
+        the completion thread (which issues no collective) only resolves."""
+        try:
+            out = self._send_batch(live[0].plan, live, total_b)
+            return (out, _ready_event(out), None, None)
+        except RankDispatchError as e:
+            if len(live) == 1:
+                return (None, None, e, None)
+            alone = {}
+            for it in live:
+                try:
+                    o = self._send_batch(it.plan, [it], it.b)
+                    alone[id(it)] = (o, _ready_event(o), None)
+                except Exception as e_it:
+                    alone[id(it)] = (None, None, e_it)
+            return (None, None, e, alone)
+        except Exception as e:
+            return (None, None, e, None)
+
+    def _send_batch(self, plan, items, b: int):
+        """One BATCH item: the header to every rank, each rank its own rows
+        of the padded batch (the trailing request repeated, as a sharded
+        dispatch pads), then this rank's part of the dispatch."""
+        if b == 0:  # nothing to split: the engine answers it alone
+            return self._dispatch_fn(plan, items[0].arrays, None)
+        link, mesh = self._link, self._link.mesh
+        cap = self._capacity_for(b)
+        q = _sharded_size(b, cap, mesh.size) // mesh.size
+        parts = []
+        for j in range(len(items[0].arrays)):
+            leaf = [torch.as_tensor(it.arrays[j]) for it in items]
+            parts.append([torch.cat(_rows_of(leaf, r * q, (r + 1) * q, b))
+                          .cpu().contiguous() for r in range(mesh.size)])
+        link.send({"op": "batch", "b": b, "cap": cap, "padded": q * mesh.size,
+                   "sig": plan_signature(plan),
+                   "leaves": [(tuple(p[0].shape), p[0].dtype)
+                              for p in parts]})
+        rows = [link.scatter(p, p[0].shape, p[0].dtype) for p in parts]
+        return self._dispatch_rows(plan, rows, b, cap)
+
+    def _dispatch_rows(self, plan, rows, b: int, cap: int, error=None):
+        """This rank's part of a streamed batch: its rows staged (tagged as
+        ``stage(shard=)`` tags them) and dispatched through ``shard=``,
+        whose agreement makes a failure on any rank fail on every rank."""
+        link = self._link
+        staged = None
+        if error is None:
+            try:
+                staged = self._stage_rows(rows, live=b, batch_capacity=cap)
+            except Exception as e:
+                error = e
+        if error is not None:
+            link.agree(error)  # raises on every rank
+        with link.collective():
+            return self._dispatch_fn(plan, staged, cap)
+
+    def _apply_control(self, item: _Control) -> None:
+        """A plan change on rank 0's dispatch thread: applied to the holder
+        here, then sent, applied by every rank and agreed on."""
+        holder, link = self._holder, self._link
+        try:
+            if link.broken is not None:
+                raise RuntimeError(f"the serving stream over the mesh "
+                                   f"broke: {link.broken}")
+            if item.op == "append":
+                result = holder.apply_refresh(item.payload)
+                header = {"op": "append", "rows": item.payload}
+            else:
+                result = holder.apply_replace(item.payload)
+                plan = holder.plan
+                header = {"op": "replace",
+                          "parent": dict(plan.source_tree.parent),
+                          "spec": plan.spec,
+                          "headroom": getattr(plan, "capacity_headroom", 0)}
+            header["sig"] = plan_signature(holder.plan)
+        except Exception as e:
+            item._fail(e)  # applied nowhere: nothing was sent
+            return
+        try:
+            link.send(header)
+            link.agree(None)
+        except Exception as e:
+            item._fail(e)
+            return
+        item.future.set_result(result)
+
+    # -- the stream over a mesh (a follower) ----------------------------------
+
+    def _follow(self, header: dict) -> None:
+        """One item of rank 0's stream on a follower's dispatch thread."""
+        link, holder = self._link, self._holder
+        op = header["op"]
+        if op == "noop":
+            return
+        if op == "batch":
+            rows = [link.scatter(None, shape, dtype)
+                    for shape, dtype in header["leaves"]]
+            plan = holder.plan
+            error = None
+            if plan_signature(plan) != header["sig"]:
+                error = ValueError(
+                    f"rank {link.rank} holds another plan than the batch's "
+                    f"(rank 0's): plans differ after a change that raced "
+                    f"the request")
+            self._dispatch_rows(plan, rows, header["b"], header["cap"],
+                                error)
+            return
+        error = None
+        try:
+            old = holder.plan.spec
+            if op == "append":
+                holder.apply_refresh(header["rows"])
+            else:
+                holder.apply_replace(replan_onto(
+                    holder.plan, header["parent"], header["spec"],
+                    header["headroom"]))
+            if plan_signature(holder.plan) != header["sig"]:
+                raise ValueError(f"after the plan {op}, rank {link.rank}'s "
+                                 f"plan differs from rank 0's")
+            if holder.plan.spec != old:
+                self._release_graphs(old)  # as JoinDataset.append does
+        except Exception as e:
+            error = e
+        link.agree(error)
+
     def _resolve_group(self, group, live, payload) -> None:
-        out, ready, err = payload if payload is not None \
-            else (None, None, None)
+        out, ready, err, alone = payload if payload is not None \
+            else (None, None, None, None)
         if err is None and ready is not None:
             try:
                 ready.synchronize()
@@ -481,7 +888,20 @@ class AsyncFigaroServer:
             for it in live:
                 results[id(it)] = _slice_out(out, offset, it.b, it.single)
                 offset += it.b
-        elif len(live) > 1:
+        elif alone is not None:
+            # Each request went again alone through the stream.
+            for it in live:
+                o, r, e = alone[id(it)]
+                if e is None and r is not None:
+                    try:
+                        r.synchronize()
+                    except Exception as e_sync:
+                        e = e_sync
+                if e is None:
+                    results[id(it)] = _slice_out(o, 0, it.b, it.single)
+                else:
+                    errors[id(it)] = e
+        elif len(live) > 1 and self._link is None:
             # A coalesced dispatch failed: isolate the poisoned request(s) by
             # re-dispatching each request alone — batchmates still succeed.
             for it in live:
@@ -507,7 +927,9 @@ class AsyncFigaroServer:
         self._depth_sem.release()
 
     def _fail_item(self, item, error: BaseException) -> None:
-        if isinstance(item, _Request) and not item.future.done():
+        if isinstance(item, _Control):
+            item._fail(error)
+        elif isinstance(item, _Request) and not item.future.done():
             item.future._resolve(error=error)
             self._done_one()
 
@@ -524,7 +946,10 @@ class AsyncFigaroServer:
         Releases a `pause` hold first: flush demands every queued request be
         answered, which a held coalescer could never do — without this,
         ``append`` (which drains every server attached to the plan holder,
-        paused or not) would deadlock on a paused server's queued work."""
+        paused or not) would deadlock on a paused server's queued work.
+        A follower holds no requests: it returns at once."""
+        if self._follower:
+            return
         self.resume()
         with self._cond:
             self._cond.wait_for(lambda: self._outstanding == 0)
@@ -534,13 +959,20 @@ class AsyncFigaroServer:
         dispatch until `resume` — pre-loading the queue this way yields one
         maximally-coalesced batch. `flush` / `append` / `close` release the
         hold (they require the queue to drain)."""
+        self._refuse_on_follower("pause")
         self._run_gate.clear()
 
     def resume(self) -> None:
+        self._refuse_on_follower("resume")
         self._run_gate.set()
 
     def close(self) -> None:
-        """Drain outstanding work and stop the worker threads."""
+        """Drain outstanding work and stop the worker threads. Over a mesh,
+        rank 0's stop releases the followers; a follower's close returns
+        once rank 0 has closed (or raises what broke the stream)."""
+        if self._follower:
+            self._close_follower()
+            return
         with self._close_lock:  # `_closed` is only ever read under the lock
             if self._closed:
                 return
@@ -557,6 +989,23 @@ class AsyncFigaroServer:
         if threads is not None:
             for t in threads:
                 t.join(timeout=10.0)
+        if self._link is not None:
+            self._holder.detach_controller(self)
+
+    def _close_follower(self) -> None:
+        with self._close_lock:
+            self._closed = True
+            with self._thread_lock:
+                threads = self._threads or []
+        for t in threads:
+            # Bounded: rank 0 sends within the group's timeout while it
+            # lives, and a wait past it fails the thread's collective.
+            while t.is_alive():
+                t.join(timeout=1.0)
+        self._holder.detach_controller(self)
+        if self._link.broken is not None:
+            raise RuntimeError(f"the serving stream over the mesh broke: "
+                               f"{self._link.broken}") from self._link.broken
 
     def __enter__(self):
         return self

@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.core.engine import FigaroEngine, _plan_arg_error
 from repro_torch.core.join_tree import FigaroPlan
-from repro_torch.core.plan_cache import PlanHolder
+from repro_torch.core.plan_cache import PlanHolder, plan_signature
 from repro_torch.kernels._platform import resolve_device
 from repro_torch.launch.mesh import resolve_shard
 from repro_torch.train.async_serve import (AsyncFigaroServer, FigaroFuture,
@@ -87,12 +87,16 @@ def make_figaro_server(plan: FigaroPlan | PlanHolder, *, kind: str = "qr",
 
     Without ``engine=``, the server builds a donating engine (request
     tensors are consumed by the dispatch that answers them). With a
-    one-rank ``mesh`` (`launch.mesh.DataMesh`) the batch capacities are
-    aligned to ``mesh[shard_axis]`` and every batch dispatches through
-    ``shard=(mesh, shard_axis)``, as in the JAX package. A mesh of more
-    ranks raises `NotImplementedError` (ROADMAP.md, A12.2): each rank's
-    server would coalesce on its own timing and send different batches
-    into one collective. `repro_torch.figaro` (`Session.serve` /
+    ``mesh`` (`launch.mesh.DataMesh`) the batch capacities are aligned to
+    ``mesh[shard_axis]`` and every batch dispatches through
+    ``shard=(mesh, shard_axis)``, as in the JAX package. Over P > 1 ranks
+    (one process each) construction is collective: every rank calls this
+    with a plan built from the same tables and the same options (checked
+    on every rank; a mismatch raises `ValueError` on all of them). Rank 0's
+    server decides each batch and takes requests, appends and ``close``;
+    every other rank's server follows rank 0's stream (its ``close``
+    returns when rank 0 closes) — see `repro_torch.train.async_serve`. On
+    one rank nothing is exchanged. `repro_torch.figaro` (`Session.serve` /
     `JoinDataset.serve`) is the façade over this constructor — it fills
     engine, device, mesh and dtype from the session and resolves
     ``label_col`` by column name.
@@ -103,11 +107,8 @@ def make_figaro_server(plan: FigaroPlan | PlanHolder, *, kind: str = "qr",
     if mesh is not None:
         shard = resolve_shard(mesh, shard_axis)
         mesh.check_device(device)
-        if mesh.size > 1:
-            raise NotImplementedError(
-                f"serving over a mesh of {mesh.size} ranks is ROADMAP.md "
-                f"item A12.2 (a controller on rank 0 that decides each "
-                f"batch and broadcasts it); a one-rank mesh serves")
+        mesh.local_rank()
+        mesh.check_control()
     if isinstance(plan, PlanHolder):
         holder = plan
     else:
@@ -133,8 +134,17 @@ def make_figaro_server(plan: FigaroPlan | PlanHolder, *, kind: str = "qr",
             plan, label_col, batch, batch_capacity=cap, ridge=ridge,
             **common),
     }[kind]
+    config = None
+    if mesh is not None and mesh.size > 1 and holder.plan is not None:
+        # What every rank must share with rank 0 (its dispatch thread
+        # checks it on every rank before the first request).
+        config = {"plan": plan_signature(holder.plan), "kind": kind,
+                  "label_col": label_col, "k": k, "ridge": ridge,
+                  "dtype": str(dtype), "method": method,
+                  "leaf_rows": leaf_rows, "use_kernel": use_kernel,
+                  "assembly": assembly, "axis": shard_axis}
     server = FigaroServer(holder, dispatch, engine=engine, device=device,
-                          axis_size=1 if mesh is None else mesh.size,
-                          max_batch=max_batch, queue_depth=queue_depth)
+                          max_batch=max_batch, queue_depth=queue_depth,
+                          mesh=shard, config=config)
     holder.attach(server)
     return server

@@ -18,16 +18,30 @@ JAX package):
     staged with ``stage(shard=)``, an empty batch, and the trace counts of
     the JAX package's sharded driver (one miss per (plan, mesh) signature,
     none for another live size in the bucket, one more for a sub-mesh);
-  * a server over the mesh: it serves on one rank and raises
-    `NotImplementedError` naming A12.2 on more.
+  * servers over the mesh (`serve_over_mesh`), built on every rank through
+    ``Session(mesh=).from_tree(...).serve``: rank 0 submits B = 2·P + 1
+    requests for ``qr``, ``svd``, ``pca(k=3)`` and ``lsq(ridge=0.25)`` as
+    sub-batches of mixed sizes while paused (one coalesced batch), checks
+    that futures resolve in submission order; a poisoned request whose
+    rows land on a rank ≥ 1, where that rank's local dispatch raises, fails
+    only its own future; an append within capacity (``server.append``) and
+    a regrowing one (``ds.append``), each followed by requests on the
+    grown plan, then a re-root to D1 that every rank installs; a plan
+    that differs on one rank raises `ValueError` on every rank; a
+    follower's ``submit`` (and ``append``, ``pause``, ``resume``, its
+    dataset's ``append``) raises; every follower's
+    ``close`` returns after rank 0's; and while the servers live every
+    collective comes from a dispatch thread.
 
 Every rank checks that it issued no collective on a one-rank mesh, and
-all-gathers its Rs so that rank 0 can check them bit for bit. Rank 0 writes
-the results to OUT (``.npz``).
+all-gathers its Rs (the served ones and its plan's signature too) so that
+rank 0 can check them bit for bit. Rank 0 writes the results to OUT
+(``.npz``).
 """
 
 import datetime
 import sys
+import threading
 
 import numpy as np
 import torch
@@ -39,8 +53,11 @@ from repro_torch.core.distributed import (distributed_postprocess_r0,
 from repro_torch.core.engine import FigaroEngine
 from repro_torch.core.figaro import figaro_r0
 from repro_torch.core.join_tree import JoinTree, build_plan
+from repro_torch import figaro
+from repro_torch.core.plan_cache import (build_capacity_plan, plan_signature,
+                                         refresh_plan)
 from repro_torch.core.relation import Database, full_reduce
-from repro_torch.launch.mesh import make_data_mesh
+from repro_torch.launch.mesh import RankDispatchError, make_data_mesh
 from repro_torch.train.serve import make_figaro_server
 
 F64 = torch.float64
@@ -88,18 +105,56 @@ def star_tree(tables):
     return JoinTree.from_edges(db, "F", STAR_EDGES)
 
 
+APPENDED = 3  # requests after each append
+
+
+def appends(tree) -> list:
+    """The served appends, from seed 7 over keys the star already holds:
+    2 fact rows (F: 60 live rows of 64) within capacity, then 10 rows of D1
+    (25 of 32), past it."""
+    rng = np.random.default_rng(7)
+
+    def rows(name, k):
+        rel = tree.db[name]
+        keys = {a: rel.keys[:k, i] for i, a in enumerate(rel.key_attrs)}
+        return name, (keys, rng.normal(size=(k, rel.data.shape[1])))
+
+    return [rows("F", 2), rows("D1", 10)]
+
+
+def appended_requests(tree) -> list:
+    """[(requests after each append)]: `APPENDED` requests at the grown
+    plan's live sizes each, from seed 8 (the plans as `refresh_plan` grows
+    `build_capacity_plan(tree)`)."""
+    rng = np.random.default_rng(8)
+    plan, out = build_capacity_plan(tree), []
+    for node, rows in appends(tree):
+        plan = refresh_plan(plan, {node: rows})
+        live = [(int(ix.row_mask.sum()), sp.n)
+                for sp, ix in zip(plan.spec.nodes, plan.index)]
+        out.append([tuple(rng.normal(size=shape) for shape in live)
+                    for _ in range(APPENDED)])
+    return out
+
+
 class _Collectives:
-    """Counts this process's calls of the collectives the port uses."""
+    """Counts this process's calls of the collectives the port uses, and
+    records the thread of each."""
+
+    NAMES = ("all_gather", "batch_isend_irecv", "broadcast", "all_reduce",
+             "send", "recv", "scatter", "broadcast_object_list",
+             "all_gather_object")
 
     def __init__(self):
         self.calls = 0
-        for name in ("all_gather", "batch_isend_irecv", "broadcast",
-                     "all_reduce", "send", "recv"):
+        self.threads = []
+        for name in self.NAMES:
             setattr(dist, name, self._counted(getattr(dist, name)))
 
     def _counted(self, fn):
         def call(*args, **kwargs):
             self.calls += 1
+            self.threads.append(threading.current_thread().name)
             return fn(*args, **kwargs)
         return call
 
@@ -169,34 +224,220 @@ def run(rank: int, world: int) -> dict:
     out["lsq_beta"], out["lsq_resid"] = engine.least_squares(
         plan, n - 1, batch, batched=True, shard=mesh, ridge=0.25, dtype=F64)
 
-    # -- a server over the mesh ------------------------------------------
-    def server():
-        return make_figaro_server(plan, kind="lsq", label_col=n - 1,
-                                  ridge=0.25, dtype=F64, engine=engine,
-                                  mesh=mesh, device="cpu")
-
-    if world == 1:
-        serve = server()
-        out["served_beta"], out["served_resid"] = serve(batch)
-        serve.close()
-    else:
-        try:
-            server()
-        except NotImplementedError as e:
-            assert "A12.2" in str(e), e
-        else:
-            raise AssertionError("a server over several ranks must raise")
+    # -- servers over the mesh --------------------------------------------
+    first = len(counted.threads)
+    served, served_r = serve_over_mesh(mesh, tables, tree, batch)
+    window = counted.threads[first:]
+    assert set(window) <= {"figaro-serve-dispatch"}, sorted(set(window))
+    out.update(served)
 
     out["collectives"] = np.array(counted.calls)
     if world == 1:
         assert counted.calls == 0, "a one-rank mesh issued a collective"
     else:
+        sig = torch.frombuffer(bytearray.fromhex(out.pop("plan_sig")),
+                               dtype=torch.uint8)
         out["bit_identical"] = np.array([
             _gather_equal(mesh, out[k]) for k in (
                 "r_dist", "r_qr", "r_qr_odd", "r_part", "r_part_many",
-                "qr_batched", "svd_s", "lsq_beta")])
+                "qr_batched", "svd_s", "lsq_beta")] + [
+            _gather_equal(mesh, served_r), _gather_equal(mesh, sig)])
+    out.pop("plan_sig", None)
     return {k: (v.numpy() if isinstance(v, torch.Tensor) else v)
             for k, v in out.items()}
+
+
+SERVE_KINDS = (("qr", {}), ("svd", {}), ("pca", {"k": 3}),
+               ("lsq", {"ridge": 0.25}))
+
+
+def _sub_batches(batch) -> list:
+    """The requests of ``batch`` as one single request, then sub-batches of
+    2, 1, 3, 2, 1, ... requests."""
+    b, sizes, at = len(batch[0]), [], 1
+    while at < b:
+        sizes.append(min((2, 1, 3)[len(sizes) % 3], b - at))
+        at += sizes[-1]
+    subs, at = [tuple(d[0] for d in batch)], 1
+    for k in sizes:
+        subs.append(tuple(d[at:at + k] for d in batch))
+        at += k
+    return subs
+
+
+def _held_stream(server, requests) -> list:
+    """Submit ``requests`` while the coalescer is held, then release it;
+    every answer as [b, ...] parts, and whether the futures resolved in
+    submission order."""
+    order = []
+    server.pause()
+    futures = [server.submit(r) for r in requests]
+    for i, f in enumerate(futures):
+        f.add_done_callback(lambda _, i=i: order.append(i))
+    server.resume()
+    answers = [f.result(timeout=120) for f in futures]
+    assert order == list(range(len(futures))), order
+    return answers
+
+
+def _stacked(answers, single_first: bool):
+    """Per-request answers [B, ...] from a stream's parts (a tensor, a
+    tuple of them, or a PCAResult)."""
+    from repro_torch.core.engine import map_result
+
+    if single_first:
+        answers = [map_result(lambda x: x[None], answers[0])] + answers[1:]
+    first = answers[0]
+    if isinstance(first, tuple):
+        return tuple(torch.cat([a[j] for a in answers])
+                     for j in range(len(first)))
+    if isinstance(first, torch.Tensor):
+        return torch.cat(answers)
+    return {f: torch.cat([getattr(a, f) for a in answers])
+            for f in ("explained_variance", "mean")}
+
+
+def serve_over_mesh(mesh, tables, tree, batch):
+    """Every rank builds each server; rank 0 drives the checks (module
+    docstring). Returns rank 0's answers (and every rank's plan signature
+    and the served Rs, recorded on each rank, for the bit-for-bit check)."""
+    rank, world = mesh.rank, mesh.size
+    n = build_plan(tree).num_cols
+    sess = figaro.Session(mesh=mesh, device="cpu")
+    ds = sess.from_tree(tree)
+    out, served_r = {}, []
+    for kind, kw in SERVE_KINDS:
+        if kind == "lsq":
+            kw = dict(kw, label_col=n - 1)
+        server = ds.serve(kind, dtype=F64, **kw)
+        dispatch = server._dispatch_fn
+        if kind == "qr":  # the Rs every rank's dispatches gave
+            def recorded(plan, data, cap):
+                r = dispatch(plan, data, cap)
+                served_r.append(r)
+                return r
+            server._dispatch_fn = recorded
+        if rank != 0:
+            _check_follower(server, ds, kind)
+            server.close()  # returns once rank 0 has closed
+            _follow_appends(ds, kind)
+            continue
+        got = _stacked(_held_stream(server, _sub_batches(batch)), True)
+        if kind == "qr":
+            out["served_qr"] = got
+            out["poison"] = _poisoned_stream(server, batch, got)
+        elif kind == "svd":
+            out["served_svd_s"], out["served_svd_vt"] = got
+        elif kind == "pca":
+            out["served_pca_ev"] = got["explained_variance"]
+            out["served_pca_mean"] = got["mean"]
+        else:
+            out["served_lsq_beta"], out["served_lsq_resid"] = got
+            out.update(_served_appends(server, ds, tree))
+        server.close()
+    if world > 1:
+        _check_plan_mismatch(mesh, tables, rank)
+    out["plan_sig"] = plan_signature(ds.plan)
+    return out, torch.cat(served_r)
+
+
+def _poisoned_stream(server, batch, clean):
+    """tests/test_async_serve.py:197 across ranks: the last request carries
+    NaNs, which a rank ≥ 1's local dispatch refuses (`_follow_poison`
+    patches it there); its batchmates are answered (each re-sent alone),
+    and only its future fails, naming that rank."""
+    requests = [tuple(d[i] for d in batch) for i in range(len(batch[0]))]
+    requests[-1] = tuple(np.full_like(d, np.nan) for d in requests[-1])
+    server.pause()
+    futures = [server.submit(r) for r in requests]
+    server.resume()
+    for i, f in enumerate(futures[:-1]):
+        assert torch.allclose(f.result(timeout=120), clean[i],
+                              rtol=1e-12, atol=1e-12), i
+    err = futures[-1].exception(timeout=120)
+    world = server._link.mesh.size if server._link is not None else 1
+    if world == 1:  # no rank ≥ 1: NaN rows answer NaN
+        assert err is None
+        return np.array([1])
+    assert isinstance(err, RankDispatchError) and err.rank >= 1, err
+    assert "poisoned rows" in err.message, err.message
+    return np.array([err.rank])
+
+
+def _check_follower(server, ds, kind):
+    """A follower's surface: requests and plan changes are rank 0's."""
+    for call in (lambda: server.submit(()), lambda: server(()),
+                 lambda: server.append("F", None), server.pause,
+                 server.resume, lambda: ds.append("F", {}, np.zeros((0, 3)))):
+        try:
+            call()
+        except RuntimeError as e:
+            assert "rank 0" in str(e), e
+        else:
+            raise AssertionError("a follower must refuse requests")
+    if kind == "qr":  # rank 0's poisoned batch: this rank's dispatch fails
+        _follow_poison(ds._session.engine, server)
+
+
+def _follow_poison(engine, server):
+    """Make this rank's local dispatch raise on NaN rows while ``server``
+    lives (its dispatch thread runs it)."""
+    run = engine._run
+
+    def poisoned(kind, plan, data, *args, **kwargs):
+        if any(bool(torch.isnan(d).any()) for d in data):
+            raise RuntimeError(f"poisoned rows on rank "
+                               f"{server._link.rank}")
+        return run(kind, plan, data, *args, **kwargs)
+
+    engine._run = poisoned
+
+
+def _served_appends(server, ds, tree):
+    """Rank 0: an append within capacity through the server, requests, a
+    regrowing one through the dataset, requests, and a re-root (what an
+    adaptive dataset's append decides) that the stream carries."""
+    out = {}
+    (node1, rows1), (node2, rows2) = appends(tree)
+    after = appended_requests(tree)
+    assert server.append(node1, rows1) is True
+    got = _stacked(_held_stream(server, [tuple(d[None] for d in r)
+                                         for r in after[0]]), False)
+    out["appended1_beta"], out["appended1_resid"] = got
+    assert ds.append(node2, *rows2) is False  # a regrow
+    got = _stacked(_held_stream(server, [tuple(d[None] for d in r)
+                                         for r in after[1]]), False)
+    out["appended2_beta"], out["appended2_resid"] = got
+    ds._reroot_to("D1")  # a re-root rank 0 decided: every rank installs it
+    return out
+
+
+def _follow_appends(ds, kind):
+    """A follower's dataset after rank 0's lsq server: both appends and the
+    re-root came through the stream (and the poison patch of qr is
+    gone)."""
+    if kind == "qr":
+        vars(ds._session.engine).pop("_run", None)
+    if kind == "lsq":
+        stats = ds.stats()
+        assert (stats["appends"], stats["regrows"], stats["reroots"],
+                stats["root"]) == (2, 1, 1, "D1"), stats
+
+
+def _check_plan_mismatch(mesh, tables, rank):
+    """A plan from other tables on the last rank: `ValueError` on every
+    rank, from the construction's check."""
+    t = dict(tables)
+    if rank == mesh.size - 1:
+        keys, data, names = t["F"]
+        t["F"] = ({a: v[:-1] for a, v in keys.items()}, data[:-1], names)
+    try:
+        make_figaro_server(build_capacity_plan(star_tree(t)), kind="qr",
+                           dtype=F64, mesh=mesh, device="cpu")
+    except ValueError as e:
+        assert f"rank {mesh.size - 1}: plan" in str(e), e
+    else:
+        raise AssertionError("a plan mismatch must raise on every rank")
 
 
 def main(argv) -> None:

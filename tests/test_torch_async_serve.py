@@ -7,8 +7,10 @@ answers equal to the synchronous batched dispatch bit for bit, futures in
 submission order, sub-batches, B=0/B=1, validation and poisoned-dispatch
 isolation, interleaved submit/append with no signature miss, the shared
 plan holder, pause/append, ``max_batch``, abandoned threads, constructor
-validation, and a server over a one-rank data mesh (one of more ranks
-raises, naming ROADMAP item A12.2). Then the port's server against the JAX
+validation, and a server over a one-rank data mesh (a mesh of more ranks
+without the control group of `make_data_mesh` is refused; servers over
+P > 1 gloo ranks are tests/test_torch_distributed.py's). Then the port's
+server against the JAX
 package's (`repro.train.serve.make_figaro_server`) for every serving kind:
 the same requests (numpy, from a seed), float64, answers equal to 1e-9
 relative (R after `normalize_sign`, singular vectors and components up to
@@ -454,10 +456,10 @@ def test_constructor_validation():
     with pytest.raises(ValueError, match="axis"):
         make_figaro_server(cap, kind="qr", mesh=mesh, shard_axis="model",
                            device="cpu")
-    # several ranks: each would coalesce on its own (ROADMAP.md, A12.2)
+    # several ranks need the control group that carries rank 0's stream
     two = DataMesh(group=None, size=2, rank=0, device=mesh.device,
                    ranks=(0, 1), backend="gloo")
-    with pytest.raises(NotImplementedError, match="A12.2"):
+    with pytest.raises(ValueError, match="control group"):
         make_figaro_server(cap, kind="qr", mesh=two, device="cpu")
     if not torch.cuda.is_available():  # the card by default, no fallback
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -18,8 +18,10 @@ append within capacity replays (no capture), a regrow captures once, replays
 add the capture's launch counts, an evicted graph frees its memory, and two
 threads share one signature's graph. Serving: a thread captures a signature
 another thread ran eagerly, a served batch equals its synchronous batched
-dispatch bit for bit, `stage` copies on the engine's copy stream, and a
-batched node pass past 2³¹ elements keeps its offsets. flash_attention,
+dispatch bit for bit, `stage` copies on the engine's copy stream, a served
+stream over a one-rank NCCL mesh (appends included) equals the same stream
+without a mesh bit for bit and issues no collective, and a batched node
+pass past 2³¹ elements keeps its offsets. flash_attention,
 elementwise: 2e-5 absolute in float32 and 1e-12 in float64 (the JAX
 package's own kernel-vs-oracle bound, tests/test_flash_kernel.py, and
 float64 rounding); in bfloat16 one bfloat16 step, |got − want| ≤
@@ -1040,5 +1042,83 @@ def test_one_rank_nccl_mesh_dispatches_on_the_card(tmp_path):
         assert _platform.launch_counts().get("panel_qr_grid", 0) > 0
         r_ref = postprocess.postprocess_r0(a)
         assert _rel(r, r_ref) < 1e-9
+    finally:
+        dist.destroy_process_group()
+
+
+def test_one_rank_nccl_mesh_serves_on_the_card(tmp_path, monkeypatch):
+    """A served stream over a one-rank NCCL mesh (``Session(mesh=)``, rank 0
+    the controller of nothing): the same held requests, an append within
+    capacity, a regrowing one and a second stream give the answers of the
+    same stream through a server without a mesh bit for bit, the server
+    issues no collective, and node_fused and panel_qr launch."""
+    _need_card()
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_data_mesh
+
+    calls = []
+    for name in ("all_gather", "all_reduce", "broadcast", "scatter",
+                 "broadcast_object_list", "all_gather_object",
+                 "batch_isend_irecv"):
+        fn = getattr(dist, name)
+        monkeypatch.setattr(dist, name, lambda *a, _fn=fn, _n=name, **k: (
+            calls.append(_n), _fn(*a, **k))[1])
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=60),
+        device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_data_mesh()
+        assert mesh.size == 1 and mesh.control is None
+        sess = figaro.Session(mesh=mesh, use_kernel=True, assembly="band")
+        tree = yelp_like(scale=400, cols=3)
+        datasets = (sess.from_tree(tree), sess.from_tree(tree))
+        rng = np.random.default_rng(5)
+
+        def requests(plan, k):
+            return [tuple(np.asarray(d) * rng.uniform(0.5, 2.0, d.shape[-1])
+                          for d in plan.data) for _ in range(k)]
+
+        def stream(server, reqs):
+            server.pause()
+            futures = [server.submit(r) for r in reqs]
+            server.resume()
+            return [f.result(timeout=300) for f in futures]
+
+        def grow(ds, name, rows):
+            rel = ds.tree.db[name]
+            pick = np.arange(rows) % rel.num_rows
+            keys = {a: rel.key_col(a)[pick].copy() for a in rel.key_attrs}
+            return ds.append(name, keys, np.ones((rows, rel.data.shape[1])))
+
+        _platform.reset_launch_counts()
+        meshed = datasets[0].serve("svd", max_batch=4)
+        lone = datasets[1].serve("svd", max_batch=4, mesh=None)
+        answers = []
+        for step in range(2):
+            reqs = requests(datasets[0].plan, 6)
+            answers.append([stream(s, reqs) for s in (meshed, lone)])
+            if step == 0:
+                nodes = datasets[0].stats()["nodes"]
+                room = {n: v["capacity_rows"] - v["live_rows"]
+                        for n, v in nodes.items()}
+                fits = max(room, key=room.get)
+                assert room[fits] > 0
+                for ds in datasets:
+                    assert grow(ds, fits, 1) is True
+                    assert grow(ds, "CheckIn", room["CheckIn"] + 1) is False
+        meshed.close()
+        lone.close()
+        launches = _platform.launch_counts()
+        assert launches.get("node_fused", 0) > 0
+        assert launches.get("panel_qr", 0) > 0
+        assert calls == []
+        for got, want in answers:
+            for a, b in zip(got, want, strict=True):
+                assert all(torch.equal(x, y) for x, y in zip(a, b))
     finally:
         dist.destroy_process_group()

@@ -15,8 +15,13 @@ one process per rank, a `FileStore`, a 60 s timeout on every group and a
 inputs, computed here: the TSQR combine, fact partitions over the mesh, the
 sharded batched kinds at a batch the mesh does not divide, the reference's
 trace counts, every rank's R bit for bit, no collective on one rank, and
-the server (one rank) or its A12.2 error (more). Tolerance: float64, 1e-9
-relative after `normalize_sign` (tests/test_kernel_path.py:30).
+a server over the mesh built on every rank with rank 0 as its controller:
+``qr/svd/pca/lsq`` answers in submission order, a poisoned request failing
+alone on a rank ≥ 1's fault, answers before and after an append within
+capacity and a regrow, the plans and the served Rs of every rank bit for
+bit, a plan mismatch refused on every rank, collectives only from the
+dispatch threads. Tolerance: float64, 1e-9 relative after `normalize_sign`
+(tests/test_kernel_path.py:30).
 """
 
 import functools
@@ -37,6 +42,9 @@ from repro.core.engine import FigaroEngine as JaxEngine
 from repro.core.join_tree import JoinTree as JaxJoinTree
 from repro.core.join_tree import build_plan as jax_build_plan
 from repro.core.materialize import materialize_join
+from repro.core.plan_cache import build_capacity_plan as jax_capacity_plan
+from repro.core.plan_cache import pad_data as jax_pad_data
+from repro.core.plan_cache import refresh_plan as jax_refresh_plan
 from repro.core.postprocess import normalize_sign as jax_normalize_sign
 from repro.core.relation import Database as JaxDatabase
 from repro.core.relation import full_reduce as jax_full_reduce
@@ -254,7 +262,8 @@ def test_sharded_dispatch_single_request_batch():
 def test_staged_shard_is_checked_against_its_dispatch():
     """``stage(shard=)`` tags its rows with the mesh and the padded size;
     the dispatch takes them as they are, refuses another padded size, and
-    an unsharded dispatch refuses them."""
+    an unsharded dispatch refuses them; rows already this rank's
+    (``live=``, as a serving controller sends them) stage as they are."""
     plan = build_plan(_star_pair()[0])
     engine = FigaroEngine(donate_data=False)
     batch = _batch(plan, np.random.default_rng(2), 3)
@@ -269,6 +278,15 @@ def test_staged_shard_is_checked_against_its_dispatch():
                   dtype=F64)
     with pytest.raises(ValueError, match="same shard="):
         engine.qr(plan, staged, batched=True, dtype=F64, device="cpu")
+    # at a bucket, and rows that are already this rank's (``live=``)
+    padded = engine.stage(batch, shard=mesh, batch_capacity=4)
+    assert padded.shard == ((mesh.signature, "data"), 3, 4)
+    rows = engine.stage(list(padded), shard=mesh, batch_capacity=4, live=3)
+    assert rows.shard == padded.shard
+    assert torch.equal(engine.qr(plan, rows, batched=True, shard=mesh,
+                                 batch_capacity=4, dtype=F64), r)
+    with pytest.raises(ValueError, match="each rank 2 rows"):
+        engine.stage(batch, shard=mesh, live=2)
 
 
 def test_session_mesh_shards_batched_calls():
@@ -376,7 +394,28 @@ def _reference() -> dict:
                     "pca_mean": pca_i.mean, "lsq_beta": beta_i,
                     "lsq_resid": resid_i})
     ref["per_sample"] = per
+    ref["appended"] = _appended_reference(tables, j_tree)
     return ref
+
+
+def _appended_reference(tables, j_tree) -> list:
+    """The JAX engine's lsq(ridge=0.25) answers on the plan after each of
+    the driver's appends (`refresh_plan` of the capacity plan), for the
+    requests the driver sends after it (padded to capacity)."""
+    t_tree = driver.star_tree(tables)
+    plan = jax_capacity_plan(j_tree)
+    n = plan.spec.num_cols
+    out = []
+    for (node, rows), reqs in zip(driver.appends(t_tree),
+                                  driver.appended_requests(t_tree)):
+        plan = jax_refresh_plan(plan, {node: rows})
+        per = [_JAX.least_squares(plan, n - 1,
+                                  jax_pad_data(list(r), plan.spec),
+                                  ridge=0.25, dtype=jnp.float64)
+               for r in reqs]
+        out.append((np.stack([np.asarray(b) for b, _ in per]),
+                    np.stack([np.asarray(r) for _, r in per])))
+    return out
 
 
 @pytest.mark.parametrize("world", WORLDS)
@@ -401,11 +440,19 @@ def test_gloo_ranks_match_reference(world, tmp_path):
             got = res["qr_batched" if key == "qr" else key][i]
             assert _rel(got, want[key]) < RTOL, (key, i)
         vt = want["svd_vt"]  # singular vectors up to the sign of each row
-        sgn = np.sign(np.sum(res["svd_vt"][i] * vt, axis=1))[:, None]
-        assert _rel(res["svd_vt"][i] * sgn, vt) < 1e-8
-        if world == 1:
-            assert _rel(res["served_beta"][i], want["lsq_beta"]) < RTOL
-            assert _rel(res["served_resid"][i], want["lsq_resid"]) < RTOL
+        for got_vt in (res["svd_vt"][i], res["served_svd_vt"][i]):
+            sgn = np.sign(np.sum(got_vt * vt, axis=1))[:, None]
+            assert _rel(got_vt * sgn, vt) < 1e-8
+        # served over the mesh: rank 0's controller, every rank's rows
+        for key in ("qr", "svd_s", "pca_ev", "pca_mean", "lsq_beta",
+                    "lsq_resid"):
+            assert _rel(res[f"served_{key}"][i], want[key]) < RTOL, (key, i)
+    # after an append within capacity, then after a regrow
+    for k, (beta, resid) in enumerate(ref["appended"], start=1):
+        assert _rel(res[f"appended{k}_beta"], beta) < RTOL, k
+        assert _rel(res[f"appended{k}_resid"], resid) < RTOL, k
+    # the poisoned request failed alone, on a rank >= 1's fault
+    assert int(res["poison"][0]) >= 1
 
     # the JAX package's sharded driver's trace counts: one miss, none on a
     # repeat, a staged batch or another live size in the bucket, one more
