@@ -309,16 +309,13 @@ def serve_over_mesh(mesh, tables, tree, batch):
     for kind, kw in SERVE_KINDS:
         if kind == "lsq":
             kw = dict(kw, label_col=n - 1)
+        if kind == "qr":
+            # A rank's dispatch thread follows rank 0's stream from the
+            # moment its constructor returns, so its hooks go in first.
+            _hook_qr(sess.engine, rank, served_r)
         server = ds.serve(kind, dtype=F64, **kw)
-        dispatch = server._dispatch_fn
-        if kind == "qr":  # the Rs every rank's dispatches gave
-            def recorded(plan, data, cap):
-                r = dispatch(plan, data, cap)
-                served_r.append(r)
-                return r
-            server._dispatch_fn = recorded
         if rank != 0:
-            _check_follower(server, ds, kind)
+            _check_follower(server, ds)
             server.close()  # returns once rank 0 has closed
             _follow_appends(ds, kind)
             continue
@@ -326,6 +323,7 @@ def serve_over_mesh(mesh, tables, tree, batch):
         if kind == "qr":
             out["served_qr"] = got
             out["poison"] = _poisoned_stream(server, batch, got)
+            _unhook_qr(sess.engine)
         elif kind == "svd":
             out["served_svd_s"], out["served_svd_vt"] = got
         elif kind == "pca":
@@ -364,7 +362,7 @@ def _poisoned_stream(server, batch, clean):
     return np.array([err.rank])
 
 
-def _check_follower(server, ds, kind):
+def _check_follower(server, ds):
     """A follower's surface: requests and plan changes are rank 0's."""
     for call in (lambda: server.submit(()), lambda: server(()),
                  lambda: server.append("F", None), server.pause,
@@ -375,22 +373,34 @@ def _check_follower(server, ds, kind):
             assert "rank 0" in str(e), e
         else:
             raise AssertionError("a follower must refuse requests")
-    if kind == "qr":  # rank 0's poisoned batch: this rank's dispatch fails
-        _follow_poison(ds._session.engine, server)
 
 
-def _follow_poison(engine, server):
-    """Make this rank's local dispatch raise on NaN rows while ``server``
-    lives (its dispatch thread runs it)."""
-    run = engine._run
+def _hook_qr(engine, rank, served_r):
+    """Before the qr server is built: record in ``served_r`` the R of every
+    ``engine.qr`` dispatch (every rank's dispatch thread runs one per batch),
+    and on a rank ≥ 1 make the local dispatch raise on NaN rows (rank 0's
+    poisoned batch, `_poisoned_stream`)."""
+    qr, run = engine.qr, engine._run
+
+    def recorded(*args, **kwargs):
+        r = qr(*args, **kwargs)
+        served_r.append(r)
+        return r
 
     def poisoned(kind, plan, data, *args, **kwargs):
         if any(bool(torch.isnan(d).any()) for d in data):
-            raise RuntimeError(f"poisoned rows on rank "
-                               f"{server._link.rank}")
+            raise RuntimeError(f"poisoned rows on rank {rank}")
         return run(kind, plan, data, *args, **kwargs)
 
-    engine._run = poisoned
+    engine.qr = recorded
+    if rank != 0:
+        engine._run = poisoned
+
+
+def _unhook_qr(engine):
+    """Drop `_hook_qr`'s wrappers once the qr server has closed."""
+    vars(engine).pop("qr", None)
+    vars(engine).pop("_run", None)
 
 
 def _served_appends(server, ds, tree):
@@ -413,11 +423,11 @@ def _served_appends(server, ds, tree):
 
 
 def _follow_appends(ds, kind):
-    """A follower's dataset after rank 0's lsq server: both appends and the
-    re-root came through the stream (and the poison patch of qr is
-    gone)."""
+    """A follower's dataset after a server closed: the qr hooks are gone,
+    and after rank 0's lsq server both appends and the re-root came
+    through the stream."""
     if kind == "qr":
-        vars(ds._session.engine).pop("_run", None)
+        _unhook_qr(ds._session.engine)
     if kind == "lsq":
         stats = ds.stats()
         assert (stats["appends"], stats["regrows"], stats["reroots"],
