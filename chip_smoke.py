@@ -9,6 +9,9 @@ Run from the root of a checkout on a machine with one CUDA card::
 Phases (any failure raises and the script exits non-zero, printing no
 result line):
 
+  0. lint     — the port's own figaro-lint (`repro_torch.analysis`, stdlib
+                only) over ``src/repro_torch``: the count of findings, each
+                finding, and a stop on any (no card time).
   1. card     — the card's name and power limit (nvidia-smi), torch and CUDA
                 versions; TF32 off for matmuls and cuDNN.
   2. build    — builds every CUDA kernel from ``src/repro_torch/csrc`` (one
@@ -363,6 +366,23 @@ def wall(fn, reps: int = 3):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     return out, statistics.median(times), times, warm
+
+
+# -- phase 0 ------------------------------------------------------------------
+
+def phase_lint() -> None:
+    """The port's figaro-lint over its tree, with no baseline: any finding
+    stops the run."""
+    from repro_torch.analysis import analyze_paths
+
+    t0 = time.perf_counter()
+    findings = analyze_paths([str(REPO / "src" / "repro_torch")],
+                             root=str(REPO))
+    for f in findings:
+        log(f.render())
+    log(f"lint: {len(findings)} finding(s) over src/repro_torch in "
+        f"{time.perf_counter() - t0:.2f} s")
+    check(not findings, "the port's figaro-lint reports no finding")
 
 
 # -- phase 1 ------------------------------------------------------------------
@@ -2891,6 +2911,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _platform, _seg_scan
 
     t_start = time.perf_counter()
+    log("== phase 0: lint")
+    phase_lint()
     log("== phase 1: card")
     phase_card()
     log("== phase 2: build")

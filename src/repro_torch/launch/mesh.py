@@ -27,6 +27,7 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import os
+import weakref
 
 import torch
 
@@ -49,7 +50,7 @@ class RankDispatchError(RuntimeError):
         self.message = message
 
 
-@dataclasses.dataclass(frozen=True, eq=False)
+@dataclasses.dataclass(frozen=True, eq=False, init=False)
 class DataMesh:
     """A 1-D ``"data"`` axis of ``size`` ranks.
 
@@ -60,16 +61,41 @@ class DataMesh:
     ``control`` is the host-side gloo group over the same ranks that
     carries a server's stream and the ranks' agreement (None on one rank),
     ``timeout`` the bound of its collectives. ``shape`` reads like the JAX
-    package's ``Mesh.shape``."""
+    package's ``Mesh.shape``.
 
-    group: object
+    The mesh refers to its process groups and does not own them:
+    `torch.distributed` does, and ``destroy_process_group`` ends them, and
+    joins their gloo threads, there and then, however long the mesh itself
+    lives (a server over it is often kept in a reference cycle until the
+    interpreter exits). A group's threads still running when the
+    interpreter tears itself down can abort the process. Reading ``group``
+    or ``control`` after their group was destroyed raises."""
+
     size: int
     rank: int | None
     device: torch.device
     ranks: tuple[int, ...]
     backend: str | None
-    control: object = None
-    timeout: datetime.timedelta | None = None
+    timeout: datetime.timedelta | None
+
+    def __init__(self, group, size: int, rank: int | None,
+                 device: torch.device, ranks: tuple[int, ...],
+                 backend: str | None, control=None,
+                 timeout: datetime.timedelta | None = None):
+        for name, value in (("_group", _borrow(group)), ("size", size),
+                            ("rank", rank), ("device", device),
+                            ("ranks", ranks), ("backend", backend),
+                            ("_control", _borrow(control)),
+                            ("timeout", timeout)):
+            object.__setattr__(self, name, value)
+
+    @property
+    def group(self):
+        return _lend(self._group, "group")
+
+    @property
+    def control(self):
+        return _lend(self._control, "control group")
 
     @property
     def shape(self) -> dict[str, int]:
@@ -130,6 +156,28 @@ class DataMesh:
         dist.broadcast_object_list(message, src=self.ranks[first],
                                    group=self.control)
         raise RankDispatchError(first, message[0]) from error
+
+
+def _borrow(group):
+    """A weak reference to a process group; anything else (None, a rank's
+    non-member marker) as it is."""
+    if group is None:
+        return None
+    import torch.distributed as dist
+
+    if dist.is_available() and isinstance(group, dist.ProcessGroup):
+        return weakref.ref(group)
+    return group
+
+
+def _lend(held, what: str):
+    if not isinstance(held, weakref.ref):
+        return held
+    group = held()
+    if group is None:
+        raise RuntimeError(f"the mesh's {what} was destroyed "
+                           f"(torch.distributed.destroy_process_group)")
+    return group
 
 
 def resolve_shard(shard, axis: str = "data") -> tuple[DataMesh, str]:

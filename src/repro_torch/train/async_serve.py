@@ -536,6 +536,11 @@ class AsyncFigaroServer:
             self._holder.detach_controller(self)
             with self._close_lock:
                 self._closed = True
+            # The failed check ends the threads: none outlives the raise.
+            with self._thread_lock:
+                threads = self._threads
+            for t in threads:
+                t.join(timeout=10.0)
             raise
 
     @property

@@ -27,7 +27,8 @@ JAX package):
     only its own future; an append within capacity (``server.append``) and
     a regrowing one (``ds.append``), each followed by requests on the
     grown plan, then a re-root to D1 that every rank installs; a plan
-    that differs on one rank raises `ValueError` on every rank; a
+    that differs on one rank raises `ValueError` on every rank, and that
+    failed construction leaves no server thread behind; a
     follower's ``submit`` (and ``append``, ``pause``, ``resume``, its
     dataset's ``append``) raises; every follower's
     ``close`` returns after rank 0's; and while the servers live every
@@ -36,12 +37,18 @@ JAX package):
 Every rank checks that it issued no collective on a one-rank mesh, and
 all-gathers its Rs (the served ones and its plan's signature too) so that
 rank 0 can check them bit for bit. Rank 0 writes the results to OUT
-(``.npz``).
+(``.npz``). Every rank ends with no thread but its main one: no Python
+thread, and, once the world's group is destroyed, no process group that
+a mesh lent and no gloo worker thread (a group's threads still running
+while the interpreter tears itself down can abort the rank).
 """
 
 import datetime
+import faulthandler
+import pathlib
 import sys
 import threading
+import weakref
 
 import numpy as np
 import torch
@@ -103,6 +110,30 @@ def inputs(world: int):
 def star_tree(tables):
     db = full_reduce(Database.from_arrays(tables), STAR_EDGES)
     return JoinTree.from_edges(db, "F", STAR_EDGES)
+
+
+#: Weak references to the process groups this rank's meshes lent.
+_GROUPS = []
+
+
+def _watch(mesh):
+    for group in (mesh.group, mesh.control):
+        if isinstance(group, dist.ProcessGroup):
+            _GROUPS.append(weakref.ref(group))
+    return mesh
+
+
+def _thread_names() -> list[str]:
+    """This process's threads as the kernel names them (empty where there
+    is no /proc); a thread that ends while they are read is left out."""
+    task = pathlib.Path("/proc/self/task")
+    names = []
+    for t in sorted(task.iterdir()) if task.is_dir() else ():
+        try:
+            names.append((t / "comm").read_text().strip())
+        except FileNotFoundError:
+            pass
+    return names
 
 
 APPENDED = 3  # requests after each append
@@ -168,7 +199,7 @@ def _gather_equal(mesh, t: torch.Tensor) -> bool:
 
 def run(rank: int, world: int) -> dict:
     counted = _Collectives()
-    mesh = make_data_mesh()
+    mesh = _watch(make_data_mesh())
     assert mesh.size == world and mesh.rank == rank, mesh
     assert mesh.device == torch.device("cpu")
     tables, x, x_odd, batch = inputs(world)
@@ -211,7 +242,7 @@ def run(rank: int, world: int) -> dict:
                                  batched=True, shard=mesh, dtype=F64)
     assert empty[0].shape == (0, n - 1) and empty[1].shape == (0,)
     if world > 1:  # a sub-mesh is another mesh signature: one more miss
-        sub = make_data_mesh(world - 1, timeout=TIMEOUT)
+        sub = _watch(make_data_mesh(world - 1, timeout=TIMEOUT))
         if sub.rank is not None:  # rank world - 1 holds no rank of it
             engine.qr(plan, batch, batched=True, shard=sub, dtype=F64)
             counts.append(engine.trace_count("qr_batched"))
@@ -446,6 +477,9 @@ def _check_plan_mismatch(mesh, tables, rank):
                            dtype=F64, mesh=mesh, device="cpu")
     except ValueError as e:
         assert f"rank {mesh.size - 1}: plan" in str(e), e
+        left = [t.name for t in threading.enumerate()
+                if t.name.startswith("figaro-serve")]
+        assert not left, f"a failed construction left threads: {left}"
     else:
         raise AssertionError("a plan mismatch must raise on every rank")
 
@@ -453,6 +487,7 @@ def _check_plan_mismatch(mesh, tables, rank):
 def main(argv) -> None:
     rank, world, store_path, out_path = (int(argv[1]), int(argv[2]),
                                          argv[3], argv[4])
+    faulthandler.enable(all_threads=True)  # an abort shows every thread
     torch.set_num_threads(1)
     store = dist.FileStore(store_path, world)
     dist.init_process_group("gloo", store=store, rank=rank,
@@ -463,7 +498,16 @@ def main(argv) -> None:
             np.savez(out_path, **results)
     finally:
         dist.destroy_process_group()
-    print(f"RANK-OK {rank}/{world}")
+    left = [t.name for t in threading.enumerate()
+            if t is not threading.main_thread()]
+    assert not left, f"threads left at exit: {left}"
+    alive = sum(ref() is not None for ref in _GROUPS)
+    assert not alive, f"{alive} process group(s) outlived their destruction"
+    # a destroyed group has joined its worker threads (its transport's
+    # event loop may still be winding down on its own)
+    workers = [name for name in _thread_names() if "gloo_runloop" in name]
+    assert not workers, f"gloo worker threads left at exit: {workers}"
+    print(f"RANK-OK {rank}/{world}", flush=True)
 
 
 if __name__ == "__main__":

@@ -203,6 +203,32 @@ def test_make_data_mesh_without_a_process_group():
         tdist.distributed_qr_r(torch.ones(4, 2, dtype=F64), outside)
 
 
+def test_mesh_lends_its_process_groups_and_does_not_own_them(tmp_path):
+    """A mesh kept alive past `destroy_process_group` (a server over it is
+    often held in a reference cycle until the interpreter exits) must not
+    keep its groups, and their gloo threads, running into the
+    interpreter's teardown."""
+    import weakref
+
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", rank=0, world_size=1,
+                            store=dist.FileStore(str(tmp_path / "store"), 1))
+    try:
+        mesh = make_data_mesh()
+        group = weakref.ref(mesh.group)
+        assert isinstance(group(), dist.ProcessGroup)
+        assert mesh.control is None and mesh.size == 1
+        cycle = [mesh]
+        cycle.append(cycle)
+    finally:
+        dist.destroy_process_group()
+    assert group() is None
+    with pytest.raises(RuntimeError, match="mesh's group was destroyed"):
+        mesh.group
+    assert cycle[0].signature == (1, 0, "gloo")
+
+
 # -- shard= on the one-rank mesh (tests/test_engine.py:310, :336, :356) --------
 
 

@@ -9,11 +9,11 @@ the float32 error within the paper's database-size budget (the same budget
 as the JAX package's on the same plan), the NaN tripwire and sampling,
 and the two async-server storms of tests/test_sanitizer_stress.py on the
 port's server. It also holds every lock and thread of `repro_torch` to the sanitizer's
-wrappers: no raw ``threading.Lock/RLock/Condition/Thread`` outside
-``sanitizer/``. The port runs on the CPU.
+wrappers through the port's lint rule FGT007: no raw
+``threading.Lock/RLock/Condition/Thread`` outside ``sanitizer/``. The port
+runs on the CPU.
 """
 
-import ast
 import pathlib
 import threading
 
@@ -28,6 +28,8 @@ from repro.core.join_tree import build_plan as jax_build_plan
 from repro.data import relational as jrel
 from repro.sanitizer import numerics as jnumerics
 from repro_torch import sanitizer
+from repro_torch.analysis import analyze_paths, analyze_source
+from repro_torch.analysis.rules import SanRoutingRule
 from repro_torch.core.engine import FigaroEngine
 from repro_torch.core.join_tree import build_plan
 from repro_torch.core.plan_cache import PlanHolder, build_capacity_plan
@@ -483,32 +485,15 @@ def test_two_servers_one_holder_under_sanitizer(san):
     assert sanitizer.findings() == [], "\n" + sanitizer.report()
 
 
-_RAW = {"Lock", "RLock", "Condition", "Thread"}
-
-
-def _raw_threading_uses(path: pathlib.Path) -> list[str]:
-    tree = ast.parse(path.read_text(encoding="utf-8"))
-    found = []
-    for node in ast.walk(tree):
-        if isinstance(node, ast.ImportFrom) and node.module == "threading":
-            found += [f"from threading import {a.name}" for a in node.names
-                      if a.name in _RAW]
-        elif (isinstance(node, ast.Attribute) and node.attr in _RAW
-              and isinstance(node.value, ast.Name)
-              and node.value.id == "threading"):
-            found.append(f"threading.{node.attr}")
-    return found
-
-
-def test_port_routes_locks_and_threads_through_the_sanitizer(tmp_path):
-    offenders = {str(p.relative_to(PORT)): uses
-                 for p in sorted(PORT.rglob("*.py"))
-                 if p.parent.name != "sanitizer"
-                 for uses in [_raw_threading_uses(p)] if uses}
-    assert not offenders, offenders
-    # the scan sees what it should
-    probe = tmp_path / "probe.py"
-    probe.write_text("import threading\nx = threading.Lock()\n"
-                     "from threading import Thread\n")
-    assert sorted(_raw_threading_uses(probe)) == [
-        "from threading import Thread", "threading.Lock"]
+def test_port_routes_locks_and_threads_through_the_sanitizer():
+    """The port's lint rule FGT007 over the port finds no raw
+    `threading.Lock/RLock/Condition/Thread` outside `sanitizer/`."""
+    findings = analyze_paths([str(PORT)], rules=[SanRoutingRule()],
+                             root=str(PORT.parent.parent))
+    assert not findings, [f.render() for f in findings]
+    # the rule sees what it should
+    probe = analyze_source("import threading\nx = threading.Lock()\n"
+                           "from threading import Thread\n",
+                           "src/repro_torch/probe.py", [SanRoutingRule()])
+    assert sorted(f.message.split("`")[1] for f in probe) == [
+        "threading.Lock", "threading.Thread"]
