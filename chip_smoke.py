@@ -199,6 +199,29 @@ result line):
                 one eval step with the counters zeroed, its flash calls
                 against the plain version and SDPA, then the same calls cast
                 to float64, against the plain version and SDPA in float64.
+  7c. serve   — (run after 7, on its model) qwen3-8b prefill and decode
+                (``make_prefill``, ``make_decode_step``, ``sample_loop``):
+                8 prompts of 2,048 tokens (``decode_32k`` cut from 128 ×
+                32,768) into a 2,113-slot cache; prefill ms (median of 3
+                after a warm-up); greedy ``sample_loop`` for 64 steps (one
+                eager decode step, then replays of one captured CUDA graph)
+                with the counters zeroed around it (the cache branch reaches
+                no port kernel: logged, not checked), its tokens equal to
+                the same loop run eagerly; one replay against one eager step
+                from the same cache and tokens (logits and every cache leaf
+                bit for bit); decode ms a step eager and replayed (medians),
+                tokens/s, the step's bound (parameters and cache read once)
+                beside the bytes it moves as written (weights cast to
+                bfloat16 every call); kernels and copies and the busy share
+                of one profiled replay and one eager step; the graph's pool;
+                prefill and 16 teacher-forced decode steps against the
+                forward (``use_flash_kernel=False``) on 2 of the 8 sequences
+                at 2e-2 of max |logits|; peak reserved memory under 80 GB.
+                Then the model cut to 2 blocks in float32, 2 prompts of
+                2,048 tokens, the same teacher-forced check at the JAX
+                package's 2e-3 × max(max |logits|, 1), with a linear cache
+                and with ``swa_window=512`` (prefill keeps the ring's last
+                512 rows, decode wraps it).
   8. summary  — one ``{"kernels": [...]}`` line, then, last, the
                 ``{"ok": true, "device": {...}}`` line.
 
@@ -2798,9 +2821,9 @@ def phase_lm(seed: int) -> dict:
                      lambda: eval_fn(model, batch))
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         " GiB over the LM phase")
-    del model
     torch.cuda.empty_cache()
-    return {"launches": launches, "step_ms": t_step * 1e3,
+    # The model goes on to phase 7c (serving), which frees it.
+    return {"model": model, "launches": launches, "step_ms": t_step * 1e3,
             "tokens_per_s": tok_s, "loss": loss, "peak_gib": peak,
             "logits_rel_err": err / scale, "flash": flash,
             "launches_per_forward":
@@ -2885,6 +2908,305 @@ def phase_lm32(seed: int) -> dict:
             f"({flash['library_ms']:.3f} ms)")
         out[dtype] = flash
     del calls
+    torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 7c: LM serving ---------------------------------------------------------
+
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 8, 2048, 64  # decode_32k, cut
+SERVE_ROWS = 2  # sequences the teacher-forced decode is held to the forward on
+SERVE_FORCED = 16  # teacher-forced decode steps
+SERVE_TIMED = 56  # timed replays (the cache holds SERVE_STEPS + 1 positions)
+SERVE_WINDOW = 512  # the float32 cut's sliding window (a ring of 512 slots)
+
+
+def cache_leaves(cache) -> list:
+    """The cache's tensors: the top-level position, then each sub-layer's
+    ``k``, ``v`` and ``pos``."""
+    return [cache["pos"]] + [leaf for sub in cache["blocks"].values()
+                             for leaf in sub["attn"].values()]
+
+
+def clone_cache(cache) -> dict:
+    return {"pos": cache["pos"].clone(), "blocks": {
+        j: {"attn": {n: leaf.clone() for n, leaf in sub["attn"].items()}}
+        for j, sub in cache["blocks"].items()}}
+
+
+def caches_equal(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(cache_leaves(a),
+                                                  cache_leaves(b),
+                                                  strict=True))
+
+
+def pool_gib(pool):
+    """GiB the caching allocator holds in the graph memory ``pool``, or
+    None where the snapshot does not name pools."""
+    import torch
+
+    segments = torch.cuda.memory_snapshot()
+    if not all("segment_pool_id" in s for s in segments):
+        return None
+    return sum(s["total_size"] for s in segments
+               if tuple(s["segment_pool_id"]) == tuple(pool)) / 2**30
+
+
+def decode_cost(model, cfg, cache) -> dict:
+    """The least work of one decode step over ``cache``: every block and
+    head parameter read once (the embedding only at the batch's rows),
+    the whole cache read, the logits written; the products of the blocks
+    (bfloat16, tensor cores), of attention over every slot, and of the
+    float32 head (CUDA cores). ``written_bytes`` adds what the step moves
+    as the port writes it: each block weight cast to bfloat16 on every
+    call (written, then read)."""
+    k = cache["blocks"]["pos0"]["attn"]["k"]
+    b, slots = k.shape[1], k.shape[2]
+    params = dict(model.named_parameters())
+    block = sum(p.numel() for n, p in params.items() if n.startswith("blocks."))
+    weights = sum(p.numel() * p.element_size() for n, p in params.items()
+                  if n != "embed" or cfg.tie_embeddings)
+    head = cfg.d_model * cfg.padded_vocab
+    nbytes = (weights + b * cfg.d_model * params["embed"].element_size()
+              + sum(t.numel() * t.element_size() for t in cache_leaves(cache))
+              + b * cfg.padded_vocab * 4)
+    attn = 4 * b * cfg.n_heads * cfg.resolved_head_dim * slots * cfg.n_blocks
+    ops_ms = ((2 * b * block + attn) / PEAK_FLOPS["bfloat16"]
+              + 2 * b * head / PEAK_FLOPS["float32"]) * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bytes": nbytes, "written_bytes": nbytes + 4 * block,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "written_ms": (nbytes + 4 * block) / HBM_BYTES_PER_S * 1e3}
+
+
+def decode_vs_forward(label: str, model, cfg, tokens, prompt: int,
+                      rows: int, rel: float, floor: float) -> dict:
+    """Prefill ``tokens[:, :prompt]`` and decode the rest teacher-forced
+    (`make_prefill`, `make_decode_step`; ``max_len`` one past the tokens),
+    each step's logits on the first ``rows`` sequences against
+    ``Transformer.forward`` of those sequences with ``use_flash_kernel=
+    False``: the largest |difference| at most ``rel`` × max(max |logits|,
+    ``floor``)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.train.serve import make_decode_step, make_prefill
+
+    plain = dataclasses.replace(cfg, use_flash_kernel=False)
+    total = tokens.shape[1]
+    with torch.inference_mode():
+        full, _, _ = model({"tokens": tokens[:rows]}, plain)
+    logits, cache = make_prefill(plain, total + 1)(
+        model, {"tokens": tokens[:, :prompt]})
+    slots = cache["blocks"]["pos0"]["attn"]["k"].shape[2]
+    errs = [float((logits[:rows] - full[:, prompt - 1]).abs().max())]
+    decode = make_decode_step(plain)
+    for j in range(prompt, total):
+        logits, cache = decode(model, cache, tokens[:, j:j + 1])
+        errs.append(float((logits[:rows] - full[:, j]).abs().max()))
+    scale = float(full.abs().max())
+    limit = rel * max(scale, floor)
+    finite = bool(torch.isfinite(logits).all())
+    del full, logits, cache
+    torch.cuda.empty_cache()
+    log(f"{label}: prefill of {prompt} tokens and {total - prompt} "
+        f"teacher-forced decode steps ({slots} cache slots) against the "
+        f"forward on {rows} of {tokens.shape[0]} sequences: max abs err "
+        f"{max(errs):.3e} (prefill {errs[0]:.3e}) of max |logits| "
+        f"{scale:.3e}, limit {limit:.3e} ({rel:g} x max(max |logits|, "
+        f"{floor:g}))")
+    check(finite and max(errs) <= limit,
+          f"{label}: decode matches the forward")
+    return {"max_abs_err": max(errs), "prefill_err": errs[0],
+            "scale": scale, "limit": limit, "slots": slots}
+
+
+def phase_lm_serve(model, cfg, seed: int) -> dict:
+    """qwen3-8b serving at full width on phase 7's model: prefill of
+    ``SERVE_BATCH`` prompts of ``SERVE_PROMPT`` tokens (median of 3 after a
+    warm-up); greedy `sample_loop` for ``SERVE_STEPS`` steps (its first
+    decode step eager, the rest replayed from one captured graph) with the
+    counters zeroed around it; the same loop run eagerly step by step (the
+    same tokens); one replay against one eager step from the same cache and
+    tokens, bit for bit; ``SERVE_TIMED`` replays timed; one profiled replay
+    and one profiled eager step; the teacher-forced decode against the
+    forward; the peak reserved memory under 80 GB."""
+    import torch
+    from repro_torch.configs import SHAPES
+    from repro_torch.kernels import _platform
+    from repro_torch.train.serve import (DecodeGraph, make_decode_step,
+                                         make_prefill, sample_loop)
+
+    shape = SHAPES["decode_32k"]
+    check(shape.kind == "decode" and shape.global_batch >= SERVE_BATCH
+          and shape.seq_len >= SERVE_PROMPT + SERVE_STEPS,
+          "the serving cell is a cut of decode_32k")
+    torch.cuda.reset_peak_memory_stats()
+    max_len = SERVE_PROMPT + SERVE_STEPS + 1
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    tokens = torch.randint(0, cfg.vocab, (SERVE_BATCH,
+                                          SERVE_PROMPT + SERVE_FORCED),
+                           generator=gen, device="cuda")
+    prompt = {"tokens": tokens[:, :SERVE_PROMPT]}
+    prefill = make_prefill(cfg, max_len)
+    decode = make_decode_step(cfg)
+
+    def greedy(logits):
+        return logits.argmax(-1)[:, None].to(torch.int32)
+
+    (logits, cache), t_pre, ts_pre, warm_pre = wall(
+        lambda: prefill(model, prompt), REPS)
+    check(logits.shape == (SERVE_BATCH, cfg.padded_vocab)
+          and bool(torch.isfinite(logits).all()), "prefill logits finite")
+    cost = decode_cost(model, cfg, cache)
+    del logits, cache
+    log(f"prefill of {SERVE_BATCH} x {SERVE_PROMPT} tokens into a "
+        f"{max_len}-slot cache: median {t_pre * 1e3:.1f} ms of "
+        f"{[round(x * 1e3, 1) for x in ts_pre]} ms (warm-up "
+        f"{warm_pre * 1e3:.1f} ms); "
+        f"{SERVE_BATCH * SERVE_PROMPT / t_pre:.0f} prompt tokens/s")
+    log(f"decode step bound: {cost['bytes'] / 1e9:.3f} GB (block and head "
+        f"parameters read once, the cache read, the logits written) -> "
+        f"{cost['bound_ms']:.3f} ms ({cost['bound_by']}); as the port "
+        f"writes it (weights cast to bfloat16 every call) "
+        f"{cost['written_bytes'] / 1e9:.3f} GB -> {cost['written_ms']:.3f}"
+        " ms")
+
+    # The main path: the user's entry point.
+    _platform.reset_launch_counts()
+    t0 = time.perf_counter()
+    toks_r = sample_loop(model, cfg, prompt, steps=SERVE_STEPS,
+                         max_len=max_len)
+    torch.cuda.synchronize()
+    t_loop = time.perf_counter() - t0
+    launches = _platform.launch_counts()
+    log(f"sample_loop (greedy, {SERVE_STEPS} steps; prefill, one eager "
+        f"step, then replays): {t_loop * 1e3:.1f} ms; launch counts "
+        f"{launches} (the cache branch reaches no port kernel)")
+    check(toks_r.shape == (SERVE_BATCH, SERVE_STEPS)
+          and int(toks_r.min()) >= 0 and int(toks_r.max()) < cfg.vocab,
+          "sampled tokens in the vocabulary")
+
+    # The same loop, eager step by step.
+    logits, cache = prefill(model, prompt)
+    tok = greedy(logits)
+    toks_e, eager_ms = [], []
+    for _ in range(SERVE_STEPS):
+        toks_e.append(tok)
+        t0 = time.perf_counter()
+        logits, cache = decode(model, cache, tok)
+        tok = greedy(logits)
+        torch.cuda.synchronize()
+        eager_ms.append((time.perf_counter() - t0) * 1e3)
+    same_tokens = torch.equal(torch.cat(toks_e, dim=1), toks_r)
+    del logits, cache, toks_e
+    log(f"eager decode: median {statistics.median(eager_ms):.2f} ms a step "
+        f"(min {min(eager_ms):.2f}, max {max(eager_ms):.2f}); greedy tokens "
+        f"equal to sample_loop's: {same_tokens}")
+    check(same_tokens, "greedy sample_loop gives the eager loop's tokens")
+
+    # One replay against one eager step from the same cache and tokens.
+    logits, cache = prefill(model, prompt)
+    logits, cache = decode(model, cache, greedy(logits))  # warm-up
+    tok = greedy(logits)
+    snap = clone_cache(cache)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # as the capture does first
+    reserved0 = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    graph = DecodeGraph(model, cfg, cache, tok)
+    t_capture = time.perf_counter() - t0
+    pool = pool_gib(graph.graph.pool())
+    grown = (torch.cuda.memory_reserved() - reserved0) / 2**30
+    check(caches_equal(cache, snap), "capturing the decode step ran nothing")
+    replayed = graph(tok).clone()
+    eager, snap = decode(model, snap, tok)
+    bit_equal = torch.equal(replayed, eager) and caches_equal(cache, snap)
+    log(f"decode capture: {t_capture * 1e3:.1f} ms; graph pool "
+        f"{'not named' if pool is None else f'{pool:.3f} GiB'}, reserved "
+        f"grew {grown:.3f} GiB; launches recorded {graph.launches}; replay "
+        f"vs eager step from the same cache and tokens: logits and every "
+        f"cache leaf bit-equal: {bit_equal}")
+    check(bit_equal, "a replayed decode step equals the eager step")
+    del snap, eager
+    tok = greedy(replayed)
+    replay_ms = []
+    for _ in range(SERVE_TIMED):
+        t0 = time.perf_counter()
+        tok = greedy(graph(tok))
+        torch.cuda.synchronize()
+        replay_ms.append((time.perf_counter() - t0) * 1e3)
+    t_replay = statistics.median(replay_ms)
+    t_eager = statistics.median(eager_ms)
+    log(f"replayed decode: median {t_replay:.2f} ms a step (min "
+        f"{min(replay_ms):.2f}, max {max(replay_ms):.2f}) over "
+        f"{SERVE_TIMED} steps; {SERVE_BATCH * 1e3 / t_replay:.1f} tokens/s "
+        f"(eager {SERVE_BATCH * 1e3 / t_eager:.1f}); "
+        f"{cost['bound_ms'] / t_replay:.3f} of the bound")
+    prof_replay = profile_once("qwen3-8b decode step (replay)",
+                               lambda: graph(tok))
+    prof_eager = profile_once("qwen3-8b decode step (eager)",
+                              lambda: decode(model, cache, tok))
+    graph.close()
+    del graph, cache, replayed
+    torch.cuda.empty_cache()
+
+    forced = decode_vs_forward("qwen3-8b bfloat16", model, cfg, tokens,
+                               SERVE_PROMPT, SERVE_ROWS, 2e-2, 0.0)
+    peak = torch.cuda.max_memory_reserved() / 2**30
+    log(f"phase 7c: peak reserved {peak:.2f} GiB, peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(peak * 2**30 < 80e9, "phase 7c stays under 80 GB reserved")
+    return {"prefill_ms": t_pre * 1e3, "prefill_ms_all": ts_pre,
+            "prefill_tokens_per_s": SERVE_BATCH * SERVE_PROMPT / t_pre,
+            "sample_loop_ms": t_loop * 1e3, "launches": launches,
+            "eager_step_ms": t_eager, "replay_step_ms": t_replay,
+            "eager_step_ms_all": eager_ms, "replay_step_ms_all": replay_ms,
+            "decode_tokens_per_s": SERVE_BATCH * 1e3 / t_replay,
+            "eager_tokens_per_s": SERVE_BATCH * 1e3 / t_eager,
+            "bound_ms": cost["bound_ms"], "bound_by": cost["bound_by"],
+            "bound_bytes": cost["bytes"],
+            "written_bytes": cost["written_bytes"],
+            "written_ms": cost["written_ms"], "capture_ms": t_capture * 1e3,
+            "graph_pool_gib": pool, "capture_reserved_gib": grown,
+            "profile_replay": prof_replay, "profile_eager": prof_eager,
+            "replay_bit_equal": bit_equal, "forced": forced,
+            "peak_reserved_gib": peak}
+
+
+def phase_lm_serve32(seed: int) -> dict:
+    """The float32 cut: qwen3-8b at full width cut to `LM32_BLOCKS` blocks,
+    ``compute_dtype="float32"``, ``SERVE_ROWS`` prompts of ``SERVE_PROMPT``
+    tokens decoded teacher-forced against the forward at the JAX package's
+    bound, with a linear cache and with ``swa_window=SERVE_WINDOW`` (prefill
+    keeps the last 512 rows of the ring, decode wraps it)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import Transformer
+
+    cfg = dataclasses.replace(get_config("qwen3-8b"), n_blocks=LM32_BLOCKS,
+                              compute_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    model = Transformer(cfg, device="cuda").init(gen)
+    tokens = torch.randint(0, cfg.vocab, (SERVE_ROWS,
+                                          SERVE_PROMPT + SERVE_FORCED),
+                           generator=gen, device="cuda")
+    out = {"linear": decode_vs_forward(
+        f"qwen3-8b float32, {LM32_BLOCKS} blocks", model, cfg, tokens,
+        SERVE_PROMPT, SERVE_ROWS, 2e-3, 1.0)}
+    window = dataclasses.replace(cfg, swa_window=SERVE_WINDOW)
+    out["window"] = decode_vs_forward(
+        f"qwen3-8b float32, {LM32_BLOCKS} blocks, swa_window "
+        f"{SERVE_WINDOW}", model, window, tokens, SERVE_PROMPT, SERVE_ROWS,
+        2e-3, 1.0)
+    check(out["window"]["slots"] == SERVE_WINDOW,
+          "the windowed cache is a ring of swa_window slots")
+    del model
     torch.cuda.empty_cache()
     return out
 
@@ -3110,6 +3432,13 @@ def main(argv=None) -> int:
     log("== phase 7: qwen3-8b eval forward")
     lm = phase_lm(args.seed)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    log("== phase 7c: qwen3-8b prefill and decode")
+    lm_model = lm.pop("model")
+    serve_lm = phase_lm_serve(lm_model, lm_model.cfg, args.seed)
+    del lm_model
+    torch.cuda.empty_cache()
+    serve_lm["float32"] = phase_lm_serve32(args.seed)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     log("== phase 7b: float32 eval forward (mma flash kernel)")
     lm32 = phase_lm32(args.seed)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
@@ -3185,6 +3514,7 @@ def main(argv=None) -> int:
                                      "lm_eval_step": lm["step_ms"]},
                     "lm_tokens_per_s": lm["tokens_per_s"],
                     "lm_loss": lm["loss"], "lm_peak_gib": lm["peak_gib"],
+                    "lm_serve": serve_lm,
                     "lm_logits_rel_err_vs_attend": lm["logits_rel_err"],
                     "plan_build_s": t_plan, "scale": args.scale,
                     "r_rel_err_vs_unfused": err_rel,

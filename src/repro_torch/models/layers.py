@@ -7,8 +7,10 @@ The port of the JAX package's ``models/layers.py``. Its ``init_*`` /
 it is (`models.weights.params_from_jax`). A module's ``init_`` fills its
 parameters from an explicit `torch.Generator`; the constructor leaves them
 uninitialized. Weights are cast to the compute dtype at the call, as JAX
-casts them. Attention is ported in its train branch (no cache): the
-cross-attention and cache branches raise `NotImplementedError`.
+casts them. Attention is ported in its train branch and its KV-cache
+branch (prefill, decode; a linear buffer, or a ring buffer under a sliding
+window), which writes the cache's tensors in place; cross-attention raises
+`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -206,7 +208,7 @@ def _proj(x, w):
 
 
 class Attention(nn.Module):
-    """GQA self-attention, train mode (no cache)."""
+    """GQA self-attention: train mode (no cache), prefill and decode."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -230,15 +232,26 @@ class Attention(nn.Module):
             self.k_norm.fill_(1.0)
 
     def forward(self, x, cfg: ModelConfig, *, positions=None,
-                causal: bool = True, cross: bool = False, cache=None):
+                causal: bool = True, cross: bool = False, cache=None,
+                cache_pos=None):
+        """Modes, as JAX's ``attention``:
+
+          train:    cache=None  -> attend over x (blockwise if long)
+          prefill:  cache given, T > 1  -> attend over x, then fill the cache
+          decode:   cache given, T == 1 -> write one slot, attend over the
+                    whole cache
+
+        ``cache`` is one layer's ``{"k", "v", "pos"}`` (`init_attn_cache`);
+        ``cache_pos`` the 0-d write position of a decode step, a device
+        tensor. Returns ``(y, cache)``: the cache's tensors are written in
+        place and the same dict comes back (None in train mode), where JAX
+        returns a new one. A decode step reads no device value on the host,
+        so it can be captured into a CUDA graph.
+        """
         if cross:
             raise NotImplementedError(
                 "cross-attention is not ported yet (ROADMAP A14.5, "
                 "encoder-decoder)")
-        if cache is not None:
-            raise NotImplementedError(
-                "attention with a KV cache (prefill, decode) is not ported "
-                "yet (ROADMAP A14.1)")
         b, t, _ = x.shape
         cdt = dtype_of(cfg.compute_dtype)
         if positions is None:
@@ -252,17 +265,65 @@ class Attention(nn.Module):
             k = rms_norm_vec(k, self.k_norm)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-        if cfg.use_flash_kernel:
-            from repro_torch.kernels.flash_attn import ops as fa_ops
-            pos = positions.to(torch.int32)
-            out = fa_ops.flash_attention(q, k, v, pos, pos, causal=causal,
-                                         window=cfg.swa_window)
-        else:
-            out = _attend(q, k, v, positions, positions, causal,
-                          cfg.swa_window, cfg.attn_block_kv)
+        window = cfg.swa_window
+        if cache is None:  # train
+            if cfg.use_flash_kernel:
+                from repro_torch.kernels.flash_attn import ops as fa_ops
+                pos = positions.to(torch.int32)
+                out = fa_ops.flash_attention(q, k, v, pos, pos, causal=causal,
+                                             window=window)
+            else:
+                out = _attend(q, k, v, positions, positions, causal, window,
+                              cfg.attn_block_kv)
+        elif t == 1:  # decode step
+            ck, cv, cp = cache["k"], cache["v"], cache["pos"]
+            slots = ck.shape[1]
+            # JAX's dynamic_update_slice clamps a start past the end: a
+            # linear cache decoded at pos >= slots writes its last slot.
+            slot = (cache_pos % slots if window is not None
+                    else cache_pos.clamp(0, slots - 1)).reshape(1).long()
+            ck.index_copy_(1, slot, k.to(ck.dtype))
+            cv.index_copy_(1, slot, v.to(cv.dtype))
+            cp.index_copy_(0, slot, positions.to(cp.dtype))
+            out = _attend(q, ck.to(cdt), cv.to(cdt), positions, cp, True,
+                          window, cfg.attn_block_kv)
+        else:  # prefill: attend over the prompt itself, then fill the cache
+            out = _attend(q, k, v, positions, positions, causal, window,
+                          cfg.attn_block_kv)
+            _fill_cache(cache, k, v, positions)
         nq, hd, d = self.wo.shape
         y = out.reshape(b * t, nq * hd) @ self.wo.to(cdt).reshape(nq * hd, d)
-        return y.reshape(b, t, d).to(x.dtype)
+        return y.reshape(b, t, d).to(x.dtype), cache
+
+
+def _fill_cache(cache, k, v, positions) -> None:
+    """Prefill's write of a prompt's K, V and positions into ``cache``: at
+    slots [0, t) when the prompt fits, else its last ``slots`` rows rolled
+    by ``t % slots`` (ring-aligned), as JAX's prefill branch."""
+    ck, cv, cp = cache["k"], cache["v"], cache["pos"]
+    t, slots = k.shape[1], ck.shape[1]
+    if t <= slots:
+        ck[:, :t] = k
+        cv[:, :t] = v
+        cp[:t] = positions
+    else:  # ring buffer (SWA), or a prompt longer than max_len
+        shift = t % slots
+        ck.copy_(torch.roll(k[:, -slots:], shift, dims=1))
+        cv.copy_(torch.roll(v[:, -slots:], shift, dims=1))
+        cp.copy_(torch.roll(positions[-slots:], shift, dims=0))
+
+
+def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                    device=None) -> dict:
+    """One layer's empty KV cache: ``k``, ``v`` [batch, slots, Hkv, hd] in
+    ``dtype`` and ``pos`` [slots] int32 at −1 (unwritten), with ``slots =
+    min(max_len, swa_window)`` under a window, else ``max_len``."""
+    slots = min(max_len, cfg.swa_window) if cfg.swa_window else max_len
+    shape = (batch, slots, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.full((slots,), -1, dtype=torch.int32,
+                              device=device)}
 
 
 # ---------------------------------------------------------------------------

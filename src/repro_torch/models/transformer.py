@@ -1,4 +1,5 @@
-"""Model assembly for the dense attention path: init, train-mode forward, loss.
+"""Model assembly for the dense attention path: init, train-mode forward,
+loss, and serving (prefill and decode with a KV cache).
 
 The port of the JAX package's ``models/transformer.py`` for configurations
 whose every layer is ``LayerSpec(mixer="attn", mlp="dense")`` (qwen3-8b,
@@ -7,14 +8,17 @@ the stack and the head as modules whose parameters keep the JAX shapes; the
 depth is a `ModuleList` of super-blocks walked by a Python loop (JAX's
 ``lax.scan``). ``forward`` and ``loss_fn`` return what JAX's return:
 ``(logits, aux, offset)`` and ``(loss, {"ce", "aux", "zloss", "tokens"})``.
+``init_cache``, ``prefill`` and ``decode_step`` keep JAX's cache tree,
+``{"blocks": {"pos<j>": {"attn": {"k", "v", "pos"}}}, "pos"}`` with each
+leaf stacked over the super-blocks; ``decode_step`` writes it in place.
 
 On one card ``remat``, ``scan_layers``, ``dp_axes`` and the activation
 constraints (``_constrain_act``) have no effect: PyTorch runs the loop
 eagerly, nothing is sharded, and an eval forward keeps no activations for a
 backward pass. Everything else of the JAX module raises
 `NotImplementedError` naming its ROADMAP item: mamba, rwkv6 and moe layers,
-cross-attention and the encoder (``is_enc_dec``), patch positions, and
-prefill / decode with caches.
+cross-attention and the encoder (``is_enc_dec``, with JAX's
+``_fill_cross_caches``), and patch positions.
 """
 
 from __future__ import annotations
@@ -81,10 +85,17 @@ class Sublayer(nn.Module):
         for child in self.children():
             child.init_(generator)
 
-    def forward(self, x, cfg: ModelConfig, *, positions, causal: bool):
-        x = x + self.mixer(self.norm1(x), cfg, positions=positions,
-                           causal=causal)
-        return x + self.mlp(self.norm2(x), cfg)
+    def forward(self, x, cfg: ModelConfig, *, positions, causal: bool,
+                cache=None, cache_pos=None):
+        """Returns ``(x, cache)``: the sub-layer's cache ``{"attn": …}``,
+        written in place, or None without one."""
+        y, attn = self.mixer(self.norm1(x), cfg, positions=positions,
+                             causal=causal,
+                             cache=None if cache is None else cache["attn"],
+                             cache_pos=cache_pos)
+        x = x + y
+        return x + self.mlp(self.norm2(x), cfg), \
+            None if cache is None else {"attn": attn}
 
 
 class Transformer(nn.Module):
@@ -129,6 +140,7 @@ class Transformer(nn.Module):
     def _cfg(self, cfg: ModelConfig | None) -> ModelConfig:
         if cfg is None:
             return self.cfg
+        check_supported(cfg)
         for f in _SHAPE_FIELDS:
             if getattr(cfg, f) != getattr(self.cfg, f):
                 raise ValueError(f"config {cfg.name} differs from the "
@@ -156,13 +168,25 @@ class Transformer(nn.Module):
         ``use_flash_kernel`` or ``compute_dtype``."""
         cfg = self._cfg(cfg)
         x, positions, offset = self._embed_inputs(cfg, batch)
-        for block in self.blocks:
-            for sub in block:
-                x = sub(x, cfg, positions=positions, causal=True)
+        x = self._stack(cfg, x, positions)
         x = self.final_norm(x)
         # aux is the MoE load-balancing loss; dense layers add none.
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return self._logits(cfg, x), aux, offset
+
+    def _stack(self, cfg: ModelConfig, x, positions, caches=None,
+               cache_pos=None):
+        """The super-blocks in order (JAX's ``_scan_stack``); ``caches`` is
+        the stacked ``cache["blocks"]``, each block reading and writing its
+        slice ``[i]`` in place."""
+        for i, block in enumerate(self.blocks):
+            for j, sub in enumerate(block):
+                c = None if caches is None else {"attn": {
+                    name: leaf[i]
+                    for name, leaf in caches[f"pos{j}"]["attn"].items()}}
+                x, _ = sub(x, cfg, positions=positions, causal=True, cache=c,
+                           cache_pos=cache_pos)
+        return x
 
     def loss_fn(self, batch, cfg: ModelConfig | None = None):
         """Next-token cross entropy (+ z-loss). Returns (loss, metrics)."""
@@ -184,3 +208,59 @@ class Transformer(nn.Module):
         zloss = 1e-4 * ((lse * mask) ** 2).sum() / denom
         loss = ce + zloss + aux
         return loss, {"ce": ce, "aux": aux, "zloss": zloss, "tokens": denom}
+
+    # -- serving: prefill and decode with a KV cache --------------------------
+
+    def init_cache(self, batch: int, max_len: int,
+                   cfg: ModelConfig | None = None) -> dict:
+        """The empty per-super-block caches for ``batch`` sequences of up to
+        ``max_len`` positions on the module's device, as JAX's
+        ``init_cache`` returns them: ``{"pos<j>": {"attn": {"k", "v",
+        "pos"}}}`` (`layers.init_attn_cache` in the compute dtype), each
+        leaf stacked over the super-blocks. `prefill` wraps them as
+        ``{"blocks": …, "pos": …}``."""
+        cfg = self._cfg(cfg)
+        n = cfg.n_blocks
+        one = layers.init_attn_cache(cfg, batch, max_len,
+                                     dtype_of(cfg.compute_dtype),
+                                     self.embed.device)
+        return {f"pos{j}": {"attn": {
+            name: leaf.expand((n,) + leaf.shape).clone()
+            for name, leaf in one.items()}} for j in range(len(cfg.block))}
+
+    @torch.inference_mode()
+    def prefill(self, batch, max_len: int, cfg: ModelConfig | None = None):
+        """Run the prompt ``batch["tokens"]`` [B, T] through the stack into
+        a new cache of ``max_len`` positions. Returns ``(logits [B,
+        padded_vocab] of the last position, {"blocks", "pos": T})``, ``pos``
+        a 0-d int32 tensor on the device. Runs in inference mode, so the
+        cache's tensors are inference tensors: `decode_step` (which also
+        enters that mode) writes them in place."""
+        cfg = self._cfg(cfg)
+        x, positions, _ = self._embed_inputs(cfg, batch)
+        b, t = x.shape[:2]
+        blocks = self.init_cache(b, max_len, cfg)
+        zero = torch.zeros((), dtype=torch.int32, device=x.device)
+        x = self._stack(cfg, x, positions, blocks, cache_pos=zero)
+        logits = self._logits(cfg, self.final_norm(x[:, -1:]))
+        return logits[:, 0], {"blocks": blocks, "pos": torch.full(
+            (), t, dtype=torch.int32, device=x.device)}
+
+    @torch.inference_mode()
+    def decode_step(self, cache: dict, tokens,
+                    cfg: ModelConfig | None = None):
+        """One token step: ``tokens`` [B, 1] → ``(logits [B, padded_vocab],
+        cache)``. The cache passed in is consumed, as a donated buffer
+        would be: its tensors (``pos`` too) are written in place and the
+        same dict comes back, where JAX returns a new one. Nothing here
+        reads a device value on the host, so the step can be captured into
+        a CUDA graph and replayed (`repro_torch.train.serve.sample_loop`)."""
+        cfg = self._cfg(cfg)
+        pos = cache["pos"]
+        x = self.embed[tokens].to(dtype_of(cfg.compute_dtype))
+        positions = pos + torch.arange(tokens.shape[1], dtype=torch.int32,
+                                       device=x.device)
+        x = self._stack(cfg, x, positions, cache["blocks"], cache_pos=pos)
+        logits = self._logits(cfg, self.final_norm(x[:, -1:]))
+        pos.add_(tokens.shape[1])
+        return logits[:, 0], cache

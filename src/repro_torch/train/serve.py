@@ -1,6 +1,15 @@
-"""The batched FiGaRo factorization server.
+"""LM serving (prefill, decode, a sampler) and the batched FiGaRo
+factorization server.
 
-The port of the FiGaRo half of the JAX package's ``train/serve.py``:
+The port of the JAX package's ``train/serve.py``. ``make_prefill`` and
+``make_decode_step`` close over a configuration as JAX's do, taking the
+`Transformer` where JAX takes its parameters; the decode step writes the
+cache in place (`Transformer.decode_step`). ``sample_loop`` prefills, then
+samples greedily or at a temperature: on the card it runs the first decode
+step eagerly and replays the rest from one CUDA graph (`DecodeGraph`), the
+counterpart of the ``jax.jit`` JAX's loop applies; on the CPU it runs
+eagerly. ``cache_specs`` needs the port's sharding rules (ROADMAP A14.6).
+
 ``make_figaro_server`` serves one join structure (a `FigaroPlan`) to many
 concurrent users' feature-sets — each dispatch runs Algorithm 2 and the
 post-processing over a leading batch axis through a `FigaroEngine` with
@@ -11,9 +20,6 @@ bucket's captured graph on the card. The server is async-first
 queue depth >= 2 overlaps the next batch's host-to-device copy with the
 in-flight dispatch; the synchronous `FigaroServer` call is a
 ``submit(...).result()`` wrapper.
-
-The LM half of that module (``make_prefill``, ``make_decode_step``,
-``sample_loop``, ``cache_specs``) is ROADMAP item A14.1 and not ported yet.
 """
 
 from __future__ import annotations
@@ -23,13 +29,18 @@ import torch
 from repro_torch.core.engine import FigaroEngine, _plan_arg_error
 from repro_torch.core.join_tree import FigaroPlan
 from repro_torch.core.plan_cache import PlanHolder, plan_signature
+from repro_torch.kernels import _platform
 from repro_torch.kernels._platform import resolve_device
 from repro_torch.launch.mesh import resolve_shard
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import Transformer, check_supported
 from repro_torch.train.async_serve import (AsyncFigaroServer, FigaroFuture,
                                            SERVE_KINDS, validate_serve_kind)
 
-__all__ = ["make_figaro_server", "FigaroServer", "AsyncFigaroServer",
-           "FigaroFuture", "SERVE_KINDS", "validate_serve_kind"]
+__all__ = ["make_prefill", "make_decode_step", "cache_specs", "sample_loop",
+           "DecodeGraph", "make_figaro_server", "FigaroServer",
+           "AsyncFigaroServer", "FigaroFuture", "SERVE_KINDS",
+           "validate_serve_kind"]
 
 
 class FigaroServer(AsyncFigaroServer):
@@ -148,3 +159,142 @@ def make_figaro_server(plan: FigaroPlan | PlanHolder, *, kind: str = "qr",
                           mesh=shard, config=config)
     holder.attach(server)
     return server
+
+
+# -- the LM: prefill, decode, sampling -----------------------------------------
+
+
+def make_prefill(cfg: ModelConfig, max_len: int, device=None):
+    """``prefill_fn(model, batch) -> (logits [B, padded_vocab], cache)`` for
+    a `repro_torch.models.transformer.Transformer` on ``device`` (the card
+    unless ``device="cpu"``): ``batch["tokens"]`` [B, T] (arrays or
+    tensors, moved to the device) into a new cache of ``max_len``
+    positions, in inference mode."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+
+    def prefill_fn(model, batch):
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        with torch.inference_mode():
+            return model.prefill(batch, max_len, cfg)
+
+    return prefill_fn
+
+
+def make_decode_step(cfg: ModelConfig, device=None):
+    """``decode_fn(model, cache, tokens) -> (logits [B, padded_vocab],
+    cache)`` on ``device`` (the card unless ``device="cpu"``): one eager
+    step of tokens [B, 1]. The cache is consumed: it is written in place
+    and comes back (`Transformer.decode_step`)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+
+    def decode_fn(model, cache, tokens):
+        tokens = torch.as_tensor(tokens).to(dev)
+        with torch.inference_mode():
+            return model.decode_step(cache, tokens, cfg)
+
+    return decode_fn
+
+
+def cache_specs(cfg: ModelConfig, mesh, *, shard_seq: bool = False,
+                kv_seq_over_model: bool = True):
+    """The decode cache's partition specs over a mesh: not ported yet."""
+    raise NotImplementedError(
+        "cache_specs needs the port's sharding rules (ROADMAP A14.6, "
+        "sharding/rules.py)")
+
+
+class DecodeGraph:
+    """One decode step of ``model`` under ``cfg`` over ``cache``, captured
+    as a CUDA graph (the card only).
+
+    The graph's inputs are a static token buffer [B, 1] and the cache's own
+    tensors, which every replay advances in place as an eager
+    `Transformer.decode_step` would. ``graph(tokens)`` copies ``tokens``
+    into the buffer, replays on the current stream and returns the logits
+    buffer [B, padded_vocab], which the next replay overwrites. A replay
+    equals the eager step (`make_decode_step`) from the same cache and
+    tokens bit for bit. Capturing records the kernels and runs none, so
+    the cache is left as it was; run one eager step on the cache first, as
+    `sample_loop` does. ``launches`` are the kernel launches the capture
+    recorded (`_platform.recording_launches`), added to the counts on
+    every replay. `close` frees the graph and its memory pool.
+    """
+
+    def __init__(self, model, cfg: ModelConfig, cache: dict, tokens):
+        device = cache["pos"].device
+        stream = torch.cuda.Stream(device)
+        current = torch.cuda.current_stream(device)
+        stream.wait_stream(current)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.inference_mode():
+            self.tokens = tokens.clone()
+            with torch.cuda.stream(stream), \
+                    _platform.recording_launches() as launches:
+                with torch.cuda.graph(self.graph, stream=stream,
+                                      capture_error_mode="thread_local"):
+                    # Named through the class so that the port's lint
+                    # resolves the capture root (FGT009, FGT010).
+                    self.logits, _ = Transformer.decode_step(
+                        model, cache, self.tokens, cfg)
+        current.wait_stream(stream)
+        self.launches = dict(launches)
+
+    def __call__(self, tokens) -> torch.Tensor:
+        with torch.inference_mode():
+            self.tokens.copy_(tokens)
+        self.graph.replay()
+        _platform.add_launches(self.launches)
+        return self.logits
+
+    def close(self) -> None:
+        self.graph.reset()
+        self.tokens = self.logits = None
+
+
+def _next_token(logits, temperature: float, generator):
+    """Greedy (``temperature`` 0) or a sample of softmax(logits /
+    temperature) by the Gumbel-max rule, as ``jax.random.categorical``
+    draws it: [B, 1] int32."""
+    if temperature > 0:
+        u = torch.rand(logits.shape, generator=generator,
+                       device=logits.device)
+        logits = logits / temperature - torch.log(-torch.log(u))
+    return logits.argmax(-1)[:, None].to(torch.int32)
+
+
+def sample_loop(model, cfg: ModelConfig, batch, *, steps: int, max_len: int,
+                temperature: float = 0.0, generator=None, device=None):
+    """Greedy / temperature sampling: prefill ``batch``, then ``steps``
+    decode steps. Returns the tokens [B, steps] (int32): the prompt's
+    greedy next token, then one token a step.
+
+    ``generator`` (a `torch.Generator` on the device; default: the
+    device's) draws the temperature samples where JAX folds a key, so
+    sampled tokens differ from JAX's; greedy ones agree. On the card the
+    first decode step runs eagerly and one `DecodeGraph` replays the rest;
+    it is freed before the tokens are returned. On the CPU every step runs
+    eagerly."""
+    dev = resolve_device(device)
+    prefill = make_prefill(cfg, max_len, dev)
+    decode = make_decode_step(cfg, dev)
+    graph = None
+    with torch.inference_mode():
+        logits, cache = prefill(model, batch)
+        tok = logits.argmax(-1)[:, None].to(torch.int32)
+        toks = []
+        try:
+            for i in range(steps):
+                toks.append(tok)
+                if i == 1 and dev.type == "cuda":
+                    graph = DecodeGraph(model, cfg, cache, tok)
+                if graph is None:
+                    logits, cache = decode(model, cache, tok)
+                else:
+                    logits = graph(tok)
+                tok = _next_token(logits, temperature, generator)
+        finally:
+            if graph is not None:
+                graph.close()
+        return torch.cat(toks, dim=1)

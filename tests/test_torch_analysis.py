@@ -809,18 +809,28 @@ def test_port_tree_has_no_finding_without_a_baseline():
 
 
 def test_port_capture_root_is_the_engine_body():
+    """The port's captures: the engine's R body (its kind and options
+    static) and the LM's decode step (`train/serve.py:DecodeGraph` names
+    ``Transformer.decode_step`` through the class, so the call resolves)."""
     program = load_program([str(PORT)], root=str(REPO))
     roots = program.graph.roots
-    assert set(roots) == {"repro_torch.core.engine:FigaroEngine._body"}
+    decode = "repro_torch.models.transformer:Transformer.decode_step"
+    assert set(roots) == {"repro_torch.core.engine:FigaroEngine._body",
+                          decode}
     assert roots["repro_torch.core.engine:FigaroEngine._body"].static == {
         "kind", "options"}
+    assert roots[decode].kind == "cuda.graph"
     captured = program.graph.captured
     for fn in ("repro_torch.core.figaro:_r0_batch",
                "repro_torch.core.postprocess:postprocess_r0",
                "repro_torch.kernels.node_fused.kernel:fused_node_pass",
-               "repro_torch.kernels.panel_qr.kernel:panel_qr_wy"):
+               "repro_torch.kernels.panel_qr.kernel:panel_qr_wy",
+               "repro_torch.models.transformer:Transformer._stack",
+               "repro_torch.models.transformer:Transformer._logits"):
         assert fn in captured, fn
-    assert "repro_torch.core.engine:FigaroEngine._tail" not in captured
+    for fn in ("repro_torch.core.engine:FigaroEngine._tail",
+               "repro_torch.models.transformer:Transformer.prefill"):
+        assert fn not in captured, fn
 
 
 def _cli(*args, cwd=REPO):

@@ -21,7 +21,10 @@ another thread ran eagerly, a served batch equals its synchronous batched
 dispatch bit for bit, `stage` copies on the engine's copy stream, a served
 stream over a one-rank NCCL mesh (appends included) equals the same stream
 without a mesh bit for bit and issues no collective, and a batched node
-pass past 2³¹ elements keeps its offsets. flash_attention,
+pass past 2³¹ elements keeps its offsets. The LM's decode step (qwen3
+smoke): a `DecodeGraph` replay equals the eager step bit for bit, logits
+and cache, and `sample_loop` on the card gives the CPU loop's tokens, its
+logits within 1e-4. flash_attention,
 elementwise: 2e-5 absolute in float32 and 1e-12 in float64 (the JAX
 package's own kernel-vs-oracle bound, tests/test_flash_kernel.py, and
 float64 rounding); in bfloat16 one bfloat16 step, |got − want| ≤
@@ -1122,3 +1125,94 @@ def test_one_rank_nccl_mesh_serves_on_the_card(tmp_path, monkeypatch):
                 assert all(torch.equal(x, y) for x, y in zip(a, b))
     finally:
         dist.destroy_process_group()
+
+
+def _lm_smoke(device, compute_dtype="float32"):
+    """qwen3's smoke configuration and a model of it with seeded weights,
+    made on the CPU and copied to ``device``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import Transformer
+
+    cfg = dataclasses.replace(get_config("qwen3-8b", smoke=True),
+                              compute_dtype=compute_dtype)
+    cpu = Transformer(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    model = Transformer(cfg, device=device)
+    model.load_state_dict(cpu.state_dict())
+    return cfg, model
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_decode_replay_is_bit_equal_to_eager(compute_dtype):
+    """A `DecodeGraph` replay against the eager decode step from the same
+    cache and tokens: logits and every cache leaf bit for bit; capturing
+    runs nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.train import serve
+
+    cfg, model = _lm_smoke("cuda", compute_dtype)
+    prefill = serve.make_prefill(cfg, 40)
+    decode = serve.make_decode_step(cfg)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (3, 17)))
+    logits, cache = prefill(model, {"tokens": tokens})
+    tok = logits.argmax(-1)[:, None].to(torch.int32)
+    logits, cache = decode(model, cache, tok)  # the eager warm-up step
+    tok = logits.argmax(-1)[:, None].to(torch.int32)
+
+    def leaves(c):
+        return [c["pos"]] + [leaf for sub in c["blocks"].values()
+                             for leaf in sub["attn"].values()]
+
+    snap = {"pos": cache["pos"].clone(), "blocks": {
+        j: {"attn": {n: leaf.clone() for n, leaf in sub["attn"].items()}}
+        for j, sub in cache["blocks"].items()}}
+    graph = serve.DecodeGraph(model, cfg, cache, tok)
+    try:
+        assert all(torch.equal(a, b) for a, b in zip(leaves(cache),
+                                                     leaves(snap)))
+        for _ in range(3):
+            replayed = graph(tok).clone()
+            eager, snap = decode(model, snap, tok)
+            assert torch.equal(replayed, eager)
+            assert all(torch.equal(a, b) for a, b in zip(leaves(cache),
+                                                         leaves(snap)))
+            tok = eager.argmax(-1)[:, None].to(torch.int32)
+        assert int(cache["pos"]) == 17 + 4
+    finally:
+        graph.close()
+
+
+def test_sample_loop_on_the_card_matches_the_cpu():
+    """Greedy `sample_loop` on the card (one eager step, then replays)
+    gives the CPU loop's tokens, and the card's teacher-forced logits are
+    within float32's 1e-4 of max(1, max |logits|) of the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.train import serve
+
+    cfg, gpu = _lm_smoke("cuda")
+    _, cpu = _lm_smoke("cpu")
+    tokens = np.random.default_rng(2).integers(0, cfg.vocab, (2, 9))
+    steps, max_len = 10, 9 + 10 + 1
+    want = serve.sample_loop(cpu, cfg, {"tokens": tokens}, steps=steps,
+                             max_len=max_len, device="cpu")
+    got = serve.sample_loop(gpu, cfg, {"tokens": tokens}, steps=steps,
+                            max_len=max_len)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), want)
+    for model, dev in ((cpu, "cpu"), (gpu, "cuda")):
+        logits, cache = serve.make_prefill(cfg, max_len, dev)(
+            model, {"tokens": tokens})
+        out = [logits.cpu()]
+        for j in range(steps - 1):
+            logits, cache = serve.make_decode_step(cfg, dev)(
+                model, cache, want[:, j:j + 1])
+            out.append(logits.cpu())
+        if dev == "cpu":
+            ref = torch.stack(out)
+        else:
+            assert _rel(torch.stack(out), ref) < 1e-4

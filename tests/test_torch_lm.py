@@ -188,15 +188,22 @@ def test_forward_refuses_a_config_of_another_shape():
 
 
 def test_attention_cache_and_cross_branches_are_not_ported():
+    """Cross-attention still raises, naming its item (A14.5). The cache
+    branch is ported (A14.1): a prefill fills the cache it is given, in
+    place, and returns it (`tests/test_torch_decode.py` holds it to JAX)."""
     _, tcfg = _cfgs("float32")
     model = Transformer(tcfg, device="cpu").init(
         torch.Generator().manual_seed(2))
     attn = model.blocks[0][0].mixer
     x = torch.zeros(1, 4, tcfg.d_model)
-    with pytest.raises(NotImplementedError, match="A14.1"):
-        attn(x, tcfg, cache={})
     with pytest.raises(NotImplementedError, match="A14.5"):
         attn(x, tcfg, cross=True)
+    cache = layers.init_attn_cache(tcfg, 1, 8, torch.float32)
+    with torch.no_grad():
+        y, out = attn(x, tcfg, cache=cache,
+                      cache_pos=torch.zeros((), dtype=torch.int32))
+    assert out is cache and y.shape == x.shape
+    assert cache["pos"].tolist() == [0, 1, 2, 3, -1, -1, -1, -1]
 
 
 def test_eval_step_defaults_to_the_card():
