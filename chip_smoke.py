@@ -222,6 +222,33 @@ result line):
                 package's 2e-3 × max(max |logits|, 1), with a linear cache
                 and with ``swa_window=512`` (prefill keeps the ring's last
                 512 rows, decode wraps it).
+  11. train   — (run after 7b) the LM's training path, the launch
+                counters zeroed around the phase (the train step takes
+                ``_attend``, which reaches no port kernel: logged, not
+                checked). 11a: qwen3-8b at its published width cut to 4
+                blocks (36 blocks need ≈ 131 GB of parameters, gradients
+                and moments), float32 parameters and AdamW moments,
+                bfloat16 compute, ``remat=True``, ``warmup_cosine``,
+                `TokenPipeline` batches of 2 × 4096 tokens, `init_state`
+                on the card: one warm-up step, then 6 steps timed by CUDA
+                events (step ms median, tokens/s, loss and grad_norm each
+                step, all finite), peak reserved memory under 80 GB, one
+                profiled step (device time by kernel, busy share), and the
+                step's FLOPs as run (blocks in bf16 with remat, the LM head
+                in float32) against the dense bf16 peak and their bound.
+                11b: the same width cut to 2 blocks, float32 compute, 4 ×
+                512 tokens, every run from one initial state snapshotted on
+                the host: ``microbatch=2`` against none and remat off
+                against on (loss and grad_norm within 1e-6), each on the
+                updated parameters at rtol 2e-4, atol 2e-6 plus the
+                gradient's 1e-5 carried through Adam (`hold_first_step`).
+                11c: qwen3's smoke configuration in float32, weights from a
+                numpy seed, 3 steps on the card against the CPU with the
+                orthogonal update off and on, each step from the CPU's
+                state of the step before (`hold_adam_step`). 11d:
+                `repro_torch.launch.train.main` on the card: 6 steps with a
+                checkpoint every 3, the checkpoint restored bit for bit, a
+                restart that resumes from step 6 and runs 6->10.
   8. summary  — one ``{"kernels": [...]}`` line, then, last, the
                 ``{"ok": true, "device": {...}}`` line.
 
@@ -1077,9 +1104,11 @@ def profile_once(label: str, fn) -> dict:
             f"{e.key[:90]}")
     traced = trace_launches(label, kernels, counted)
     log(f"  port kernels in the trace {traced}; counters grew by {counted}")
+    top = [[e.key[:90], getattr(e, attr) / 1e3, e.count]
+           for e in sorted(kernels, key=lambda e: -getattr(e, attr))[:12]]
     return {"wall_ms": wall_us / 1e3, "busy_ms": device_us / 1e3,
             "busy_share": device_us / wall_us, "kernels_and_copies": launches,
-            "r0_assembly_ms": r0_ms, "traced_launches": traced}
+            "r0_assembly_ms": r0_ms, "traced_launches": traced, "top": top}
 
 
 def gram_check_small(torch_dtype):
@@ -3211,6 +3240,454 @@ def phase_lm_serve32(seed: int) -> dict:
     return out
 
 
+# -- phase 11: LM training ------------------------------------------------------
+
+TRAIN_BLOCKS = 4  # 11a: qwen3-8b cut to 4 of its 36 blocks (36 need ~131 GB)
+TRAIN_TIMED = 6  # 11a: timed steps after one warm-up
+CONSIST_BLOCKS, CONSIST_BATCH, CONSIST_SEQ = 2, 4, 512  # 11b
+VS_CPU_STEPS, VS_CPU_BATCH, VS_CPU_SEQ = 3, 4, 32  # 11c (qwen3 smoke)
+
+
+def train_flops(cfg, batch: int, seq: int) -> dict:
+    """Floating-point operations of one train step as the port runs it (2
+    per multiply-add): the blocks' GEMMs and attention in the compute dtype
+    (forward, the forward again under remat, backward twice the forward;
+    attention as `_attend` computes it, every key block, masked), and the
+    LM head (``x.float() @ head.float()``) in float32. ``model`` is the
+    usual 6 × tokens × matmul parameters plus causal attention, without
+    remat: the work a step must do."""
+    t = batch * seq
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    proj = d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd + cfg.n_heads * hd * d
+    mlp = 3 * d * cfg.d_ff
+    keys = seq if seq <= cfg.attn_block_kv else \
+        -(-seq // cfg.attn_block_kv) * cfg.attn_block_kv
+    attn = 4 * batch * cfg.n_heads * seq * keys * hd
+    block_fwd = cfg.n_blocks * (2 * t * (proj + mlp) + attn)
+    head_fwd = 2 * t * d * cfg.padded_vocab
+    causal = cfg.n_blocks * 2 * batch * cfg.n_heads * seq * (seq + 1) * hd
+    return {"compute": (4 if cfg.remat else 3) * block_fwd,
+            "float32": 3 * head_fwd,
+            "model": 3 * (cfg.n_blocks * 2 * t * (proj + mlp) + head_fwd
+                          + causal)}
+
+
+def phase_train(seed: int) -> dict:
+    """11a: qwen3-8b at its published width cut to `TRAIN_BLOCKS` blocks,
+    float32 parameters and AdamW moments, bfloat16 compute, ``remat=True``,
+    ``warmup_cosine``, `TokenPipeline` batches of 2 × 4096 tokens,
+    `init_state` on the card from a seeded generator: one warm-up step, then
+    `TRAIN_TIMED` steps timed by CUDA events (and the host clock), loss and
+    grad_norm at each; peak reserved memory; one profiled step; one step
+    split into its forward and backward and its AdamW update (CUDA
+    events); the step's FLOPs against the dense bf16 peak."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import _platform
+    from repro_torch.optim import AdamWConfig, adamw_update, warmup_cosine
+    from repro_torch.train import init_state, make_train_step
+
+    cfg = dataclasses.replace(get_config("qwen3-8b"), n_blocks=TRAIN_BLOCKS,
+                              remat=True)
+    check(cfg.compute_dtype == "bfloat16" and cfg.param_dtype == "float32"
+          and not cfg.use_flash_kernel, "11a's configuration")
+    opt = AdamWConfig(lr=warmup_cosine(3e-4, 2, TRAIN_TIMED + 4))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_state(torch.Generator(device="cuda").manual_seed(seed), cfg,
+                       opt)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in state.model.parameters())
+    state_gb = 4 * n_params * 4 / 1e9  # parameters, gradients, mu, nu
+    log(f"qwen3-8b train: {cfg.n_blocks} blocks of width d_model "
+        f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, hd "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; "
+        f"{n_params / 1e9:.4f} B parameters ({cfg.param_dtype}, moments "
+        f"{opt.state_dtype}; parameters, gradients and moments "
+        f"{state_gb:.2f} GB), compute {cfg.compute_dtype}, remat "
+        f"{cfg.remat}; init_state on the card in {t_init:.2f} s")
+    pipe = TokenPipeline(cfg.vocab, LM_SEQ, LM_BATCH, seed=seed)
+    t0 = time.perf_counter()
+    batches = [pipe.batch_at(s) for s in range(TRAIN_TIMED + 2)]
+    log(f"TokenPipeline: {len(batches)} batches of {LM_BATCH} x {LM_SEQ} "
+        f"in {time.perf_counter() - t0:.2f} s (host)")
+    step = make_train_step(cfg, opt)
+    _platform.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, m = step(state, batches[0])
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    rows = []
+    for s in range(1, TRAIN_TIMED + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        _, m = step(state, batches[s])
+        end.record()
+        torch.cuda.synchronize()
+        rows.append({"step": s + 1, "ms": start.elapsed_time(end),
+                     "wall_ms": (time.perf_counter() - t0) * 1e3,
+                     **{k: float(m[k]) for k in ("loss", "ce", "grad_norm",
+                                                 "lr")}})
+        log(f"  step {s + 1}: {rows[-1]['ms']:.1f} ms (CUDA events; wall "
+            f"{rows[-1]['wall_ms']:.1f}), loss {rows[-1]['loss']:.4f}, "
+            f"grad_norm {rows[-1]['grad_norm']:.4f}, lr {rows[-1]['lr']:.3e}")
+    launches = _platform.launch_counts()
+    check(all(math.isfinite(r[k]) for r in rows for k in ("loss", "grad_norm")),
+          "train loss and grad_norm finite at every step")
+    step_ms = statistics.median(r["ms"] for r in rows)
+    tok_s = LM_BATCH * LM_SEQ / (step_ms / 1e3)
+    peak_res = torch.cuda.max_memory_reserved()
+    peak_alloc = torch.cuda.max_memory_allocated()
+    log(f"train step: median {step_ms:.1f} ms of "
+        f"{[round(r['ms'], 1) for r in rows]} (warm-up {warm * 1e3:.1f} ms "
+        f"wall); {tok_s:.0f} tokens/s; peak reserved {peak_res / 1e9:.2f} GB "
+        f"({peak_res / 2**30:.2f} GiB), allocated {peak_alloc / 1e9:.2f} GB; "
+        f"launch counts {launches} (the train step takes _attend: no port "
+        f"kernel expected; logged, not checked)")
+    check(peak_res < 80e9, "11a peak reserved memory under 80 GB")
+    flops = train_flops(cfg, LM_BATCH, LM_SEQ)
+    bound = (flops["compute"] / PEAK_FLOPS["bfloat16"]
+             + flops["float32"] / PEAK_FLOPS["float32"]) * 1e3
+    total = flops["compute"] + flops["float32"]
+    share = total / (step_ms / 1e3) / PEAK_FLOPS["bfloat16"]
+    log(f"step FLOPs as run: {flops['compute']:.3e} in bfloat16 (blocks, "
+        f"remat) + {flops['float32']:.3e} in float32 (LM head) = "
+        f"{total:.3e}; {total / (step_ms / 1e3) / 1e12:.1f} TFLOP/s, "
+        f"{100 * share:.2f}% of the dense bf16 peak; bound "
+        f"{bound:.1f} ms (bf16 at 989, float32 at 67 TFLOP/s), the head's "
+        f"{flops['float32'] / PEAK_FLOPS['float32'] * 1e3:.1f} ms of it; "
+        f"model FLOPs (6·N·tokens + causal attention) {flops['model']:.3e}, "
+        f"{100 * flops['model'] / (step_ms / 1e3) / PEAK_FLOPS['bfloat16']:.2f}"
+        f"% of the bf16 peak")
+    prof = profile_once("qwen3-8b train step (4 blocks, remat)",
+                        lambda: step(state, batches[TRAIN_TIMED + 1]))
+    # One more step split where make_train_step's parts meet: the forward
+    # and backward (autograd), then the AdamW update.
+    tokens = torch.as_tensor(batches[TRAIN_TIMED + 1]["tokens"]).cuda()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    events[0].record()
+    loss, _ = state.model.loss_fn({"tokens": tokens}, cfg)
+    loss.backward()
+    events[1].record()
+    grads = {n: p.grad for n, p in state.model.named_parameters()}
+    adamw_update(grads, state.opt_state, state.model, opt)
+    events[2].record()
+    torch.cuda.synchronize()
+    split = {"forward_backward_ms": events[0].elapsed_time(events[1]),
+             "adamw_ms": events[1].elapsed_time(events[2])}
+    del grads, loss
+    state.model.zero_grad(set_to_none=True)
+    log(f"one step split: forward and backward "
+        f"{split['forward_backward_ms']:.1f} ms, AdamW update "
+        f"{split['adamw_ms']:.1f} ms (CUDA events)")
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"blocks": cfg.n_blocks, "params": n_params,
+            "state_gb": state_gb, "steps": rows, "step_ms": step_ms,
+            "warmup_wall_ms": warm * 1e3, "tokens_per_s": tok_s,
+            "peak_reserved_gb": peak_res / 1e9,
+            "peak_allocated_gb": peak_alloc / 1e9, "launches": launches,
+            "flops": flops, "bound_ms": bound, "bf16_peak_share": share,
+            "profile": prof, "split": split}
+
+
+def hold_first_step(label, got, ref, lr, opt, tau) -> dict:
+    """Two runs' parameters and first moments after one AdamW step from the
+    same weights and zero moments, ``got`` against ``ref`` (dicts of
+    tensors, ``ref``'s on the host): rtol 2e-4 and atol 2e-6 (the JAX package's bound between two
+    float32 paths of one step), plus the gradient's own tolerance carried
+    through the update. The runs' gradients agree to ``tau`` of each
+    tensor's largest, δg; the first step moves an element by lr·g/(|g| +
+    eps), flat in a large g and a whole step either way near 0, so an
+    element with |g| ≤ δg may differ by 2·lr, the rest by
+    lr·eps·δg/(|g| − δg + eps)². g is the clipped gradient, ``ref``'s
+    mu / (1 − b1); mu is held by (1 − b1)·δg."""
+    import torch
+
+    b1, eps = opt.b1, opt.eps
+    out = {"unresolved": 0, "zero_grad": 0, "unresolved_moved": 0,
+           "max_abs_err": 0.0, "elements": 0}
+    for name, want in ref["params"].items():
+        want = want.to(got["params"][name].device)
+        ref_mu = ref["mu"][name].to(want.device)
+        g = ref_mu.float() / (1 - b1)
+        dg = tau * float(g.abs().max())
+        unresolved = g.abs() <= dg
+        slack = torch.where(
+            unresolved, torch.full_like(g, 2 * lr),
+            lr * eps * dg / (g.abs() - dg + eps) ** 2)
+        err = (got["params"][name].float() - want.float()).abs()
+        base = 2e-6 + 2e-4 * want.float().abs()
+        bad = int((err > base + slack).sum())
+        check(bad == 0, f"{label}: {name}: {bad} parameters beyond the bound")
+        mu_err = (got["mu"][name].float() - ref_mu.float()).abs()
+        mu_bad = int((mu_err > 2e-6 + 2e-4 * ref_mu.float().abs()
+                      + (1 - b1) * dg).sum())
+        check(mu_bad == 0, f"{label}: {name}: {mu_bad} first moments beyond "
+              "the bound")
+        zero = int((g == 0).sum())
+        out["zero_grad"] += zero
+        out["unresolved"] += int(unresolved.sum()) - zero
+        out["unresolved_moved"] += int((unresolved & (err > base)).sum())
+        out["max_abs_err"] = max(out["max_abs_err"], float(err.max()))
+        out["elements"] += want.numel()
+        del g, slack, err, base, mu_err, unresolved, want, ref_mu
+    log(f"{label}: parameters and moments within rtol 2e-4, atol 2e-6 "
+        f"(+ the gradient's {tau:g} carried through Adam) over "
+        f"{out['elements']} elements; max |diff| {out['max_abs_err']:.3e}; "
+        f"{out['zero_grad']} with a zero gradient (embedding rows of tokens "
+        f"not in the batch), {out['unresolved']} with 0 < |g| ≤ δg, "
+        f"{out['unresolved_moved']} beyond the plain bound")
+    return out
+
+
+def phase_train_consistency(seed: int) -> dict:
+    """11b: the step's own consistency at full width, cut to
+    `CONSIST_BLOCKS` blocks, float32 compute, `CONSIST_BATCH` ×
+    `CONSIST_SEQ` tokens, every run from one initial state snapshotted on
+    the host: ``microbatch=2`` against none, and ``remat`` off against on
+    (loss and grad_norm within 1e-6 relative), each on the updated
+    parameters (`hold_first_step`)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import init_state, make_train_step
+
+    cfg = dataclasses.replace(get_config("qwen3-8b"), n_blocks=CONSIST_BLOCKS,
+                              compute_dtype="float32", remat=True)
+    opt = AdamWConfig(lr=1e-3)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state(torch.Generator(device="cuda").manual_seed(seed + 3),
+                       cfg, opt)
+    t0 = time.perf_counter()
+    snap = {n: p.detach().to("cpu", copy=True)
+            for n, p in state.model.named_parameters()}
+    log(f"11b: initial state ({sum(t.numel() for t in snap.values()) / 1e9:.3f}"
+        f" B parameters) snapshotted on the host in "
+        f"{time.perf_counter() - t0:.2f} s")
+    tokens = np.random.default_rng(seed).integers(
+        0, cfg.vocab, (CONSIST_BATCH, CONSIST_SEQ))
+
+    def run(microbatch, remat):
+        with torch.no_grad():
+            for n, p in state.model.named_parameters():
+                p.copy_(snap[n])
+        state.opt_state = adamw_init(state.model, opt)
+        state.step.zero_()
+        c = dataclasses.replace(cfg, remat=remat)
+        t0 = time.perf_counter()
+        _, m = make_train_step(c, opt, microbatch=microbatch)(
+            state, {"tokens": tokens})
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        metrics = {k: float(v) for k, v in m.items()}
+        log(f"11b run microbatch={microbatch}, remat={remat}: {ms:.1f} ms "
+            f"(first call), loss {metrics['loss']:.6f}, grad_norm "
+            f"{metrics['grad_norm']:.6f}")
+        return metrics, {
+            "params": {n: p.detach().clone()
+                       for n, p in state.model.named_parameters()},
+            "mu": {n: t.clone() for n, t in state.opt_state["mu"].items()}}
+
+    def to_host(run_out):
+        return {part: {n: t.to("cpu") for n, t in tensors.items()}
+                for part, tensors in run_out.items()}
+
+    m_ref, ref = run(None, True)
+    ref = to_host(ref)  # the reference waits on the host: 13 GB less here
+    out = {}
+    m_mb, got = run(2, True)
+    rel = abs(m_mb["loss"] - m_ref["loss"]) / abs(m_ref["loss"])
+    log(f"11b microbatch=2 against none: loss relative {rel:.3e}, grad_norm "
+        f"relative {abs(m_mb['grad_norm'] - m_ref['grad_norm']) / m_ref['grad_norm']:.3e}")
+    check(rel <= 1e-5, "11b microbatched loss (mean of the micro-steps)")
+    out["microbatch"] = hold_first_step("11b microbatch=2 vs none", got, ref,
+                                        1e-3, opt, 1e-5)
+    out["microbatch"]["loss_rel"] = rel
+    del got
+    m_nr, got = run(None, False)
+    rels = {k: abs(m_nr[k] - m_ref[k]) / abs(m_ref[k])
+            for k in ("loss", "grad_norm")}
+    log(f"11b remat off against on: loss relative {rels['loss']:.3e}, "
+        f"grad_norm relative {rels['grad_norm']:.3e} (tol 1e-6)")
+    check(max(rels.values()) <= 1e-6, "11b remat on and off: loss and "
+          "grad_norm within 1e-6")
+    out["remat"] = hold_first_step("11b remat off vs on", got, ref, 1e-3,
+                                   opt, 1e-5)
+    out["remat"].update({f"{k}_rel": v for k, v in rels.items()})
+    out["peak_reserved_gb"] = torch.cuda.max_memory_reserved() / 1e9
+    log(f"11b peak reserved {out['peak_reserved_gb']:.2f} GB")
+    del got, ref, state, snap
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _stacked(model, opt_state) -> dict:
+    """A port state as JAX's stacked trees, flat (``_adam_hold.flat``)."""
+    from _adam_hold import flat
+    from repro_torch.models.weights import opt_state_to_numpy, params_to_numpy
+
+    mom = opt_state_to_numpy(opt_state, model)
+    return {"params": flat(params_to_numpy(model)), "mu": flat(mom["mu"]),
+            "nu": flat(mom["nu"])}
+
+
+def phase_train_vs_cpu(seed: int) -> dict:
+    """11c: qwen3's smoke configuration in float32 compute, the same weights
+    (drawn with numpy from ``--seed``) on the card and on the CPU,
+    `VS_CPU_STEPS` steps of `make_train_step` with the orthogonal update
+    off and on. Each step starts on the card from the CPU's state of the
+    step before; the metrics are held within 1e-5 relative and the
+    parameters and moments at rtol 2e-4, atol 2e-6 plus the gradient's
+    tolerance carried through Adam (``tests/_adam_hold.py``: the gradients
+    agree to 1e-6 of each leaf's largest, the orthogonalized ones to
+    4e-5)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from _adam_hold import hold_adam_step
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.optim import AdamWConfig, adamw_init, warmup_cosine
+    from repro_torch.train import TrainState, make_train_step
+
+    cfg = dataclasses.replace(get_config("qwen3-8b", smoke=True),
+                              compute_dtype="float32")
+    opt = AdamWConfig(lr=warmup_cosine(3e-3, 2, 10))
+    rng = np.random.default_rng(seed)
+    cpu = Transformer(cfg, device="cpu")
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():
+            if p.ndim == 1:
+                w = 1.0 + 0.1 * rng.standard_normal(p.shape)
+            else:
+                w = rng.standard_normal(p.shape) * (
+                    0.02 if name == "embed" else p.shape[0] ** -0.5)
+            p.copy_(torch.from_numpy(w.astype(np.float32)))
+    out = {}
+    for orthogonal in (False, True):
+        model_c = Transformer(cfg, device="cpu")
+        model_c.load_state_dict(cpu.state_dict())
+        st_c = TrainState(model_c, adamw_init(model_c, opt),
+                          torch.zeros((), dtype=torch.int32))
+        fn_c = make_train_step(cfg, opt, orthogonal_update=orthogonal,
+                               device="cpu")
+        fn_g = make_train_step(cfg, opt, orthogonal_update=orthogonal)
+        toks = np.random.default_rng(seed + 1)
+        flipped, worst = 0, 0.0
+        for s in range(VS_CPU_STEPS):
+            batch = {"tokens": toks.integers(0, cfg.vocab,
+                                             (VS_CPU_BATCH, VS_CPU_SEQ))}
+            before = _stacked(st_c.model, st_c.opt_state)
+            model_g = Transformer(cfg, device="cuda")
+            model_g.load_state_dict(st_c.model.state_dict())
+            st_g = TrainState(model_g, {
+                "mu": {k: v.cuda() for k, v in st_c.opt_state["mu"].items()},
+                "nu": {k: v.cuda() for k, v in st_c.opt_state["nu"].items()},
+                "step": st_c.opt_state["step"].cuda()}, st_c.step.cuda())
+            _, m_g = fn_g(st_g, batch)
+            _, m_c = fn_c(st_c, batch)
+            for k in m_c:
+                want = float(m_c[k])
+                err = abs(float(m_g[k]) - want) / max(abs(want), 1e-30)
+                worst = max(worst, err)
+                check(err <= 1e-5, f"11c step {s + 1} (orthogonal "
+                      f"{orthogonal}): {k} {float(m_g[k])} vs {want}")
+            try:
+                held = hold_adam_step(
+                    _stacked(st_g.model, st_g.opt_state), before,
+                    _stacked(st_c.model, st_c.opt_state), step=s + 1,
+                    lr=float(m_c["lr"]), b1=opt.b1, b2=opt.b2, eps=opt.eps,
+                    tau=4e-5 if orthogonal else 1e-6, orthogonal=orthogonal)
+            except AssertionError as e:
+                check(False, f"11c step {s + 1}, orthogonal {orthogonal}: {e}")
+            flipped += held["flipped"]
+            check(int(st_g.step) == int(st_c.step) == s + 1,
+                  "11c steps count alike")
+        log(f"11c orthogonal={orthogonal}: {VS_CPU_STEPS} steps, card "
+            f"against CPU: metrics within {worst:.2e} relative (tol 1e-5), "
+            f"parameters and moments within the bound; {flipped} elements "
+            f"in Q columns of the other sign")
+        out["orthogonal" if orthogonal else "plain"] = {
+            "metrics_rel": worst, "flipped": flipped}
+    return out
+
+
+def phase_train_driver(seed: int) -> dict:
+    """11d: `repro_torch.launch.train.main` on the card (its default
+    device), qwen3's smoke configuration: 6 steps with a checkpoint every 3,
+    the checkpoint of step 6 restored into a fresh state and held to the
+    file bit for bit, then a restart to 10 steps, which must resume from
+    step 6 and run 6->10."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import init_state
+
+    with tempfile.TemporaryDirectory() as tmp:
+        args = ["--arch", "qwen3-8b", "--smoke", "--batch", "4", "--seq",
+                "32", "--ckpt-dir", tmp, "--log-every", "2", "--warmup", "2",
+                "--seed", str(seed)]
+        logs = []
+        for steps, every in ((6, 3), (10, 100)):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = train_main(args + ["--steps", str(steps), "--ckpt-every",
+                                        str(every)])
+            logs.append(buf.getvalue())
+            log(f"11d driver to {steps} steps: rc {rc} in "
+                f"{time.perf_counter() - t0:.2f} s")
+            for line in logs[-1].splitlines():
+                log(f"    {line}")
+            check(rc == 0, f"11d driver run to {steps} steps")
+            if steps == 6:
+                mgr = CheckpointManager(tmp)
+                check(6 in mgr.all_steps(), "11d checkpoint of step 6")
+                target = init_state(torch.Generator(device="cuda"),
+                                    get_config("qwen3-8b", smoke=True),
+                                    AdamWConfig())
+                mgr.restore(6, target)
+                restored = _stacked(target.model, target.opt_state)
+                with np.load(f"{tmp}/step_00000006.npz") as data:
+                    same = all(
+                        np.array_equal(restored[part][key],
+                                       data[f"{prefix}/{key}"])
+                        for part, prefix in (("params", ".params"),
+                                             ("mu", ".opt_state/mu"),
+                                             ("nu", ".opt_state/nu"))
+                        for key in restored[part])
+                    same = same and int(target.step) == int(data[".step"])
+                check(same, "11d restored state equals the checkpoint bit "
+                      "for bit")
+                check(target.model.embed.device.type == "cuda",
+                      "11d restored onto the card")
+    check("step     6" in logs[0], "11d first run logs step 6")
+    check("resumed from step 6" in logs[1] and "steps 6->10" in logs[1],
+          "11d restart resumes from step 6 and runs 6->10")
+    return {"resumed": True, "bit_equal_restore": True}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--scale", type=int, default=4_000_000,
@@ -3226,6 +3703,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO / "src"))
+    sys.path.insert(0, str(REPO / "tests"))  # _adam_hold (phase 11)
     from repro_torch import figaro
     from repro_torch.core.join_tree import build_plan
     from repro_torch.core.postprocess import normalize_sign
@@ -3443,6 +3921,21 @@ def main(argv=None) -> int:
     lm32 = phase_lm32(args.seed)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
+    log("== phase 11: qwen3-8b training (11a full width, 4 blocks; 11b the "
+        "step's own consistency; 11c the card against the CPU; 11d the "
+        "driver)")
+    _platform.reset_launch_counts()
+    train = {"full": phase_train(args.seed)}
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    train["consistency"] = phase_train_consistency(args.seed)
+    train["vs_cpu"] = phase_train_vs_cpu(args.seed)
+    train["driver"] = phase_train_driver(args.seed)
+    train["launches"] = _platform.launch_counts()
+    log(f"launch counts over phase 11: {train['launches']} (no port kernel "
+        f"lies on the training path; logged, not checked)")
+    _seg_scan.check()
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+
     log("== phase 8: summary")
     measured = {
         "node_fused": (launches, per_dtype["float32"]["node_fused"],
@@ -3540,6 +4033,7 @@ def main(argv=None) -> int:
                         "max_rel_err", "dead_max", "ms", "bound_ms")}
                         for k, v in random_passes.items()},
                     "flash_cases_bound_ratio": flash_case_err,
+                    "lm_train": train,
                     "lm32_eval_step_ms": lm32["step_ms"],
                     "lm32_loss": lm32["loss"],
                     "build_spill_bytes": build["spill_bytes"],

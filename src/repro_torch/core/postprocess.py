@@ -55,8 +55,12 @@ def _reflector(x: torch.Tensor):
 
 
 def _beta(v: torch.Tensor) -> torch.Tensor:
+    """2 / vᵀv, and 0 for a reflector whose vᵀv is zero or subnormal: XLA
+    flushes subnormals to zero, and 2 / vᵀv would overflow to inf there
+    (then inf · 0 = NaN in the update) — the dust of a rank-deficient
+    float32 column reaches it."""
     vv = (v * v).sum(dim=-1)
-    ok = vv > 0
+    ok = vv >= torch.finfo(vv.dtype).tiny
     return torch.where(ok, 2.0 / torch.where(ok, vv, torch.ones_like(vv)),
                        torch.zeros_like(vv))
 

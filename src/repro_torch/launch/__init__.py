@@ -1,1 +1,2 @@
-"""Launch helpers of the port: the serving batch buckets (`mesh`)."""
+"""Launch helpers of the port: meshes and the serving batch buckets
+(`mesh`), the LM trainer (`train`, ``python -m repro_torch.launch.train``)."""

@@ -17,8 +17,8 @@ before its gather, whether any rank failed (`DataMesh.agree`).
 
 `serving_batch_capacity` picks the request-batch capacity the async serving
 queue (`repro_torch.train.async_serve`) dispatches a coalesced micro-batch
-at. The production and host meshes of the LM scaffolding
-(`make_production_mesh`, `make_host_mesh`) are ROADMAP item A14.6 and raise
+at. `make_host_mesh` is the LM trainer's one-rank mesh; the production mesh
+and a host mesh with a ``model`` axis are ROADMAP item A14.6 and raise
 `NotImplementedError` naming it.
 """
 
@@ -283,7 +283,13 @@ def make_production_mesh(*, multi_pod: bool = False):
                               "(ROADMAP.md, A14.6)")
 
 
-def make_host_mesh(model: int = 1):
-    """The LM scaffolding's host mesh — not ported yet (ROADMAP.md, A14.6)."""
-    raise NotImplementedError("make_host_mesh is not ported yet "
-                              "(ROADMAP.md, A14.6)")
+def make_host_mesh(model: int = 1, device=None) -> DataMesh:
+    """The LM trainer's mesh: one rank on ``device`` (the card unless the
+    caller names another), ``make_data_mesh(1, device=device)``. A
+    ``model`` axis of more than one rank (tensor parallelism) needs the
+    sharding rules, not ported yet (ROADMAP.md, A14.6)."""
+    if model != 1:
+        raise NotImplementedError(
+            f"make_host_mesh(model={model}): tensor parallelism needs the "
+            "sharding rules, not ported yet (ROADMAP.md, A14.6)")
+    return make_data_mesh(1, device=device)

@@ -10,7 +10,8 @@ uninitialized. Weights are cast to the compute dtype at the call, as JAX
 casts them. Attention is ported in its train branch and its KV-cache
 branch (prefill, decode; a linear buffer, or a ring buffer under a sliding
 window), which writes the cache's tensors in place; cross-attention raises
-`NotImplementedError`.
+`NotImplementedError`, and so does the flash branch whenever autograd would
+record through it (`FLASH_NO_BACKWARD`).
 """
 
 from __future__ import annotations
@@ -27,6 +28,16 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "float64": torch.float64}
 
 _PAD_POS = 2**31 - 1  # int32 max: a padded key slot
+
+# The flash branch runs the forward only: on the card its CUDA kernel writes
+# an output autograd never sees, so a backward through it would give the
+# attention weights no gradient. The branch refuses to record instead, on
+# every device, as the JAX package's ``jax.grad`` through its kernel fails.
+FLASH_NO_BACKWARD = (
+    "use_flash_kernel=True has no backward: the JAX package's flash kernel "
+    "defines none, so training takes the _attend path "
+    "(use_flash_kernel=False); run the flash branch under torch.no_grad() "
+    "or torch.inference_mode()")
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -268,6 +279,10 @@ class Attention(nn.Module):
         window = cfg.swa_window
         if cache is None:  # train
             if cfg.use_flash_kernel:
+                if torch.is_grad_enabled() and (
+                        q.requires_grad or k.requires_grad
+                        or v.requires_grad):
+                    raise NotImplementedError(FLASH_NO_BACKWARD)
                 from repro_torch.kernels.flash_attn import ops as fa_ops
                 pos = positions.to(torch.int32)
                 out = fa_ops.flash_attention(q, k, v, pos, pos, causal=causal,

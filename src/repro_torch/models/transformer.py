@@ -12,10 +12,13 @@ depth is a `ModuleList` of super-blocks walked by a Python loop (JAX's
 ``{"blocks": {"pos<j>": {"attn": {"k", "v", "pos"}}}, "pos"}`` with each
 leaf stacked over the super-blocks; ``decode_step`` writes it in place.
 
-On one card ``remat``, ``scan_layers``, ``dp_axes`` and the activation
-constraints (``_constrain_act``) have no effect: PyTorch runs the loop
-eagerly, nothing is sharded, and an eval forward keeps no activations for a
-backward pass. Everything else of the JAX module raises
+``cfg.remat`` is JAX's ``jax.checkpoint(block_fn)``: when autograd records,
+each super-block runs under ``torch.utils.checkpoint`` (non-reentrant), so
+the backward pass recomputes its activations instead of keeping them; an
+eval forward, prefill and decode record nothing and run the blocks as they
+are. ``scan_layers``, ``dp_axes`` and the activation constraints
+(``_constrain_act``) have no effect on one card: PyTorch runs the loop
+eagerly and nothing is sharded. Everything else of the JAX module raises
 `NotImplementedError` naming its ROADMAP item: mamba, rwkv6 and moe layers,
 cross-attention and the encoder (``is_enc_dec``, with JAX's
 ``_fill_cross_caches``), and patch positions.
@@ -24,6 +27,7 @@ cross-attention and the encoder (``is_enc_dec``, with JAX's
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.kernels._platform import resolve_device
@@ -96,6 +100,13 @@ class Sublayer(nn.Module):
         x = x + y
         return x + self.mlp(self.norm2(x), cfg), \
             None if cache is None else {"attn": attn}
+
+
+def _block_forward(block, x, cfg: ModelConfig, positions):
+    """One super-block without a cache: its sub-layers in order."""
+    for sub in block:
+        x, _ = sub(x, cfg, positions=positions, causal=True)
+    return x
 
 
 class Transformer(nn.Module):
@@ -178,10 +189,22 @@ class Transformer(nn.Module):
                cache_pos=None):
         """The super-blocks in order (JAX's ``_scan_stack``); ``caches`` is
         the stacked ``cache["blocks"]``, each block reading and writing its
-        slice ``[i]`` in place."""
+        slice ``[i]`` in place. Without a cache, under ``cfg.remat`` and
+        while autograd records, each super-block is checkpointed (JAX's
+        ``jax.checkpoint(block_fn)``)."""
+        if caches is None:
+            remat = cfg.remat and torch.is_grad_enabled()
+            for block in self.blocks:
+                if remat:
+                    x = torch.utils.checkpoint.checkpoint(
+                        _block_forward, block, x, cfg, positions,
+                        use_reentrant=False)
+                else:
+                    x = _block_forward(block, x, cfg, positions)
+            return x
         for i, block in enumerate(self.blocks):
             for j, sub in enumerate(block):
-                c = None if caches is None else {"attn": {
+                c = {"attn": {
                     name: leaf[i]
                     for name, leaf in caches[f"pos{j}"]["attn"].items()}}
                 x, _ = sub(x, cfg, positions=positions, causal=True, cache=c,
@@ -200,7 +223,8 @@ class Transformer(nn.Module):
         lse = torch.logsumexp(logits_text, dim=-1)
         # A gather of the target logit: JAX's one-hot contraction adds zeros
         # to the same value.
-        tgt_logit = logits_text.gather(-1, targets[..., None]).squeeze(-1)
+        tgt_logit = logits_text.gather(
+            -1, targets[..., None].long()).squeeze(-1)
         del logits, logits_text
         nll = (lse - tgt_logit) * mask
         denom = torch.clamp(mask.sum(), min=1.0)

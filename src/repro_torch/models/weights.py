@@ -1,5 +1,5 @@
-"""Load a JAX parameter tree into the port's `Transformer`, and carry a
-decode cache across in both directions.
+"""Carry parameters, AdamW moments and decode caches between the port's
+`Transformer` and the JAX package's trees, in both directions.
 
 The tests hold the port to the JAX package on the same weights: JAX's
 ``init_params`` draws them, ``jax.tree_util.tree_map(np.asarray, params)``
@@ -9,6 +9,16 @@ JAX's PRNG. A cache keeps JAX's tree on both sides (``{"blocks":
 {"pos<j>": {"attn": {"k", "v", "pos"}}}, "pos"}``, leaves stacked over the
 super-blocks): `cache_from_jax` turns JAX's numpy leaves into the port's
 tensors, `cache_to_numpy` the port's back, so tests compare leaf by leaf.
+
+The port holds one parameter per super-block (``blocks.<i>.<j>.<path>``);
+JAX stacks each over the super-blocks (``blocks/pos<j>/<path>``, axis 0).
+`params_to_numpy` gives JAX's stacked tree of a model, the inverse of
+`params_from_jax`, and `opt_state_to_numpy` / `opt_state_from_jax` do the
+same for AdamW's state, whose moments the port keys by parameter name. The
+checkpoint manager writes these trees, so a checkpoint of either package
+restores in the other. `jax_path` and `jax_ndim` name a parameter's leaf
+and rank in JAX's tree: AdamW's weight decay and the orthogonal update
+decide by that rank, as JAX does.
 """
 
 from __future__ import annotations
@@ -37,6 +47,91 @@ def _leaf(tree, name: str):
     for key in parts:
         node = node[key]
     return node
+
+
+def jax_path(name: str) -> tuple[str, ...]:
+    """The keys of the port's parameter ``name`` in JAX's tree:
+    ``blocks.<i>.<j>.<path>`` is the slice ``[i]`` of ``("blocks",
+    "pos<j>", *path)``, any other name its own dotted path."""
+    parts = name.split(".")
+    if parts[0] == "blocks":
+        return ("blocks", f"pos{parts[2]}", *parts[3:])
+    return tuple(parts)
+
+
+def jax_ndim(name: str, t: torch.Tensor) -> int:
+    """The rank of JAX's leaf for the port's parameter ``name``: one more
+    than the port's for a super-block's parameter (JAX stacks it)."""
+    return t.ndim + 1 if name.startswith("blocks.") else t.ndim
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array of its own, on the host (bfloat16 widened
+    to float32, which holds it exactly). Always a copy: on the CPU a
+    tensor's ``.cpu()`` is the tensor itself, and parameters change in
+    place."""
+    t = t.detach()
+    t = t.float() if t.dtype == torch.bfloat16 else t
+    return t.to("cpu", copy=True).numpy()
+
+
+def stack_to_tree(named: dict, n_blocks: int) -> dict:
+    """Tensors keyed by the port's parameter names → JAX's tree of numpy
+    arrays, each super-block's parameters stacked on axis 0."""
+    tree: dict = {}
+    stacks: dict = {}
+    for name, t in named.items():
+        path = jax_path(name)
+        if name.startswith("blocks."):
+            stacks.setdefault(path, [None] * n_blocks)[
+                int(name.split(".")[1])] = to_numpy(t)
+        else:
+            _put(tree, path, to_numpy(t))
+    for path, leaves in stacks.items():
+        _put(tree, path, np.stack(leaves))
+    return tree
+
+
+def _put(tree: dict, path, value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def params_to_numpy(model: Transformer) -> dict:
+    """The model's parameters as JAX's ``init_params`` tree of numpy
+    arrays (super-block parameters stacked), the inverse of
+    `params_from_jax`."""
+    return stack_to_tree(dict(model.named_parameters()), model.cfg.n_blocks)
+
+
+def opt_state_to_numpy(opt_state: dict, model: Transformer) -> dict:
+    """AdamW's state (`repro_torch.optim.adamw_init`, moments keyed by
+    ``model``'s parameter names) as JAX's ``{"mu", "nu", "step"}`` tree of
+    numpy arrays."""
+    n = model.cfg.n_blocks
+    return {"mu": stack_to_tree(opt_state["mu"], n),
+            "nu": stack_to_tree(opt_state["nu"], n),
+            "step": to_numpy(opt_state["step"]).astype(np.int32)}
+
+
+def opt_state_from_jax(tree, model: Transformer,
+                       state_dtype: str = "float32") -> dict:
+    """JAX's AdamW state ``tree`` (``{"mu", "nu", "step"}`` as numpy
+    arrays) as the port's, on ``model``'s device: the moments keyed by its
+    parameter names in ``state_dtype``, the step a 0-d int32 tensor."""
+    dt = dtype_of(state_dtype)
+    out = {"mu": {}, "nu": {}}
+    for name, p in model.named_parameters():
+        for key in ("mu", "nu"):
+            arr = _numpy(_leaf(tree[key], name))
+            if tuple(arr.shape) != tuple(p.shape):
+                raise ValueError(f"{key} {name}: JAX shape {arr.shape} != "
+                                 f"{tuple(p.shape)}")
+            out[key][name] = torch.from_numpy(arr).to(p.device, dt)
+    out["step"] = torch.tensor(int(np.asarray(tree["step"])),
+                               dtype=torch.int32, device=model.embed.device)
+    return out
 
 
 def _numpy(arr) -> np.ndarray:
@@ -94,11 +189,7 @@ def cache_from_jax(tree, cfg: ModelConfig, device=None) -> dict:
 def cache_to_numpy(cache: dict) -> dict:
     """The port's cache as JAX's tree of numpy arrays (bfloat16 leaves
     widened to float32)."""
-    def arr(t):
-        t = t.detach().cpu()
-        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
-
-    return {"blocks": {j: {"attn": {name: arr(leaf)
+    return {"blocks": {j: {"attn": {name: to_numpy(leaf)
                                     for name, leaf in sub["attn"].items()}}
                        for j, sub in cache["blocks"].items()},
-            "pos": arr(cache["pos"])}
+            "pos": to_numpy(cache["pos"])}

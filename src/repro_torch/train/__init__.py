@@ -1,3 +1,4 @@
-"""Train/eval steps of the LM (the eval step so far; see `step`)."""
+"""Train/eval steps of the LM (`step`) and its serving entry points
+(`serve`)."""
 
-from .step import make_eval_step  # noqa: F401
+from .step import TrainState, init_state, make_train_step, make_eval_step  # noqa: F401

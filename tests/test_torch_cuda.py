@@ -24,7 +24,12 @@ without a mesh bit for bit and issues no collective, and a batched node
 pass past 2³¹ elements keeps its offsets. The LM's decode step (qwen3
 smoke): a `DecodeGraph` replay equals the eager step bit for bit, logits
 and cache, and `sample_loop` on the card gives the CPU loop's tokens, its
-logits within 1e-4. flash_attention,
+logits within 1e-4. The LM's train step (qwen3 smoke, float32, remat):
+one step on the card against the CPU's, with the orthogonal update off
+and on, metrics within 1e-5 and parameters and moments within rtol 2e-4
+and atol 2e-6 plus the gradient's tolerance carried through Adam
+(`tests/_adam_hold.py`); the flash branch under autograd raises on the card and
+launches nothing. flash_attention,
 elementwise: 2e-5 absolute in float32 and 1e-12 in float64 (the JAX
 package's own kernel-vs-oracle bound, tests/test_flash_kernel.py, and
 float64 rounding); in bfloat16 one bfloat16 step, |got − want| ≤
@@ -1216,3 +1221,69 @@ def test_sample_loop_on_the_card_matches_the_cpu():
             ref = torch.stack(out)
         else:
             assert _rel(torch.stack(out), ref) < 1e-4
+
+
+@pytest.mark.parametrize("orthogonal", [False, True])
+def test_train_step_on_the_card_matches_the_cpu(orthogonal):
+    """One `make_train_step` step (qwen3 smoke, float32 compute, remat on)
+    on the card and on the CPU from the same weights and tokens: the
+    metrics within 1e-5 relative, the parameters and moments within rtol
+    2e-4 and atol 2e-6 plus the gradient's tolerance carried through Adam
+    (`_adam_hold.hold_adam_step`: 1e-6 of each leaf's largest, 4e-5 for
+    the orthogonalized gradients)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from _adam_hold import flat, hold_adam_step
+    from repro_torch.models.weights import opt_state_to_numpy, params_to_numpy
+    from repro_torch.optim import AdamWConfig, adamw_init, warmup_cosine
+    from repro_torch.train import TrainState, make_train_step
+
+    opt = AdamWConfig(lr=warmup_cosine(3e-3, 1, 10))
+    tokens = np.random.default_rng(3).integers(0, 512, (4, 32))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        cfg, model = _lm_smoke(dev)
+        cfg = dataclasses.replace(cfg, remat=True)
+        state = TrainState(model=model, opt_state=adamw_init(model, opt),
+                           step=torch.zeros((), dtype=torch.int32,
+                                            device=dev))
+        before = opt_state_to_numpy(state.opt_state, model)
+        step = make_train_step(cfg, opt, orthogonal_update=orthogonal,
+                               device=None if dev == "cuda" else "cpu")
+        _, metrics = step(state, {"tokens": tokens})
+        assert metrics["loss"].device.type == dev
+        mom = opt_state_to_numpy(state.opt_state, model)
+        out[dev] = ({k: float(v) for k, v in metrics.items()},
+                    {"params": flat(params_to_numpy(model)),
+                     "mu": flat(mom["mu"]), "nu": flat(mom["nu"])})
+    (m_c, ref), (m_g, got) = out["cpu"], out["cuda"]
+    for key, want in m_c.items():
+        assert abs(m_g[key] - want) <= 1e-5 * abs(want), key
+    hold_adam_step(got, {k: flat(before[k]) for k in ("mu", "nu")}, ref,
+                   step=1, lr=m_c["lr"], b1=opt.b1, b2=opt.b2, eps=opt.eps,
+                   tau=4e-5 if orthogonal else 1e-6, orthogonal=orthogonal)
+
+
+def test_flash_branch_refuses_autograd_on_the_card():
+    """The flash kernel writes an output autograd never sees: under
+    autograd the branch raises on the card as on the CPU, and nothing
+    falls back to _attend; `make_train_step` refuses the config."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import make_train_step
+
+    cfg, model = _lm_smoke("cuda", "bfloat16")
+    cfg = dataclasses.replace(cfg, use_flash_kernel=True)
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab, (2, 16))).cuda()
+    _platform.reset_launch_counts()
+    with pytest.raises(NotImplementedError, match="no backward"):
+        model.loss_fn({"tokens": tokens}, cfg)
+    assert _platform.launch_counts().get("flash_attention", 0) == 0
+    with pytest.raises(NotImplementedError, match="_attend"):
+        make_train_step(cfg, AdamWConfig())

@@ -245,8 +245,22 @@ def test_temperature_sampling_is_repeatable_and_in_vocab():
 
 
 def test_unported_parts_raise_naming_their_items():
+    from repro_torch.launch.mesh import (DataMesh, make_host_mesh,
+                                         make_production_mesh)
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import make_train_step
+
     with pytest.raises(NotImplementedError, match="A14.6"):
         serve.cache_specs(get_config("qwen3-8b", smoke=True), None)
+    with pytest.raises(NotImplementedError, match="A14.6"):
+        make_production_mesh()
+    with pytest.raises(NotImplementedError, match="A14.6"):
+        make_host_mesh(model=2, device="cpu")
+    two = DataMesh(group=None, size=2, rank=0, device=torch.device("cpu"),
+                   ranks=(0, 1), backend="gloo")
+    with pytest.raises(NotImplementedError, match="A14.6"):
+        make_train_step(get_config("qwen3-8b", smoke=True), AdamWConfig(),
+                        two)
     for name, item in (("whisper-tiny", "A14.5"), ("llava-next-34b", "A14.5"),
                        ("mixtral-8x22b", "A14.3"), ("rwkv6-1.6b", "A14.4")):
         cfg = get_config(name, smoke=True)
@@ -255,6 +269,8 @@ def test_unported_parts_raise_naming_their_items():
         with pytest.raises(NotImplementedError, match=item):
             serve.sample_loop(None, cfg, {}, steps=1, max_len=16,
                               device="cpu")
+        with pytest.raises(NotImplementedError, match=item):
+            make_train_step(cfg, AdamWConfig(), device="cpu")
 
 
 def test_serving_defaults_to_the_card():

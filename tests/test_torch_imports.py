@@ -49,7 +49,13 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
                  "repro_torch.sanitizer.numerics", "repro_torch.planner",
                  "repro_torch.planner.stats", "repro_torch.planner.cost",
                  "repro_torch.planner.orient", "repro_torch.planner.explain",
-                 "repro_torch.planner.replan"):
+                 "repro_torch.planner.replan", "repro_torch.optim",
+                 "repro_torch.optim.adamw", "repro_torch.optim.schedules",
+                 "repro_torch.optim.orthogonal",
+                 "repro_torch.optim.compression",
+                 "repro_torch.data.pipeline", "repro_torch.checkpoint",
+                 "repro_torch.checkpoint.manager",
+                 "repro_torch.launch.train"):
         assert name in mods, name
     code = (
         "import importlib, sys\n"
