@@ -249,10 +249,44 @@ result line):
                 `repro_torch.launch.train.main` on the card: 6 steps with a
                 checkpoint every 3, the checkpoint restored bit for bit, a
                 restart that resumes from step 6 and runs 6->10.
+  12. moe/ssm — (run after 11) the mixture-of-experts and state-space
+                configs at their published widths (`phase_moe_ssm`), each
+                initialized on the card from ``--seed``, cut in depth only:
+                12a mixtral-8x22b at 2 of 56 blocks (float32 parameters,
+                ≈ 21.6 GB), 12b arctic-480b at 2 of 35 (bf16, ≈ 55 GB), 12c
+                rwkv6-1.6b not cut (24 blocks, 1.6 B float32 parameters;
+                ``param_count()`` says 2.20 B, counting the channel mix's
+                2·d·ff twice and not its wr), 12d jamba-v0.1-52b at 1 of
+                4 super-blocks (8 layers, ≈ 53 GB).
+                Each: the eval step on 2 × 4096 tokens through
+                ``make_eval_step`` with the flash kernel where it has
+                attention (median of 3 after a warm-up, the counters zeroed
+                around it: ``flash_attention_sm90`` once per attention layer
+                a step), loss and aux finite, every MoE layer's share of
+                dropped assignments, the step's FLOPs against the bf16 peak,
+                one profiled step; every flash call of one forward against
+                the plain version and SDPA (GQA groups 6 and 7 at hd 128 for
+                mixtral and arctic); then prefill (12a: 2 prompts of 6,144
+                tokens into the published 4,096-slot ring; 12b, 12c: 8 of
+                2,048; 12d: 4 of 2,048) and greedy ``sample_loop`` (32
+                steps, 12c 64: one eager step, then replays of one captured
+                graph), one replay against one eager step bit for bit,
+                timed and profiled replays, and the teacher-forced decode
+                against the forward (float32 compute at the JAX
+                package's 2e-3 × max(max |logits|, 1) for the float32
+                configs; arctic in bf16 at 2e-2), held only where neither
+                the forward nor the prefill dropped an assignment (each
+                call's capacity is its own, as in JAX);
+                then the train step, 12a on 1 block and 2 × 4096 tokens,
+                12c at full depth on 2 × 1024 (one warm-up, the median of
+                3 by CUDA events; loss, aux and grad_norm finite).
+                arctic (≈ 109 GB for one block's state) and jamba (≈ 213 GB
+                for one super-block's) do not train on one card. Peak
+                reserved memory under 80 GB in each.
   8. summary  — one ``{"kernels": [...]}`` line, then, last, the
                 ``{"ok": true, "device": {...}}`` line.
 
-Each of phases 4–7 (and 5b, 9a, 9b, 10a, 10b, 10c) drives one path of the port
+Each of phases 4–7 (and 5b, 9a, 9b, 10a, 10b, 10c, 12) drives one path of the port
 with the launch counters zeroed just before and read just after, and fails
 if a kernel of that path did not launch (in phase 9 the server's dispatch
 thread launches them; the counts are process-wide). Every profiled ``qr`` (`profile_once`) also holds
@@ -1060,12 +1094,15 @@ def trace_launches(label: str, kernels, counted: dict) -> dict:
     return dict(seen, nf_prep=prep)
 
 
-def profile_once(label: str, fn) -> dict:
+def profile_once(label: str, fn, cpu: bool = True) -> dict:
     """Device time by kernel over one call of ``fn`` (torch.profiler), and
     the device's busy share of that call's wall time (kernels and copies on
     the one stream, summed; they do not overlap). The trace's port kernels
-    are held to the launch counters (`trace_launches`). Returns the wall
-    and busy ms, the busy share and the count of kernels and copies."""
+    are held to the launch counters (`trace_launches`). ``cpu=False``
+    traces the device alone (no host ops, so no R0 assembly range): a
+    call of 10⁵ kernels then takes seconds to read, not minutes. Returns
+    the wall and busy ms, the busy share and the count of kernels and
+    copies."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1074,8 +1111,8 @@ def profile_once(label: str, fn) -> dict:
     fn()
     torch.cuda.synchronize()
     before = _platform.launch_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * cpu
+                 + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2753,8 +2790,9 @@ def sdpa(q, k, v, q_pos, k_pos, causal=True, window=None):
     yardstick."""
     import torch.nn.functional as F
 
-    check(causal and window is None and q.shape[1] == k.shape[1],
-          "sdpa times plain causal self-attention only")
+    check(causal and (window is None or window >= q.shape[1])
+          and q.shape[1] == k.shape[1],
+          "sdpa times causal self-attention whose window masks nothing")
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                           enable_gqa=True)
@@ -2952,14 +2990,17 @@ SERVE_WINDOW = 512  # the float32 cut's sliding window (a ring of 512 slots)
 
 def cache_leaves(cache) -> list:
     """The cache's tensors: the top-level position, then each sub-layer's
-    ``k``, ``v`` and ``pos``."""
+    leaves of every kind (``attn``'s ``k``, ``v`` and ``pos``; ``mamba``,
+    ``rwkv`` and ``cmix`` states)."""
     return [cache["pos"]] + [leaf for sub in cache["blocks"].values()
-                             for leaf in sub["attn"].values()]
+                             for leaves in sub.values()
+                             for leaf in leaves.values()]
 
 
 def clone_cache(cache) -> dict:
     return {"pos": cache["pos"].clone(), "blocks": {
-        j: {"attn": {n: leaf.clone() for n, leaf in sub["attn"].items()}}
+        j: {kind: {n: leaf.clone() for n, leaf in leaves.items()}
+            for kind, leaves in sub.items()}
         for j, sub in cache["blocks"].items()}}
 
 
@@ -3012,13 +3053,19 @@ def decode_cost(model, cfg, cache) -> dict:
 
 
 def decode_vs_forward(label: str, model, cfg, tokens, prompt: int,
-                      rows: int, rel: float, floor: float) -> dict:
+                      rows: int, rel: float, floor: float,
+                      moe: bool = False) -> dict:
     """Prefill ``tokens[:, :prompt]`` and decode the rest teacher-forced
     (`make_prefill`, `make_decode_step`; ``max_len`` one past the tokens),
     each step's logits on the first ``rows`` sequences against
     ``Transformer.forward`` of those sequences with ``use_flash_kernel=
     False``: the largest |difference| at most ``rel`` × max(max |logits|,
-    ``floor``)."""
+    ``floor``). With ``moe``, the share of assignments each MoE layer of
+    the forward and of the prefill dropped is recorded, and the bound is
+    held only where both are 0 everywhere: each call routes its own tokens
+    under a capacity worked out for them (a decode step's B tokens never
+    fill it), so a forward or a prefill that dropped computes another
+    function than the decode steps, as in JAX."""
     import dataclasses
 
     import torch
@@ -3026,11 +3073,14 @@ def decode_vs_forward(label: str, model, cfg, tokens, prompt: int,
 
     plain = dataclasses.replace(cfg, use_flash_kernel=False)
     total = tokens.shape[1]
-    with torch.inference_mode():
+    with torch.inference_mode(), MoEDrops(model, plain) as drops:
         full, _, _ = model({"tokens": tokens[:rows]}, plain)
-    logits, cache = make_prefill(plain, total + 1)(
-        model, {"tokens": tokens[:, :prompt]})
-    slots = cache["blocks"]["pos0"]["attn"]["k"].shape[2]
+    with MoEDrops(model, plain) as pre_drops:
+        logits, cache = make_prefill(plain, total + 1)(
+            model, {"tokens": tokens[:, :prompt]})
+    shares = {"forward": drops.shares(), "prefill": pre_drops.shares()}
+    slots = next((sub["attn"]["k"].shape[2] for sub in
+                  cache["blocks"].values() if "attn" in sub), None)
     errs = [float((logits[:rows] - full[:, prompt - 1]).abs().max())]
     decode = make_decode_step(plain)
     for j in range(prompt, total):
@@ -3047,10 +3097,17 @@ def decode_vs_forward(label: str, model, cfg, tokens, prompt: int,
         f"{max(errs):.3e} (prefill {errs[0]:.3e}) of max |logits| "
         f"{scale:.3e}, limit {limit:.3e} ({rel:g} x max(max |logits|, "
         f"{floor:g}))")
-    check(finite and max(errs) <= limit,
+    held = not any(v for part in shares.values() for v in part.values())
+    if moe:
+        log(f"{label}: share of assignments dropped per MoE layer {shares}; "
+            "the bound is " + ("held" if held else "not held (the forward "
+                               "or the prefill dropped)"))
+    check(finite, f"{label}: decode logits finite")
+    check(not held or max(errs) <= limit,
           f"{label}: decode matches the forward")
     return {"max_abs_err": max(errs), "prefill_err": errs[0],
-            "scale": scale, "limit": limit, "slots": slots}
+            "scale": scale, "limit": limit, "slots": slots,
+            "drop_shares": shares, "held": held}
 
 
 def phase_lm_serve(model, cfg, seed: int) -> dict:
@@ -3688,6 +3745,419 @@ def phase_train_driver(seed: int) -> dict:
     return {"resumed": True, "bit_equal_restore": True}
 
 
+# -- phase 12: mixture-of-experts and state-space configs ------------------------
+
+MOE_SSM_STEPS = {"mixtral-8x22b": 32, "arctic-480b": 32, "rwkv6-1.6b": 64,
+                 "jamba-v0.1-52b": 32}  # decode steps after the prefill
+MIXTRAL_PROMPT = 6144  # longer than mixtral's 4,096-slot ring
+# (sub-phase, config, super-blocks (None: all), (prompts, prompt tokens),
+# (train blocks, batch, sequence) or None): mixtral trains one block on
+# 2 x 4096 tokens (46.5 GB of state); rwkv6 all 24 blocks on 2 x 1024 (its
+# chunked scan is host-bound: about 29 s a step at 2 x 4096 on an H100);
+# arctic and jamba cannot train on one card.
+MOE_SSM_CELLS = (
+    ("12a", "mixtral-8x22b", 2, (2, MIXTRAL_PROMPT), (1, LM_BATCH, LM_SEQ)),
+    ("12b", "arctic-480b", 2, (8, 2048), None),
+    ("12c", "rwkv6-1.6b", None, (8, 2048), (24, LM_BATCH, 1024)),
+    ("12d", "jamba-v0.1-52b", 1, (4, 2048), None))
+
+
+class MoEDrops:
+    """While active, records for each MoE layer of ``model`` the share of
+    its assignments dropped past capacity (`MoE.dropped` on the layer's
+    input, read after the forward)."""
+
+    def __init__(self, model, cfg):
+        self.model, self.cfg = model, cfg
+        self.counts: dict = {}
+
+    def __enter__(self):
+        from repro_torch.models.moe import MoE
+
+        def hook(mod, args, _out, name):
+            x = args[0]
+            self.counts.setdefault(name, []).append(
+                (mod.dropped(x, self.cfg), x.shape[0] * x.shape[1]
+                 * self.cfg.moe.top_k))
+
+        self._handles = [m.register_forward_hook(
+            lambda mod, args, out, _n=name: hook(mod, args, out, _n))
+            for name, m in self.model.named_modules() if isinstance(m, MoE)]
+        return self
+
+    def __exit__(self, *exc):
+        for h in self._handles:
+            h.remove()
+        self.model = None  # the caller may free it
+
+    def shares(self) -> dict:
+        return {name: sum(int(d) for d, _ in v) / sum(n for _, n in v)
+                for name, v in self.counts.items()}
+
+
+def lm_eval_flops(cfg, batch: int, seq: int) -> dict:
+    """Floating-point operations of one eval forward as the port runs it
+    (2 per multiply-add): the blocks' products in the compute dtype (the
+    experts over every capacity slot, empty ones included, as the batched
+    products run them; ``useful`` counts top-k experts a token), attention
+    over the pairs its window and causality make visible, and the float32
+    LM head. Mamba and RWKV layers are counted by their projections."""
+    from repro_torch.models.moe import capacity
+
+    t = batch * seq
+    d, hd, ff = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
+    proj = d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd + cfg.n_heads * hd * d
+    w = cfg.swa_window or seq
+    pairs = sum(min(i + 1, w) for i in range(seq))
+    attn = 4 * batch * cfg.n_heads * pairs * hd
+    run = useful = 0
+    for spec in cfg.block:
+        base = 0
+        if spec.mixer == "attn":
+            base += 2 * t * proj + attn
+        elif spec.mixer == "mamba":
+            di = (cfg.mamba.expand if cfg.mamba else 2) * d
+            base += 2 * t * (d * 2 * di + di * d)
+        elif spec.mixer == "rwkv6":
+            base += 2 * t * 5 * d * d
+        if spec.mlp in ("dense", "dense+moe"):
+            base += 2 * t * 3 * d * ff
+        if spec.mlp == "rwkv_cmix":
+            base += 2 * t * (2 * d * ff + d * d)
+        run, useful = run + base, useful + base
+        if spec.mlp in ("moe", "dense+moe"):
+            grp, cap = capacity(cfg, t)
+            e = cfg.moe.num_experts
+            run += 2 * grp * e * cap * 3 * d * ff + 2 * t * d * e
+            useful += 2 * t * cfg.moe.top_k * 3 * d * ff + 2 * t * d * e
+    return {"compute": cfg.n_blocks * run, "useful": cfg.n_blocks * useful,
+            "float32": 2 * t * d * cfg.padded_vocab}
+
+
+def flash_at(label: str, model, cfg, batch) -> dict:
+    """Every flash_attention call of one forward of ``model``, captured,
+    against the plain version and SDPA (one bf16 step, `flash_compare`)."""
+    import torch
+    from repro_torch.kernels.flash_attn import kernel as fk, ops as fa_ops
+
+    with torch.inference_mode():
+        with Capture([(fa_ops, "flash_attention")]) as cap:
+            model(batch, cfg)
+            torch.cuda.synchronize()
+        calls = cap.calls["flash_attention"]
+        del cap
+        flash = measure(calls, fk.flash_attention, flash_plain, flash_cost,
+                        flash_compare, "bfloat16", library=sdpa, reps=3)
+    del calls
+    torch.cuda.empty_cache()
+    report(f"{label}: flash_attention bfloat16 over one forward (query "
+           f"heads {cfg.n_heads}, KV heads {cfg.n_kv_heads}: GQA group "
+           f"{cfg.n_heads // cfg.n_kv_heads})", flash, {"bound_ratio": 1.0},
+           library="scaled_dot_product_attention")
+    flash_rates(flash, "bfloat16")
+    return flash
+
+
+def moe_ssm_serve(label: str, model, cfg, seed: int, batch: int,
+                  prompt: int, steps: int, forced_rows: int) -> dict:
+    """Serving of one phase 12 config: prefill of ``batch`` prompts of
+    ``prompt`` tokens (one warm-up, one timed); greedy `sample_loop` for
+    ``steps`` steps (one eager decode step, then replays of one captured
+    graph) with the counters zeroed around it; one replay against one eager
+    step from the same cache and tokens, bit for bit; timed and profiled
+    replays; the teacher-forced decode against the forward on
+    ``forced_rows`` sequences: with float32 parameters the model runs it
+    in float32 compute, held at the JAX package's 2e-3 × max(max |logits|,
+    1) (in bf16 the decode drifts from the forward by several percent over
+    depth in the JAX package as in the port: each call rounds its own GEMMs,
+    and the recurrences and the routing carry it); arctic's bf16 parameters
+    in bf16 at 2e-2. MoE configs: held only where neither the forward nor
+    the prefill dropped an assignment."""
+    import dataclasses
+
+    import torch
+    from repro_torch.kernels import _platform
+    from repro_torch.train.serve import (DecodeGraph, make_decode_step,
+                                         make_prefill, sample_loop)
+
+    max_len = prompt + steps + 1
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    tokens = torch.randint(0, cfg.vocab, (batch, prompt + SERVE_FORCED),
+                           generator=gen, device="cuda")
+    first = {"tokens": tokens[:, :prompt]}
+    prefill = make_prefill(cfg, max_len)
+    decode = make_decode_step(cfg)
+    (logits, cache), t_pre, _, warm = wall(lambda: prefill(model, first), 1)
+    check(bool(torch.isfinite(logits).all()), f"{label}: prefill finite")
+    slots = {kind: tuple(leaf.shape) for sub in cache["blocks"].values()
+             for kind, leaves in sub.items() for leaf in leaves.values()}
+    del logits, cache
+    log(f"{label}: prefill of {batch} x {prompt} tokens (max_len {max_len})"
+        f": {t_pre * 1e3:.1f} ms (warm-up {warm * 1e3:.1f} ms), "
+        f"{batch * prompt / t_pre:.0f} prompt tokens/s; cache leaves by "
+        f"kind {slots}")
+
+    _platform.reset_launch_counts()
+    t0 = time.perf_counter()
+    toks = sample_loop(model, cfg, first, steps=steps, max_len=max_len)
+    torch.cuda.synchronize()
+    t_loop = time.perf_counter() - t0
+    launches = _platform.launch_counts()
+    check(toks.shape == (batch, steps) and int(toks.min()) >= 0
+          and int(toks.max()) < cfg.vocab, f"{label}: sampled tokens")
+    log(f"{label}: sample_loop ({steps} steps: one eager step, then "
+        f"replays) {t_loop * 1e3:.1f} ms; launch counts {launches} (the "
+        "decode path reaches no port kernel)")
+
+    logits, cache = prefill(model, first)
+    logits, cache = decode(model, cache, logits.argmax(-1)[:, None])
+    tok = logits.argmax(-1)[:, None].to(torch.int32)
+    snap = clone_cache(cache)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    graph = DecodeGraph(model, cfg, cache, tok)
+    check(caches_equal(cache, snap), f"{label}: capturing ran nothing")
+    replayed = graph(tok).clone()
+    eager, snap = decode(model, snap, tok)
+    bit_equal = torch.equal(replayed, eager) and caches_equal(cache, snap)
+    log(f"{label}: replay vs eager decode step from the same cache and "
+        f"tokens, logits and every cache leaf bit-equal: {bit_equal}")
+    check(bit_equal, f"{label}: a replayed decode step equals the eager "
+          "step")
+    check(bool(torch.isfinite(replayed).all()), f"{label}: decode finite")
+    del snap, eager
+    tok = replayed.argmax(-1)[:, None].to(torch.int32)
+    replay_ms = []
+    for _ in range(steps - 4):
+        t0 = time.perf_counter()
+        tok = graph(tok).argmax(-1)[:, None].to(torch.int32)
+        torch.cuda.synchronize()
+        replay_ms.append((time.perf_counter() - t0) * 1e3)
+    t_replay = statistics.median(replay_ms)
+    log(f"{label}: replayed decode median {t_replay:.2f} ms a step (min "
+        f"{min(replay_ms):.2f}, max {max(replay_ms):.2f}); "
+        f"{batch * 1e3 / t_replay:.1f} tokens/s")
+    prof = profile_once(f"{label} decode step (replay)", lambda: graph(tok),
+                        cpu=False)
+    graph.close()
+    del graph, cache, replayed
+    torch.cuda.empty_cache()
+    if cfg.param_dtype == "float32":
+        forced = decode_vs_forward(
+            f"{label} float32", model, dataclasses.replace(
+                cfg, compute_dtype="float32"), tokens[:forced_rows], prompt,
+            forced_rows, 2e-3, 1.0, moe=cfg.moe is not None)
+    else:
+        forced = decode_vs_forward(label, model, cfg, tokens[:forced_rows],
+                                   prompt, forced_rows, 2e-2, 0.0,
+                                   moe=cfg.moe is not None)
+    return {"prefill_ms": t_pre * 1e3,
+            "prefill_tokens_per_s": batch * prompt / t_pre,
+            "sample_loop_ms": t_loop * 1e3, "launches": launches,
+            "replay_step_ms": t_replay,
+            "decode_tokens_per_s": batch * 1e3 / t_replay,
+            "replay_bit_equal": bit_equal, "profile_replay": prof,
+            "forced": forced}
+
+
+class ExpandableSegments:
+    """While active, the caching allocator maps new memory as expandable
+    segments (``expandable_segments:True``), so blocks freed by one part of
+    a step serve another's larger requests; on exit the cache is emptied
+    and fixed segments come back."""
+
+    def __enter__(self):
+        import torch
+
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+
+
+def moe_ssm_train(label: str, cfg, seed: int, batch: int, seq: int) -> dict:
+    """One phase 12 config's train step: `init_state` on the card, one
+    warm-up step, then `REPS` steps of ``batch`` × ``seq`` tokens timed by
+    CUDA events; loss, aux and grad_norm finite; peak reserved memory. The
+    step runs on expandable segments: with fixed ones, mixtral's backward
+    (bf16 weight casts, `_attend`'s float32 scores) keeps blocks the
+    optimizer's 3.2 GB float32 temporaries cannot use, and one block on
+    1 × 4096 tokens reserved 80.24 GB for 62.75 GB allocated on an H100."""
+    import torch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.optim import AdamWConfig, warmup_cosine
+    from repro_torch.train import init_state, make_train_step
+
+    opt = AdamWConfig(lr=warmup_cosine(3e-4, 2, REPS + 4))
+    pipe = TokenPipeline(cfg.vocab, seq, batch, seed=seed)
+    batches = [pipe.batch_at(s) for s in range(REPS + 1)]
+    rows = []
+    with ExpandableSegments():
+        torch.cuda.reset_peak_memory_stats()
+        state = init_state(torch.Generator(device="cuda").manual_seed(seed),
+                           cfg, opt)
+        n_params = sum(p.numel() for p in state.model.parameters())
+        step = make_train_step(cfg, opt)
+        t0 = time.perf_counter()
+        step(state, batches[0])
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        for s in range(1, REPS + 1):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            _, m = step(state, batches[s])
+            end.record()
+            torch.cuda.synchronize()
+            rows.append({"ms": start.elapsed_time(end),
+                         **{k: float(m[k]) for k in ("loss", "aux", "ce",
+                                                     "grad_norm")}})
+        peak = torch.cuda.max_memory_reserved()
+        peak_alloc = torch.cuda.max_memory_allocated()
+        del state, step, m
+    check(all(math.isfinite(r[k]) for r in rows
+              for k in ("loss", "aux", "grad_norm")),
+          f"{label}: train loss, aux and grad_norm finite")
+    step_ms = statistics.median(r["ms"] for r in rows)
+    log(f"{label} train ({cfg.n_blocks} blocks, {n_params / 1e9:.4f} B "
+        f"parameters, state {16 * n_params / 1e9:.2f} GB): step median "
+        f"{step_ms:.1f} ms of {[round(r['ms'], 1) for r in rows]} (warm-up "
+        f"{warm * 1e3:.1f} ms wall); {batch} x {seq} tokens, "
+        f"{batch * seq / step_ms * 1e3:.0f} tokens/s; loss "
+        f"{[round(r['loss'], 4) for r in rows]}, aux "
+        f"{[round(r['aux'], 5) for r in rows]}, grad_norm "
+        f"{[round(r['grad_norm'], 4) for r in rows]}; peak reserved "
+        f"{peak / 1e9:.2f} GB, allocated {peak_alloc / 1e9:.2f} GB")
+    check(peak < 80e9, f"{label} train: peak reserved under 80 GB")
+    return {"blocks": cfg.n_blocks, "params": n_params, "batch": batch,
+            "seq": seq, "steps": rows, "step_ms": step_ms,
+            "warmup_wall_ms": warm * 1e3,
+            "tokens_per_s": batch * seq / step_ms * 1e3,
+            "peak_reserved_gb": peak / 1e9,
+            "peak_allocated_gb": peak_alloc / 1e9}
+
+
+def phase_moe_ssm(name: str, seed: int, *, blocks: int | None,
+                  serve: tuple[int, int],
+                  train: tuple[int, int, int] | None) -> dict:
+    """12a–12d: one MoE or state-space config at its published widths,
+    ``blocks`` of its super-blocks (None: all), initialized on the card from
+    ``seed``: the eval step on `LM_BATCH` × `LM_SEQ` tokens through
+    ``make_eval_step`` (median of `REPS` after a warm-up; the flash kernel
+    where it has attention, every call of one forward against the plain
+    version and SDPA) with the counters zeroed around it, one profiled eval
+    step, then serving (``serve`` = (prompts, prompt tokens),
+    `moe_ssm_serve`), then, with ``train`` = (blocks, batch, seq), the
+    train step at that depth on ``batch`` × ``seq`` tokens
+    (`moe_ssm_train`, after the eval model is freed). Peak reserved memory under 80 GB
+    throughout."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _platform
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.train import make_eval_step
+
+    t_phase = time.perf_counter()
+    full = get_config(name)
+    n_attn = sum(s.mixer == "attn" for s in full.block)
+    cfg = dataclasses.replace(full, n_blocks=blocks or full.n_blocks,
+                              use_flash_kernel=n_attn > 0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = Transformer(cfg, device="cuda").init(gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"{name}: {cfg.n_blocks} of {full.n_blocks} super-blocks of "
+        f"{len(cfg.block)} layers ({[(s.mixer, s.mlp) for s in cfg.block]}), "
+        f"d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}, moe {cfg.moe}, mamba {cfg.mamba}, "
+        f"rwkv {cfg.rwkv}, window {cfg.swa_window}; {n_params / 1e9:.4f} B "
+        f"parameters ({cfg.param_dtype}; the full config "
+        f"{full.param_count() / 1e9:.2f} B by param_count()), compute "
+        f"{cfg.compute_dtype}; initialized on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_SEQ), generator=gen,
+                           device="cuda")
+    batch = {"tokens": tokens}
+    eval_fn = make_eval_step(cfg)
+    _platform.reset_launch_counts()
+    metrics, t_step, ts, warm = wall(lambda: eval_fn(model, batch), REPS)
+    launches = _platform.launch_counts()
+    loss, aux = float(metrics["loss"]), float(metrics["aux"])
+    tok_s = LM_BATCH * LM_SEQ / t_step
+    log(f"{name} eval step ({LM_BATCH} x {LM_SEQ} tokens): median "
+        f"{t_step * 1e3:.1f} ms of {[round(x * 1e3, 1) for x in ts]} ms "
+        f"(warm-up {warm * 1e3:.1f} ms); {tok_s:.0f} tokens/s; loss "
+        f"{loss:.4f}, aux {aux:.5f}; launches {launches} over {REPS + 1} "
+        "steps")
+    check(math.isfinite(loss) and math.isfinite(aux),
+          f"{name}: eval loss and aux finite")
+    check(launches.get("flash_attention_sm90", 0)
+          == (REPS + 1) * cfg.n_blocks * n_attn,
+          f"{name}: the bfloat16 flash kernel launched once per attention "
+          "layer")
+    out = {"blocks": cfg.n_blocks, "params": n_params, "launches": launches,
+           "step_ms": t_step * 1e3, "tokens_per_s": tok_s, "loss": loss,
+           "aux": aux}
+    with torch.inference_mode(), MoEDrops(model, cfg) as drops:
+        logits, _, _ = model(batch, cfg)
+    check(bool(torch.isfinite(logits).all()), f"{name}: logits finite")
+    del logits
+    out["eval_drop_shares"] = drops.shares()
+    if cfg.moe is not None:
+        log(f"{name}: share of assignments dropped per MoE layer, eval "
+            f"forward: {out['eval_drop_shares']}")
+    if n_attn:
+        out["flash"] = flash_at(name, model, cfg, batch)
+        out["flash"]["launches"] = launches.get("flash_attention_sm90", 0)
+    flops = lm_eval_flops(cfg, LM_BATCH, LM_SEQ)
+    total = flops["compute"] + flops["float32"]
+    out["flops"] = flops
+    out["bf16_peak_share"] = total / t_step / PEAK_FLOPS["bfloat16"]
+    log(f"{name} eval FLOPs as run: {flops['compute']:.3e} in "
+        f"{cfg.compute_dtype} ({flops['useful']:.3e} of them top-k work) + "
+        f"{flops['float32']:.3e} in float32 (LM head); "
+        f"{total / t_step / 1e12:.1f} TFLOP/s, "
+        f"{100 * out['bf16_peak_share']:.2f}% of the dense bf16 peak")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        out["profile_eval"] = profile_once(f"{name} eval step",
+                                           lambda: eval_fn(model, batch),
+                                           cpu=False)
+    log(f"{name}: profiling the eval step took "
+        f"{time.perf_counter() - t0:.1f} s; eval phase so far "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del metrics
+    torch.cuda.empty_cache()
+    out["serve"] = moe_ssm_serve(name, model, cfg, seed, serve[0], serve[1],
+                                 MOE_SSM_STEPS[name], min(2, serve[0]))
+    out["eval_peak_reserved_gb"] = torch.cuda.max_memory_reserved() / 1e9
+    log(f"{name}: peak reserved {out['eval_peak_reserved_gb']:.2f} GB over "
+        "eval and serving")
+    check(out["eval_peak_reserved_gb"] < 80, f"{name}: peak reserved under "
+          "80 GB")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{name}: eval and serving {time.perf_counter() - t_phase:.1f} s")
+    if train is not None:
+        out["train"] = moe_ssm_train(name, dataclasses.replace(
+            cfg, n_blocks=train[0], use_flash_kernel=False), seed, *train[1:])
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"{name}: phase {out['wall_s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--scale", type=int, default=4_000_000,
@@ -3936,6 +4406,15 @@ def main(argv=None) -> int:
     _seg_scan.check()
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
+    log("== phase 12: mixture-of-experts and state-space configs (12a "
+        "mixtral-8x22b, 12b arctic-480b, 12c rwkv6-1.6b, 12d jamba-v0.1-52b)")
+    moe_ssm = {}
+    for sub, name, blocks, serve, train in MOE_SSM_CELLS:
+        log(f"== phase {sub}: {name}")
+        moe_ssm[name] = phase_moe_ssm(name, args.seed, blocks=blocks,
+                                      serve=serve, train=train)
+        log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+
     log("== phase 8: summary")
     measured = {
         "node_fused": (launches, per_dtype["float32"]["node_fused"],
@@ -3988,6 +4467,14 @@ def main(argv=None) -> int:
             entry["dtypes"] = FLASH_DTYPES[kname]
         if kname == "flash_attention_sm90":
             entry["launches_per_forward"] = lm["launches_per_forward"]
+            # Phase 12's GQA groups: mixtral 48/8, arctic 56/8, jamba 32/8.
+            for name, res in moe_ssm.items():
+                if "flash" in res:
+                    entry[name] = {k: res["flash"][k] for k in (
+                        "launches", "calls", "shapes", "max_abs_err",
+                        "max_rel_err", "bound_ratio", "ms", "plain_ms",
+                        "bound_ms", "bound_by", "library_ms", "tflops",
+                        "bound_share", "vs_library")}
         if kname in FLASH_DTYPES:
             entry.update({k: main[k] for k in (
                 "tflops", "bound_share", "vs_library")})
@@ -4034,6 +4521,9 @@ def main(argv=None) -> int:
                         for k, v in random_passes.items()},
                     "flash_cases_bound_ratio": flash_case_err,
                     "lm_train": train,
+                    "moe_ssm": {n: {k: v for k, v in r.items()
+                                    if k != "flash"}
+                                for n, r in moe_ssm.items()},
                     "lm32_eval_step_ms": lm32["step_ms"],
                     "lm32_loss": lm32["loss"],
                     "build_spill_bytes": build["spill_bytes"],

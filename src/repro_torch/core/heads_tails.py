@@ -102,23 +102,28 @@ def _sl(x: torch.Tensor, dim: int, start: int, stop: int | None,
     return x[tuple(index)]
 
 
-def _assoc_scan(elems, dim: int):
-    """Inclusive associative scan of ``(flags, values)`` along ``dim``.
+def _assoc_scan(elems, dim: int, combine=_combine):
+    """Inclusive associative scan of ``elems`` along ``dim`` under
+    ``combine(earlier, later)`` (default: the segmented sum of ``(flags,
+    values)``).
 
-    The same odd/even recursion as `jax.lax.associative_scan`, so the sums
-    associate in the same order as the JAX package's `segmented_cumsum`.
+    The same odd/even recursion as `jax.lax.associative_scan`, so the
+    operands associate in the same order as the JAX package's (its
+    `segmented_cumsum`, and the SSM scans of `repro_torch.models.ssm`).
+    The elements may differ in shape beside ``dim`` where ``combine``
+    broadcasts them.
     """
     n = elems[0].shape[dim]
     if n < 2:
         return elems
-    reduced = _combine([_sl(e, dim, 0, -1, 2) for e in elems],
-                       [_sl(e, dim, 1, None, 2) for e in elems])
-    odd = _assoc_scan(reduced, dim)
+    reduced = combine([_sl(e, dim, 0, -1, 2) for e in elems],
+                      [_sl(e, dim, 1, None, 2) for e in elems])
+    odd = _assoc_scan(reduced, dim, combine)
     if n % 2 == 0:
-        even = _combine([_sl(e, dim, 0, -1) for e in odd],
-                        [_sl(e, dim, 2, None, 2) for e in elems])
+        even = combine([_sl(e, dim, 0, -1) for e in odd],
+                       [_sl(e, dim, 2, None, 2) for e in elems])
     else:
-        even = _combine(list(odd), [_sl(e, dim, 2, None, 2) for e in elems])
+        even = combine(list(odd), [_sl(e, dim, 2, None, 2) for e in elems])
     even = [torch.cat([_sl(e, dim, 0, 1), r], dim=dim)
             for e, r in zip(elems, even)]
     return [_interleave(e, o, dim) for e, o in zip(even, odd)]

@@ -2,10 +2,13 @@
 
 A copy of the JAX package's ``models/config.py`` (pure dataclasses), so the
 port reads the same configurations without importing it. The fields that
-steer JAX's compilation and sharding (``remat``, ``scan_layers``, ``fsdp``,
-``dp_axes``, ``moe_groups``, ``ep_axes``, ``seq_shard_activations``,
-``shard_logits``, ``attn_unroll_blocks``) have no effect on one card; the
-comments below are the JAX package's.
+steer JAX's compilation and sharding (``scan_layers``, ``fsdp``,
+``dp_axes``, ``ep_axes``, ``seq_shard_activations``, ``shard_logits``,
+``attn_unroll_blocks``) have no effect on one card; ``remat`` checkpoints
+each super-block while autograd records. ``moe_groups`` is semantic on
+every device: MoE capacity applies per group of tokens, so it changes which
+assignments drop (`repro_torch.models.moe`). The comments below are the JAX
+package's.
 
 A model is a stack of ``n_blocks`` identical *super-blocks*; each super-block
 is a static list of `LayerSpec`s. Homogeneous archs use a 1-layer super-block

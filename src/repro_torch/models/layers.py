@@ -44,16 +44,22 @@ def dtype_of(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
-def dense_init_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
-    """Truncated normal on [−2, 2] scaled by 1/√fan_in, fan_in = shape[0]
-    (the JAX package's ``dense_init``, ``wo`` included)."""
-    fan_in = w.shape[0] if w.ndim >= 2 else 1
-    tmp = torch.empty(w.shape, dtype=torch.float32, device=w.device) \
-        if w.dtype != torch.float32 else w
-    nn.init.trunc_normal_(tmp, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    tmp.mul_(1.0 / math.sqrt(fan_in))
-    if tmp is not w:
-        w.copy_(tmp)
+def dense_init_(w: torch.Tensor, generator: torch.Generator,
+                scale: float | None = None) -> torch.Tensor:
+    """Truncated normal on [−2, 2] times ``scale``, by default 1/√fan_in
+    with fan_in = shape[0] (the JAX package's ``dense_init``, ``wo`` and
+    the expert stacks [E, d, ff], whose fan_in is E, included)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(w.shape[0] if w.ndim >= 2 else 1)
+    if w.dtype == torch.float32:
+        nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+        return w.mul_(scale)
+    # Drawn in float32 in slices of at most 2**28 elements: a float32 copy
+    # of a whole expert stack (arctic's [128, 7168, 4864]) would take 18 GB.
+    for part in w.split(max(1, (1 << 28) // max(1, w[0].numel()))):
+        tmp = torch.empty(part.shape, dtype=torch.float32, device=w.device)
+        nn.init.trunc_normal_(tmp, 0.0, 1.0, -2.0, 2.0, generator=generator)
+        part.copy_(tmp.mul_(scale))
     return w
 
 

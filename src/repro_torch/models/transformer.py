@@ -1,16 +1,22 @@
-"""Model assembly for the dense attention path: init, train-mode forward,
-loss, and serving (prefill and decode with a KV cache).
+"""Model assembly: init, train-mode forward, loss, and serving (prefill and
+decode with caches).
 
-The port of the JAX package's ``models/transformer.py`` for configurations
-whose every layer is ``LayerSpec(mixer="attn", mlp="dense")`` (qwen3-8b,
-granite-3-8b, command-r-35b, minicpm-2b). `Transformer` holds the embedding,
-the stack and the head as modules whose parameters keep the JAX shapes; the
-depth is a `ModuleList` of super-blocks walked by a Python loop (JAX's
-``lax.scan``). ``forward`` and ``loss_fn`` return what JAX's return:
-``(logits, aux, offset)`` and ``(loss, {"ce", "aux", "zloss", "tokens"})``.
-``init_cache``, ``prefill`` and ``decode_step`` keep JAX's cache tree,
-``{"blocks": {"pos<j>": {"attn": {"k", "v", "pos"}}}, "pos"}`` with each
-leaf stacked over the super-blocks; ``decode_step`` writes it in place.
+The port of the JAX package's ``models/transformer.py``. A super-block is a
+static list of `LayerSpec`s; each `Sublayer` is norm → mixer (GQA
+attention, `ssm.Mamba` or the `ssm.RWKV` time mix) → residual, then norm →
+MLP (dense SwiGLU, a routed `moe.MoE`, arctic's dense MLP and MoE in
+parallel, or the `ssm.RWKVCMix` channel mix) → residual. `Transformer`
+holds the embedding, the stack and the head as modules whose parameters
+keep the JAX shapes; the depth is a `ModuleList` of super-blocks walked by a
+Python loop (JAX's ``lax.scan``). ``forward`` and ``loss_fn`` return what
+JAX's return: ``(logits, aux, offset)`` and ``(loss, {"ce", "aux",
+"zloss", "tokens"})``, ``aux`` the MoE layers' auxiliary losses summed over
+the sub-layers of a block, then over the blocks. ``init_cache``,
+``prefill`` and ``decode_step`` keep JAX's cache tree, ``{"blocks":
+{"pos<j>": {<kind>: {<leaf>: …}}}, "pos"}`` with the kinds ``attn`` (``k``,
+``v``, ``pos``), ``mamba`` (``conv``, ``ssm``), ``rwkv`` (``shift``,
+``state``) and ``cmix`` (``shift``), each leaf stacked over the
+super-blocks; ``decode_step`` writes it in place.
 
 ``cfg.remat`` is JAX's ``jax.checkpoint(block_fn)``: when autograd records,
 each super-block runs under ``torch.utils.checkpoint`` (non-reentrant), so
@@ -18,10 +24,9 @@ the backward pass recomputes its activations instead of keeping them; an
 eval forward, prefill and decode record nothing and run the blocks as they
 are. ``scan_layers``, ``dp_axes`` and the activation constraints
 (``_constrain_act``) have no effect on one card: PyTorch runs the loop
-eagerly and nothing is sharded. Everything else of the JAX module raises
-`NotImplementedError` naming its ROADMAP item: mamba, rwkv6 and moe layers,
-cross-attention and the encoder (``is_enc_dec``, with JAX's
-``_fill_cross_caches``), and patch positions.
+eagerly and nothing is sharded. Cross-attention and the encoder
+(``is_enc_dec``, with JAX's ``_fill_cross_caches``) and patch positions
+raise `NotImplementedError` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -31,36 +36,21 @@ import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.kernels._platform import resolve_device
-from . import layers
+from . import layers, moe as moe_lib, ssm
 from .config import LayerSpec, ModelConfig
 from .layers import dtype_of
 
 # What a forward needs to agree on with the module it runs: the shapes and
-# the layout of the parameters.
+# the layout of the parameters (and the experts' count, `_cfg`).
 _SHAPE_FIELDS = ("d_model", "n_heads", "n_kv_heads", "d_ff", "vocab",
                  "n_blocks", "block", "head_dim", "qk_norm", "norm",
-                 "tie_embeddings", "param_dtype")
+                 "tie_embeddings", "param_dtype", "mamba", "rwkv")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise `NotImplementedError` unless every layer is dense attention."""
+    """Raise `NotImplementedError` for what is not ported yet:
+    cross-attention, the encoder and patch positions (ROADMAP A14.5)."""
     for spec in cfg.block:
-        if spec.mixer in ("mamba", "rwkv6"):
-            raise NotImplementedError(
-                f"{cfg.name}: {spec.mixer} layers are not ported yet "
-                "(ROADMAP A14.4, ssm)")
-        if spec.mixer != "attn":
-            raise NotImplementedError(
-                f"{cfg.name}: mixer {spec.mixer!r} is not ported yet "
-                "(ROADMAP A14.4)")
-        if spec.mlp in ("moe", "dense+moe"):
-            raise NotImplementedError(
-                f"{cfg.name}: {spec.mlp} layers are not ported yet "
-                "(ROADMAP A14.3, moe)")
-        if spec.mlp != "dense":
-            raise NotImplementedError(
-                f"{cfg.name}: mlp {spec.mlp!r} is not ported yet "
-                "(ROADMAP A14.4, ssm)")
         if spec.cross_attn:
             raise NotImplementedError(
                 f"{cfg.name}: cross-attention is not ported yet "
@@ -73,17 +63,30 @@ def check_supported(cfg: ModelConfig) -> None:
                                   "ported yet (ROADMAP A14.5, patches)")
 
 
+_MIXERS = {"attn": layers.Attention, "mamba": ssm.Mamba, "rwkv6": ssm.RWKV}
+_MIXER_CACHE = {"attn": "attn", "mamba": "mamba", "rwkv6": "rwkv"}
+
+
 class Sublayer(nn.Module):
-    """One residual sub-layer: norm → attention → residual, norm → MLP →
-    residual (JAX's ``_init_sublayer`` / ``_apply_sublayer`` for
-    ``mixer="attn"``, ``mlp="dense"``)."""
+    """One residual sub-layer of a `LayerSpec` (JAX's ``_init_sublayer`` /
+    ``_apply_sublayer``): norm → mixer → residual, norm → MLP → residual.
+    Its modules are named as JAX's parameters: ``norm1``, ``mixer``,
+    ``norm2``, ``mlp`` (dense or the channel mix) and ``moe``."""
 
     def __init__(self, spec: LayerSpec, cfg: ModelConfig, device=None):
         super().__init__()
+        self.spec = spec
         self.norm1 = layers.make_norm(cfg, device=device)
-        self.mixer = layers.Attention(cfg, device)
-        self.norm2 = layers.make_norm(cfg, device=device)
-        self.mlp = layers.MLP(cfg, device)
+        if spec.mixer in _MIXERS:
+            self.mixer = _MIXERS[spec.mixer](cfg, device)
+        if spec.mlp != "none":
+            self.norm2 = layers.make_norm(cfg, device=device)
+        if spec.mlp in ("dense", "dense+moe"):
+            self.mlp = layers.MLP(cfg, device)
+        elif spec.mlp == "rwkv_cmix":
+            self.mlp = ssm.RWKVCMix(cfg, device)
+        if spec.mlp in ("moe", "dense+moe"):
+            self.moe = moe_lib.MoE(cfg, device)
 
     def init_(self, generator):
         for child in self.children():
@@ -91,26 +94,63 @@ class Sublayer(nn.Module):
 
     def forward(self, x, cfg: ModelConfig, *, positions, causal: bool,
                 cache=None, cache_pos=None):
-        """Returns ``(x, cache)``: the sub-layer's cache ``{"attn": …}``,
-        written in place, or None without one."""
-        y, attn = self.mixer(self.norm1(x), cfg, positions=positions,
-                             causal=causal,
-                             cache=None if cache is None else cache["attn"],
-                             cache_pos=cache_pos)
-        x = x + y
-        return x + self.mlp(self.norm2(x), cfg), \
-            None if cache is None else {"attn": attn}
+        """Returns ``(x, aux)``: ``aux`` the MoE layer's auxiliary loss (a
+        0-d float32 tensor; None without one, where JAX adds a 0). ``cache``
+        is the sub-layer's ``{<kind>: …}`` (`Transformer.init_cache`),
+        written in place."""
+        spec = self.spec
+        aux = None
+        h = self.norm1(x)
+        if spec.mixer == "attn":
+            y, _ = self.mixer(h, cfg, positions=positions, causal=causal,
+                              cache=None if cache is None else cache["attn"],
+                              cache_pos=cache_pos)
+            x = x + y
+        elif spec.mixer in _MIXERS:
+            y, _ = self.mixer(h, cfg, cache=None if cache is None else
+                              cache[_MIXER_CACHE[spec.mixer]])
+            x = x + y
+        if spec.mlp == "none":
+            return x, aux
+        h = self.norm2(x)
+        if spec.mlp == "dense":
+            x = x + self.mlp(h, cfg)
+        elif spec.mlp == "moe":
+            y, aux = self.moe(h, cfg)
+            x = x + y
+        elif spec.mlp == "dense+moe":  # arctic: parallel dense residual + MoE
+            y, aux = self.moe(h, cfg)
+            x = x + self.mlp(h, cfg) + y
+        elif spec.mlp == "rwkv_cmix":
+            y, _ = self.mlp(h, cfg, cache=None if cache is None else
+                            cache["cmix"])
+            x = x + y
+        return x, aux
 
 
-def _block_forward(block, x, cfg: ModelConfig, positions):
-    """One super-block without a cache: its sub-layers in order."""
-    for sub in block:
-        x, _ = sub(x, cfg, positions=positions, causal=True)
-    return x
+def _add(total, aux):
+    """``total + aux`` where either may be None (a sum of nothing): JAX adds
+    zeros there, which leaves the sum as it is."""
+    return aux if total is None else total if aux is None else total + aux
+
+
+def _block_forward(block, x, cfg: ModelConfig, positions, caches=None,
+                   cache_pos=None):
+    """One super-block: its sub-layers in order, each given its slice of
+    ``caches`` (the block's ``{"pos<j>": …}``). Returns ``(x, aux)``, the
+    sub-layers' aux summed in order (JAX's ``block_fn``), None without a
+    MoE layer."""
+    aux = None
+    for j, sub in enumerate(block):
+        x, a = sub(x, cfg, positions=positions, causal=True,
+                   cache=None if caches is None else caches[f"pos{j}"],
+                   cache_pos=cache_pos)
+        aux = _add(aux, a)
+    return x, aux
 
 
 class Transformer(nn.Module):
-    """The decoder stack of a dense attention configuration.
+    """The decoder stack of a configuration.
 
     The constructor allocates the parameters (uninitialized) on ``device``
     (the card unless the caller names another, as every entry point);
@@ -156,6 +196,10 @@ class Transformer(nn.Module):
             if getattr(cfg, f) != getattr(self.cfg, f):
                 raise ValueError(f"config {cfg.name} differs from the "
                                  f"module's in {f}")
+        if (cfg.moe and cfg.moe.num_experts) != (
+                self.cfg.moe and self.cfg.moe.num_experts):
+            raise ValueError(f"config {cfg.name} differs from the module's "
+                             "in moe.num_experts")
         return cfg
 
     def _embed_inputs(self, cfg: ModelConfig, batch):
@@ -179,40 +223,39 @@ class Transformer(nn.Module):
         ``use_flash_kernel`` or ``compute_dtype``."""
         cfg = self._cfg(cfg)
         x, positions, offset = self._embed_inputs(cfg, batch)
-        x = self._stack(cfg, x, positions)
+        x, aux = self._stack(cfg, x, positions)
         x = self.final_norm(x)
-        # aux is the MoE load-balancing loss; dense layers add none.
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if aux is None:  # no MoE layer
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return self._logits(cfg, x), aux, offset
 
     def _stack(self, cfg: ModelConfig, x, positions, caches=None,
                cache_pos=None):
-        """The super-blocks in order (JAX's ``_scan_stack``); ``caches`` is
-        the stacked ``cache["blocks"]``, each block reading and writing its
-        slice ``[i]`` in place. Without a cache, under ``cfg.remat`` and
-        while autograd records, each super-block is checkpointed (JAX's
-        ``jax.checkpoint(block_fn)``)."""
-        if caches is None:
-            remat = cfg.remat and torch.is_grad_enabled()
-            for block in self.blocks:
-                if remat:
-                    x = torch.utils.checkpoint.checkpoint(
-                        _block_forward, block, x, cfg, positions,
-                        use_reentrant=False)
-                else:
-                    x = _block_forward(block, x, cfg, positions)
-            return x
+        """The super-blocks in order (JAX's ``_scan_stack``). Returns ``(x,
+        aux)``, the blocks' aux summed in order (None without a MoE layer).
+        ``caches`` is the stacked ``cache["blocks"]``, each block reading
+        and writing its slice ``[i]`` of every leaf in place. Without a
+        cache, under ``cfg.remat`` and while autograd records, each
+        super-block is checkpointed (JAX's ``jax.checkpoint(block_fn)``)."""
+        aux = None
+        remat = caches is None and cfg.remat and torch.is_grad_enabled()
         for i, block in enumerate(self.blocks):
-            for j, sub in enumerate(block):
-                c = {"attn": {
-                    name: leaf[i]
-                    for name, leaf in caches[f"pos{j}"]["attn"].items()}}
-                x, _ = sub(x, cfg, positions=positions, causal=True, cache=c,
-                           cache_pos=cache_pos)
-        return x
+            if remat:
+                x, a = torch.utils.checkpoint.checkpoint(
+                    _block_forward, block, x, cfg, positions,
+                    use_reentrant=False)
+            else:
+                c = None if caches is None else {
+                    j: {kind: {name: leaf[i] for name, leaf in sub.items()}
+                        for kind, sub in kinds.items()}
+                    for j, kinds in caches.items()}
+                x, a = _block_forward(block, x, cfg, positions, c, cache_pos)
+            aux = _add(aux, a)
+        return x, aux
 
     def loss_fn(self, batch, cfg: ModelConfig | None = None):
-        """Next-token cross entropy (+ z-loss). Returns (loss, metrics)."""
+        """Next-token cross entropy (+ MoE aux + z-loss). Returns (loss,
+        metrics)."""
         logits, aux, offset = self.forward(batch, cfg)
         tokens = batch["tokens"]
         logits_text = logits[:, offset:][:, :-1]
@@ -233,24 +276,36 @@ class Transformer(nn.Module):
         loss = ce + zloss + aux
         return loss, {"ce": ce, "aux": aux, "zloss": zloss, "tokens": denom}
 
-    # -- serving: prefill and decode with a KV cache --------------------------
+    # -- serving: prefill and decode with caches -----------------------------
 
     def init_cache(self, batch: int, max_len: int,
                    cfg: ModelConfig | None = None) -> dict:
         """The empty per-super-block caches for ``batch`` sequences of up to
         ``max_len`` positions on the module's device, as JAX's
-        ``init_cache`` returns them: ``{"pos<j>": {"attn": {"k", "v",
-        "pos"}}}`` (`layers.init_attn_cache` in the compute dtype), each
+        ``init_cache`` returns them: ``{"pos<j>": {<kind>: …}}`` with
+        ``attn`` (`layers.init_attn_cache` in the compute dtype), ``mamba``
+        (`ssm.init_mamba_cache`), ``rwkv`` (`ssm.init_rwkv_cache`) and
+        ``cmix`` (`ssm.init_cmix_cache`) as the sub-layer has them, each
         leaf stacked over the super-blocks. `prefill` wraps them as
         ``{"blocks": …, "pos": …}``."""
         cfg = self._cfg(cfg)
-        n = cfg.n_blocks
-        one = layers.init_attn_cache(cfg, batch, max_len,
-                                     dtype_of(cfg.compute_dtype),
-                                     self.embed.device)
-        return {f"pos{j}": {"attn": {
-            name: leaf.expand((n,) + leaf.shape).clone()
-            for name, leaf in one.items()}} for j in range(len(cfg.block))}
+        dev = self.embed.device
+        out = {}
+        for j, spec in enumerate(cfg.block):
+            kinds = {}
+            if spec.mixer == "attn":
+                kinds["attn"] = layers.init_attn_cache(
+                    cfg, batch, max_len, dtype_of(cfg.compute_dtype), dev)
+            elif spec.mixer == "mamba":
+                kinds["mamba"] = ssm.init_mamba_cache(cfg, batch, dev)
+            elif spec.mixer == "rwkv6":
+                kinds["rwkv"] = ssm.init_rwkv_cache(cfg, batch, dev)
+            if spec.mlp == "rwkv_cmix":
+                kinds["cmix"] = ssm.init_cmix_cache(cfg, batch, dev)
+            out[f"pos{j}"] = {kind: {
+                name: leaf.expand((cfg.n_blocks,) + leaf.shape).clone()
+                for name, leaf in one.items()} for kind, one in kinds.items()}
+        return out
 
     @torch.inference_mode()
     def prefill(self, batch, max_len: int, cfg: ModelConfig | None = None):
@@ -265,7 +320,7 @@ class Transformer(nn.Module):
         b, t = x.shape[:2]
         blocks = self.init_cache(b, max_len, cfg)
         zero = torch.zeros((), dtype=torch.int32, device=x.device)
-        x = self._stack(cfg, x, positions, blocks, cache_pos=zero)
+        x, _ = self._stack(cfg, x, positions, blocks, cache_pos=zero)
         logits = self._logits(cfg, self.final_norm(x[:, -1:]))
         return logits[:, 0], {"blocks": blocks, "pos": torch.full(
             (), t, dtype=torch.int32, device=x.device)}
@@ -284,7 +339,7 @@ class Transformer(nn.Module):
         x = self.embed[tokens].to(dtype_of(cfg.compute_dtype))
         positions = pos + torch.arange(tokens.shape[1], dtype=torch.int32,
                                        device=x.device)
-        x = self._stack(cfg, x, positions, cache["blocks"], cache_pos=pos)
+        x, _ = self._stack(cfg, x, positions, cache["blocks"], cache_pos=pos)
         logits = self._logits(cfg, self.final_norm(x[:, -1:]))
         pos.add_(tokens.shape[1])
         return logits[:, 0], cache

@@ -6,9 +6,10 @@ The tests hold the port to the JAX package on the same weights: JAX's
 turns them into numpy, and `params_from_jax` copies them into the port's
 modules. The port's own random init (`Transformer.init`) does not reproduce
 JAX's PRNG. A cache keeps JAX's tree on both sides (``{"blocks":
-{"pos<j>": {"attn": {"k", "v", "pos"}}}, "pos"}``, leaves stacked over the
-super-blocks): `cache_from_jax` turns JAX's numpy leaves into the port's
-tensors, `cache_to_numpy` the port's back, so tests compare leaf by leaf.
+{"pos<j>": {<kind>: {<leaf>: …}}}, "pos"}``, the kinds ``attn``, ``mamba``,
+``rwkv`` and ``cmix``, leaves stacked over the super-blocks):
+`cache_from_jax` turns JAX's numpy leaves into the port's tensors,
+`cache_to_numpy` the port's back, so tests compare leaf by leaf.
 
 The port holds one parameter per super-block (``blocks.<i>.<j>.<path>``);
 JAX stacks each over the super-blocks (``blocks/pos<j>/<path>``, axis 0).
@@ -161,26 +162,31 @@ def params_from_jax(tree, cfg: ModelConfig, device=None) -> Transformer:
 def cache_from_jax(tree, cfg: ModelConfig, device=None) -> dict:
     """The port's decode cache on ``device`` (the card unless the caller
     names another) holding JAX's cache ``tree`` (``prefill``'s or
-    ``decode_step``'s, as numpy arrays): ``k``/``v`` in ``cfg``'s compute
-    dtype, the positions int32. Raises `ValueError` unless the tree has
-    ``cfg``'s sub-layers and its leaves are stacked over ``cfg.n_blocks``."""
+    ``decode_step``'s, as numpy arrays): the positions int32, the mamba
+    and rwkv recurrent states (``ssm``, ``state``) float32, every other
+    leaf in ``cfg``'s compute dtype, as JAX's ``init_cache`` makes them.
+    Raises `ValueError` unless the tree has ``cfg``'s sub-layers and its
+    leaves are stacked over ``cfg.n_blocks``."""
     device = resolve_device(device)
     cdt = dtype_of(cfg.compute_dtype)
+    dtypes = {"pos": torch.int32, "ssm": torch.float32,
+              "state": torch.float32}
     names = {f"pos{j}" for j in range(len(cfg.block))}
     if set(tree["blocks"]) != names:
         raise ValueError(f"cache sub-layers {sorted(tree['blocks'])} != "
                          f"{sorted(names)}")
     blocks = {}
     for j, sub in tree["blocks"].items():
-        attn = {}
-        for name, leaf in sub["attn"].items():
-            arr = _numpy(leaf)
-            if arr.shape[0] != cfg.n_blocks:
-                raise ValueError(f"{j}.attn.{name}: {arr.shape[0]} "
-                                 f"super-blocks != {cfg.n_blocks}")
-            attn[name] = torch.from_numpy(arr).to(
-                device, torch.int32 if name == "pos" else cdt)
-        blocks[j] = {"attn": attn}
+        blocks[j] = {}
+        for kind, leaves in sub.items():
+            blocks[j][kind] = {}
+            for name, leaf in leaves.items():
+                arr = _numpy(leaf)
+                if arr.shape[0] != cfg.n_blocks:
+                    raise ValueError(f"{j}.{kind}.{name}: {arr.shape[0]} "
+                                     f"super-blocks != {cfg.n_blocks}")
+                blocks[j][kind][name] = torch.from_numpy(arr).to(
+                    device, dtypes.get(name, cdt))
     pos = torch.tensor(int(np.asarray(tree["pos"])), dtype=torch.int32,
                        device=device)
     return {"blocks": blocks, "pos": pos}
@@ -189,7 +195,8 @@ def cache_from_jax(tree, cfg: ModelConfig, device=None) -> dict:
 def cache_to_numpy(cache: dict) -> dict:
     """The port's cache as JAX's tree of numpy arrays (bfloat16 leaves
     widened to float32)."""
-    return {"blocks": {j: {"attn": {name: to_numpy(leaf)
-                                    for name, leaf in sub["attn"].items()}}
+    return {"blocks": {j: {kind: {name: to_numpy(leaf)
+                                  for name, leaf in leaves.items()}
+                           for kind, leaves in sub.items()}
                        for j, sub in cache["blocks"].items()},
             "pos": to_numpy(cache["pos"])}

@@ -88,15 +88,19 @@ def adamw_update(grads: dict, opt_state: dict, params,
     stepf = step.to(torch.float32)
     bc1 = 1 - torch.pow(cfg.b1, stepf)
     bc2 = 1 - torch.pow(cfg.b2, stepf)
+    # Each update in place on its own temporaries, in the same order of
+    # operations as the expressions of JAX's update (the same roundings):
+    # at most four float32 copies of a parameter are alive at once.
     for name, p in named.items():
         g = grads[name].float() * scale
-        m32 = opt_state["mu"][name].float() * cfg.b1 + (1 - cfg.b1) * g
-        v32 = opt_state["nu"][name].float() * cfg.b2 + (1 - cfg.b2) * g * g
+        m32 = (opt_state["mu"][name].float() * cfg.b1).add_((1 - cfg.b1) * g)
+        v32 = (opt_state["nu"][name].float() * cfg.b2).add_(
+            ((1 - cfg.b2) * g).mul_(g))
         del g
-        delta = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps)
+        delta = (m32 / bc1).div_((v32 / bc2).sqrt_().add_(cfg.eps))
         if ndims[name] >= 2:  # decoupled weight decay on matrices only
-            delta = delta + cfg.weight_decay * p.float()
-        p.copy_(p.float() - lr * delta)
+            delta.add_(cfg.weight_decay * p.float())
+        p.copy_(p.float() - delta.mul_(lr))
         del delta
         opt_state["mu"][name].copy_(m32)  # rounded to the state's dtype
         opt_state["nu"][name].copy_(v32)

@@ -22,8 +22,9 @@ dispatch bit for bit, `stage` copies on the engine's copy stream, a served
 stream over a one-rank NCCL mesh (appends included) equals the same stream
 without a mesh bit for bit and issues no collective, and a batched node
 pass past 2³¹ elements keeps its offsets. The LM's decode step (qwen3
-smoke): a `DecodeGraph` replay equals the eager step bit for bit, logits
-and cache, and `sample_loop` on the card gives the CPU loop's tokens, its
+smoke, and the mixtral, arctic, rwkv6 and jamba smoke configs through
+their MoE, mamba and rwkv layers): a `DecodeGraph` replay equals the eager
+step bit for bit, logits and cache, and `sample_loop` on the card gives the CPU loop's tokens, its
 logits within 1e-4. The LM's train step (qwen3 smoke, float32, remat):
 one step on the card against the CPU's, with the orthogonal update off
 and on, metrics within 1e-5 and parameters and moments within rtol 2e-4
@@ -1132,21 +1133,61 @@ def test_one_rank_nccl_mesh_serves_on_the_card(tmp_path, monkeypatch):
         dist.destroy_process_group()
 
 
-def _lm_smoke(device, compute_dtype="float32"):
-    """qwen3's smoke configuration and a model of it with seeded weights,
-    made on the CPU and copied to ``device``."""
+def _lm_smoke(device, compute_dtype="float32", name="qwen3-8b"):
+    """``name``'s smoke configuration and a model of it with seeded
+    weights, made on the CPU and copied to ``device``."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import Transformer
 
-    cfg = dataclasses.replace(get_config("qwen3-8b", smoke=True),
+    cfg = dataclasses.replace(get_config(name, smoke=True),
                               compute_dtype=compute_dtype)
     cpu = Transformer(cfg, device="cpu").init(
         torch.Generator().manual_seed(0))
     model = Transformer(cfg, device=device)
     model.load_state_dict(cpu.state_dict())
     return cfg, model
+
+
+def _cache_leaves(c):
+    return [c["pos"]] + [leaf for sub in c["blocks"].values()
+                         for leaves in sub.values()
+                         for leaf in leaves.values()]
+
+
+def _replay_vs_eager(cfg, model, prompt=17):
+    """A `DecodeGraph` replay against the eager decode step from the same
+    cache and tokens, three times: logits and every cache leaf bit for
+    bit; capturing runs nothing."""
+    from repro_torch.train import serve
+
+    prefill = serve.make_prefill(cfg, 40)
+    decode = serve.make_decode_step(cfg)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (3, prompt)))
+    logits, cache = prefill(model, {"tokens": tokens})
+    tok = logits.argmax(-1)[:, None].to(torch.int32)
+    logits, cache = decode(model, cache, tok)  # the eager warm-up step
+    tok = logits.argmax(-1)[:, None].to(torch.int32)
+    snap = {"pos": cache["pos"].clone(), "blocks": {
+        j: {kind: {n: leaf.clone() for n, leaf in leaves.items()}
+            for kind, leaves in sub.items()}
+        for j, sub in cache["blocks"].items()}}
+    graph = serve.DecodeGraph(model, cfg, cache, tok)
+    try:
+        assert all(torch.equal(a, b) for a, b in zip(_cache_leaves(cache),
+                                                     _cache_leaves(snap)))
+        for _ in range(3):
+            replayed = graph(tok).clone()
+            eager, snap = decode(model, snap, tok)
+            assert torch.equal(replayed, eager)
+            assert all(torch.equal(a, b) for a, b in zip(
+                _cache_leaves(cache), _cache_leaves(snap)))
+            tok = eager.argmax(-1)[:, None].to(torch.int32)
+        assert int(cache["pos"]) == prompt + 4
+    finally:
+        graph.close()
 
 
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
@@ -1156,39 +1197,24 @@ def test_decode_replay_is_bit_equal_to_eager(compute_dtype):
     runs nothing."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    from repro_torch.train import serve
-
     cfg, model = _lm_smoke("cuda", compute_dtype)
-    prefill = serve.make_prefill(cfg, 40)
-    decode = serve.make_decode_step(cfg)
-    tokens = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab, (3, 17)))
-    logits, cache = prefill(model, {"tokens": tokens})
-    tok = logits.argmax(-1)[:, None].to(torch.int32)
-    logits, cache = decode(model, cache, tok)  # the eager warm-up step
-    tok = logits.argmax(-1)[:, None].to(torch.int32)
+    _replay_vs_eager(cfg, model)
 
-    def leaves(c):
-        return [c["pos"]] + [leaf for sub in c["blocks"].values()
-                             for leaf in sub["attn"].values()]
 
-    snap = {"pos": cache["pos"].clone(), "blocks": {
-        j: {"attn": {n: leaf.clone() for n, leaf in sub["attn"].items()}}
-        for j, sub in cache["blocks"].items()}}
-    graph = serve.DecodeGraph(model, cfg, cache, tok)
-    try:
-        assert all(torch.equal(a, b) for a, b in zip(leaves(cache),
-                                                     leaves(snap)))
-        for _ in range(3):
-            replayed = graph(tok).clone()
-            eager, snap = decode(model, snap, tok)
-            assert torch.equal(replayed, eager)
-            assert all(torch.equal(a, b) for a, b in zip(leaves(cache),
-                                                         leaves(snap)))
-            tok = eager.argmax(-1)[:, None].to(torch.int32)
-        assert int(cache["pos"]) == 17 + 4
-    finally:
-        graph.close()
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["mixtral-8x22b", "arctic-480b",
+                                  "rwkv6-1.6b", "jamba-v0.1-52b"])
+def test_moe_and_ssm_decode_replay_is_bit_equal_to_eager(name,
+                                                         compute_dtype):
+    """The same through MoE layers (the routing's sort, capacity and
+    scatter-adds on the device, no host read), mamba's conv and ssm states
+    and rwkv's shift and wkv states, each written in place: a replay
+    equals the eager step bit for bit. mixtral's smoke window of 8 slots
+    is decoded past through the ring."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg, model = _lm_smoke("cuda", compute_dtype, name)
+    _replay_vs_eager(cfg, model)
 
 
 def test_sample_loop_on_the_card_matches_the_cpu():

@@ -34,6 +34,7 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
     mods = _port_modules()
     for name in ("repro_torch.core.engine", "repro_torch.api",
                  "repro_torch.models.transformer", "repro_torch.models.weights",
+                 "repro_torch.models.moe", "repro_torch.models.ssm",
                  "repro_torch.configs", "repro_torch.configs.qwen3_8b",
                  "repro_torch.train.step", "repro_torch.kernels.head_tail.ops",
                  "repro_torch.kernels.flash_attn.kernel",

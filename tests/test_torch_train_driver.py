@@ -94,8 +94,8 @@ def test_driver_halts_on_a_non_finite_loss(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--arch", "rwkv6-1.6b"], "A14.4"),
-    (["--arch", "mixtral-8x22b"], "A14.3"),
+    (["--arch", "llava-next-34b"], "A14.5"),
+    (["--arch", "jamba-v0.1-52b", "--model-parallel", "2"], "A14.6"),
     (["--arch", "whisper-tiny"], "A14.5"),
     (["--mesh", "single"], "A14.6"),
     (["--mesh", "multi"], "A14.6"),
