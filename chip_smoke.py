@@ -250,7 +250,7 @@ result line):
                 checkpoint every 3, the checkpoint restored bit for bit, a
                 restart that resumes from step 6 and runs 6->10.
   12. moe/ssm — (run after 11) the mixture-of-experts and state-space
-                configs at their published widths (`phase_moe_ssm`), each
+                configs at their published widths (`phase_lm_config`), each
                 initialized on the card from ``--seed``, cut in depth only:
                 12a mixtral-8x22b at 2 of 56 blocks (float32 parameters,
                 ≈ 21.6 GB), 12b arctic-480b at 2 of 35 (bf16, ≈ 55 GB), 12c
@@ -283,10 +283,31 @@ result line):
                 arctic (≈ 109 GB for one block's state) and jamba (≈ 213 GB
                 for one super-block's) do not train on one card. Peak
                 reserved memory under 80 GB in each.
+  13. enc-dec — (run after 12) the encoder-decoder and patch configs
+                (`phase_enc_dec`, its cells in `ENC_DEC_CELLS`), through
+                `phase_lm_config` as phase 12's, their frames and patch
+                embeddings drawn on the card (the front ends are stubs, as
+                in the JAX package). 13a whisper-tiny whole (4 encoder and
+                4 decoder blocks, d 384, 6 heads): the eval step on 16
+                utterances of 1,500 frames (30 s of audio) under 448 text
+                positions, ``flash_attention_sm90`` once per layer a step,
+                the encoder's 4 without causality, the decoder's 4 causal,
+                each group of one forward's calls held to the plain version
+                and SDPA apart; prefill of a 4-token prompt, 128 greedy
+                decode steps replayed from one graph that reads the cross
+                caches, the teacher-forced decode against the forward in
+                float32 at 2e-3; the train step on the eval batch. 13b
+                llava-next-34b at 4 of 60 blocks (d 7,168, 56/8 heads): the
+                eval step on 2 sequences of 2,880 patch embeddings and
+                1,216 tokens (4,096 positions, GQA group 7); prefill of
+                all 4,096 positions, 32 decode steps, the same checks; the
+                train step at 2 blocks on the eval batch. The eval FLOPs
+                count the encoder over its frames, the cross-attention and
+                the patch projection. Peak reserved under 80 GB in each.
   8. summary  — one ``{"kernels": [...]}`` line, then, last, the
                 ``{"ok": true, "device": {...}}`` line.
 
-Each of phases 4–7 (and 5b, 9a, 9b, 10a, 10b, 10c, 12) drives one path of the port
+Each of phases 4–7 (and 5b, 9a, 9b, 10a, 10b, 10c, 12, 13) drives one path of the port
 with the launch counters zeroed just before and read just after, and fails
 if a kernel of that path did not launch (in phase 9 the server's dispatch
 thread launches them; the counts are process-wide). Every profiled ``qr`` (`profile_once`) also holds
@@ -2474,7 +2495,7 @@ def visible_pairs(q_pos, k_pos, causal: bool, window) -> int:
     """Query-key pairs the mask lets through (per batch row and head)."""
     kp = k_pos[None, :].long()
     qp = q_pos[:, None].long()
-    ok = kp >= 0
+    ok = (kp >= 0).expand(qp.shape[0], -1)
     if causal:
         ok = ok & (kp <= qp)
     if window is not None:
@@ -2510,9 +2531,11 @@ def flash_plain(q, k, v, q_pos, k_pos, causal=True, window=None):
 
 def check_flash_cases() -> float:
     """flash_attention at hd 32, 64 and 256, with a window, without
-    causality, on two packed sequences (positions restarting at 0 inside a
-    128-key tile) and in float32 and float64, against its plain version on
-    random inputs; the worst `flash_compare` ratio (≤ 1 passes).
+    causality (float32, and bf16 at whisper-tiny's encoder: 1,500 keys,
+    eleven full 128-key tiles and a tail of 92), on two packed sequences
+    (positions restarting at 0 inside a 128-key tile) and in float32 and
+    float64, against its plain version on random inputs; the worst
+    `flash_compare` ratio (≤ 1 passes).
     float32/float64 cases are bounded at the tensor-core peaks."""
     import torch
     from repro_torch.kernels.flash_attn import kernel as fk
@@ -2527,6 +2550,7 @@ def check_flash_cases() -> float:
             (1, 300, 4, 2, 128, True, 100, torch.float64, False),
             (1, 600, 4, 2, 256, True, None, torch.float64, False),
             (2, 1500, 8, 2, 32, True, None, torch.bfloat16, False),
+            (2, 1500, 6, 6, 64, False, None, torch.bfloat16, False),
             (1, 2000, 8, 2, 128, True, 700, torch.bfloat16, True)):
         g = torch.Generator(device="cuda").manual_seed(t + hd)
         q = torch.randn(b, t, hq, hd, generator=g, device="cuda").to(dt)
@@ -2786,15 +2810,20 @@ def phase_tails(passes) -> dict:
 
 def sdpa(q, k, v, q_pos, k_pos, causal=True, window=None):
     """``scaled_dot_product_attention`` on flash_attention's layout, for
-    plain causal self-attention (the LM path's only case): the library
-    yardstick."""
+    the LM path's two cases: causal self-attention whose window masks
+    nothing, and attention without causality or window over keys that are
+    all visible (an encoder's): the library yardstick."""
     import torch.nn.functional as F
 
-    check(causal and (window is None or window >= q.shape[1])
-          and q.shape[1] == k.shape[1],
-          "sdpa times causal self-attention whose window masks nothing")
+    if causal:
+        check((window is None or window >= q.shape[1])
+              and q.shape[1] == k.shape[1],
+              "sdpa times causal self-attention whose window masks nothing")
+    else:
+        check(window is None and bool((k_pos >= 0).all()),
+              "sdpa times non-causal attention over visible keys")
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+    return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                           enable_gqa=True)
 
 
@@ -3054,13 +3083,14 @@ def decode_cost(model, cfg, cache) -> dict:
 
 def decode_vs_forward(label: str, model, cfg, tokens, prompt: int,
                       rows: int, rel: float, floor: float,
-                      moe: bool = False) -> dict:
+                      moe: bool = False, extra=None) -> dict:
     """Prefill ``tokens[:, :prompt]`` and decode the rest teacher-forced
-    (`make_prefill`, `make_decode_step`; ``max_len`` one past the tokens),
-    each step's logits on the first ``rows`` sequences against
-    ``Transformer.forward`` of those sequences with ``use_flash_kernel=
-    False``: the largest |difference| at most ``rel`` × max(max |logits|,
-    ``floor``). With ``moe``, the share of assignments each MoE layer of
+    (`make_prefill`, `make_decode_step`; ``max_len`` one past the tokens
+    and a patch config's patches), each step's logits on the first
+    ``rows`` sequences against ``Transformer.forward`` of those sequences
+    with ``use_flash_kernel=False``: the largest |difference| at most
+    ``rel`` × max(max |logits|, ``floor``). ``extra`` holds the sequences'
+    ``frames`` or ``patches``, given to the forward and the prefill. With ``moe``, the share of assignments each MoE layer of
     the forward and of the prefill dropped is recorded, and the bound is
     held only where both are 0 everywhere: each call routes its own tokens
     under a capacity worked out for them (a decode step's B tokens never
@@ -3073,20 +3103,23 @@ def decode_vs_forward(label: str, model, cfg, tokens, prompt: int,
 
     plain = dataclasses.replace(cfg, use_flash_kernel=False)
     total = tokens.shape[1]
+    extra = extra or {}
     with torch.inference_mode(), MoEDrops(model, plain) as drops:
-        full, _, _ = model({"tokens": tokens[:rows]}, plain)
+        full, _, off = model({"tokens": tokens[:rows], **{
+            k: v[:rows] for k, v in extra.items()}}, plain)
     with MoEDrops(model, plain) as pre_drops:
-        logits, cache = make_prefill(plain, total + 1)(
-            model, {"tokens": tokens[:, :prompt]})
+        logits, cache = make_prefill(plain, off + total + 1)(
+            model, {"tokens": tokens[:, :prompt], **extra})
     shares = {"forward": drops.shares(), "prefill": pre_drops.shares()}
     slots = next((sub["attn"]["k"].shape[2] for sub in
                   cache["blocks"].values() if "attn" in sub), None)
-    errs = [float((logits[:rows] - full[:, prompt - 1]).abs().max())]
+    errs = [float((logits[:rows] - full[:, off + prompt - 1]).abs().max())]
     decode = make_decode_step(plain)
     for j in range(prompt, total):
         logits, cache = decode(model, cache, tokens[:, j:j + 1])
-        errs.append(float((logits[:rows] - full[:, j]).abs().max()))
-    scale = float(full.abs().max())
+        errs.append(float((logits[:rows] - full[:, off + j]).abs().max()))
+    # The vocab's padding rows hold float32's lowest value in both.
+    scale = float(full[..., :cfg.vocab].abs().max())
     limit = rel * max(scale, floor)
     finite = bool(torch.isfinite(logits).all())
     del full, logits, cache
@@ -3747,19 +3780,28 @@ def phase_train_driver(seed: int) -> dict:
 
 # -- phase 12: mixture-of-experts and state-space configs ------------------------
 
-MOE_SSM_STEPS = {"mixtral-8x22b": 32, "arctic-480b": 32, "rwkv6-1.6b": 64,
-                 "jamba-v0.1-52b": 32}  # decode steps after the prefill
 MIXTRAL_PROMPT = 6144  # longer than mixtral's 4,096-slot ring
-# (sub-phase, config, super-blocks (None: all), (prompts, prompt tokens),
-# (train blocks, batch, sequence) or None): mixtral trains one block on
-# 2 x 4096 tokens (46.5 GB of state); rwkv6 all 24 blocks on 2 x 1024 (its
-# chunked scan is host-bound: about 29 s a step at 2 x 4096 on an H100);
-# arctic and jamba cannot train on one card.
+# (sub-phase, config, super-blocks (None: all), (prompts, prompt tokens,
+# decode steps), (train blocks, batch, sequence) or None): mixtral trains
+# one block on 2 x 4096 tokens (46.5 GB of state); rwkv6 all 24 blocks on
+# 2 x 1024 (its chunked scan is host-bound: about 29 s a step at 2 x 4096 on
+# an H100); arctic and jamba cannot train on one card.
 MOE_SSM_CELLS = (
-    ("12a", "mixtral-8x22b", 2, (2, MIXTRAL_PROMPT), (1, LM_BATCH, LM_SEQ)),
-    ("12b", "arctic-480b", 2, (8, 2048), None),
-    ("12c", "rwkv6-1.6b", None, (8, 2048), (24, LM_BATCH, 1024)),
-    ("12d", "jamba-v0.1-52b", 1, (4, 2048), None))
+    ("12a", "mixtral-8x22b", 2, (2, MIXTRAL_PROMPT, 32),
+     (1, LM_BATCH, LM_SEQ)),
+    ("12b", "arctic-480b", 2, (8, 2048, 32), None),
+    ("12c", "rwkv6-1.6b", None, (8, 2048, 64), (24, LM_BATCH, 1024)),
+    ("12d", "jamba-v0.1-52b", 1, (4, 2048, 32), None))
+# Phase 13, the same fields and the eval step's (batch, positions), which
+# the train step takes too: whisper-tiny whole on 16 utterances of 30 s
+# (1,500 frames, arXiv:2212.04356) under 448 text positions (its n_text_ctx);
+# llava-next-34b at 4 of its 60 blocks on 2 sequences of 2,880 patch
+# embeddings (5 anyres tiles x 576) and 1,216 tokens, the JAX dry-run's
+# split of a 4,096 sequence (src/repro/launch/dryrun.py:56), its train step
+# at 2 blocks (≈ 2.1 B parameters, ≈ 33 GB of state).
+ENC_DEC_CELLS = (
+    ("13a", "whisper-tiny", None, (16, 4, 128), (4, 16, 448), (16, 448)),
+    ("13b", "llava-next-34b", 4, (2, 1216, 32), (2, 2, 4096), (2, 4096)))
 
 
 class MoEDrops:
@@ -3795,48 +3837,87 @@ class MoEDrops:
                 for name, v in self.counts.items()}
 
 
-def lm_eval_flops(cfg, batch: int, seq: int) -> dict:
+def lm_eval_flops(cfg, batch: int, seq: int, frames: int = 0) -> dict:
     """Floating-point operations of one eval forward as the port runs it
     (2 per multiply-add): the blocks' products in the compute dtype (the
     experts over every capacity slot, empty ones included, as the batched
     products run them; ``useful`` counts top-k experts a token), attention
     over the pairs its window and causality make visible, and the float32
-    LM head. Mamba and RWKV layers are counted by their projections."""
+    LM head. Mamba and RWKV layers are counted by their projections.
+    ``seq`` counts every decoder position, a patch config's patches too,
+    whose projection adds 2·d² a patch. An encoder-decoder's encoder runs
+    over ``frames`` positions a sequence (attention over every pair), and
+    each cross-attention projects the queries and the output over the
+    decoder's positions, K and V over the encoder's output, and attends
+    over every (position, frame) pair."""
     from repro_torch.models.moe import capacity
 
-    t = batch * seq
     d, hd, ff = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
-    proj = d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd + cfg.n_heads * hd * d
+    nq, nkv = cfg.n_heads, cfg.n_kv_heads
+    proj = d * (nq + 2 * nkv) * hd + nq * hd * d
+
+    def stack(specs, n: int, length: int, pairs: int) -> tuple[int, int]:
+        t = batch * length
+        run = useful = 0
+        for spec in specs:
+            base = 0
+            if spec.mixer == "attn":
+                base += 2 * t * proj + 4 * batch * nq * pairs * hd
+            elif spec.mixer == "mamba":
+                di = (cfg.mamba.expand if cfg.mamba else 2) * d
+                base += 2 * t * (d * 2 * di + di * d)
+            elif spec.mixer == "rwkv6":
+                base += 2 * t * 5 * d * d
+            if spec.cross_attn:
+                base += (2 * t * 2 * nq * hd * d
+                         + 2 * batch * frames * d * 2 * nkv * hd
+                         + 4 * batch * nq * length * frames * hd)
+            if spec.mlp in ("dense", "dense+moe"):
+                base += 2 * t * 3 * d * ff
+            if spec.mlp == "rwkv_cmix":
+                base += 2 * t * (2 * d * ff + d * d)
+            run, useful = run + base, useful + base
+            if spec.mlp in ("moe", "dense+moe"):
+                grp, cap = capacity(cfg, t)
+                e = cfg.moe.num_experts
+                run += 2 * grp * e * cap * 3 * d * ff + 2 * t * d * e
+                useful += 2 * t * cfg.moe.top_k * 3 * d * ff + 2 * t * d * e
+        return n * run, n * useful
+
     w = cfg.swa_window or seq
-    pairs = sum(min(i + 1, w) for i in range(seq))
-    attn = 4 * batch * cfg.n_heads * pairs * hd
-    run = useful = 0
-    for spec in cfg.block:
-        base = 0
-        if spec.mixer == "attn":
-            base += 2 * t * proj + attn
-        elif spec.mixer == "mamba":
-            di = (cfg.mamba.expand if cfg.mamba else 2) * d
-            base += 2 * t * (d * 2 * di + di * d)
-        elif spec.mixer == "rwkv6":
-            base += 2 * t * 5 * d * d
-        if spec.mlp in ("dense", "dense+moe"):
-            base += 2 * t * 3 * d * ff
-        if spec.mlp == "rwkv_cmix":
-            base += 2 * t * (2 * d * ff + d * d)
-        run, useful = run + base, useful + base
-        if spec.mlp in ("moe", "dense+moe"):
-            grp, cap = capacity(cfg, t)
-            e = cfg.moe.num_experts
-            run += 2 * grp * e * cap * 3 * d * ff + 2 * t * d * e
-            useful += 2 * t * cfg.moe.top_k * 3 * d * ff + 2 * t * d * e
-    return {"compute": cfg.n_blocks * run, "useful": cfg.n_blocks * useful,
-            "float32": 2 * t * d * cfg.padded_vocab}
+    run, useful = stack(cfg.block, cfg.n_blocks, seq,
+                        sum(min(i + 1, w) for i in range(seq)))
+    extra = 2 * batch * cfg.patch_positions * d * d
+    if cfg.is_enc_dec:
+        enc = stack(cfg.encoder_block, cfg.encoder_blocks, frames,
+                    frames * frames)
+        extra += enc[0]
+    return {"compute": run + extra, "useful": useful + extra,
+            "float32": 2 * batch * seq * d * cfg.padded_vocab}
+
+
+def merge_measures(parts: list, dtype: str) -> dict:
+    """`measure` results of disjoint call sets as one: times, bounds,
+    bytes, flops and calls summed, the worst of each error."""
+    out: dict = {}
+    for res in parts:
+        fold(out, {k: res[k] for k in ERROR_KEYS if k in res})
+    for key in ("calls", "ms", "plain_ms", "bound_ms", "bytes", "flops"):
+        out[key] = sum(res[key] for res in parts)
+    out["library_ms"] = None if any(res["library_ms"] is None
+                                    for res in parts) else sum(
+        res["library_ms"] for res in parts)
+    out["shapes"] = [sh for res in parts for sh in res["shapes"]]
+    out["bound_by"] = bound_ms(out["bytes"], out["flops"], dtype)[1]
+    return out
 
 
 def flash_at(label: str, model, cfg, batch) -> dict:
     """Every flash_attention call of one forward of ``model``, captured,
-    against the plain version and SDPA (one bf16 step, `flash_compare`)."""
+    against the plain version and SDPA (one bf16 step, `flash_compare`).
+    Where the forward runs both, the causal calls (a decoder's) and the
+    non-causal ones (an encoder's) are also reported apart, under
+    ``groups``."""
     import torch
     from repro_torch.kernels.flash_attn import kernel as fk, ops as fa_ops
 
@@ -3846,26 +3927,44 @@ def flash_at(label: str, model, cfg, batch) -> dict:
             torch.cuda.synchronize()
         calls = cap.calls["flash_attention"]
         del cap
-        flash = measure(calls, fk.flash_attention, flash_plain, flash_cost,
-                        flash_compare, "bfloat16", library=sdpa, reps=3)
-    del calls
+        groups = {}
+        for name, causal in (("causal", True), ("non_causal", False)):
+            part = [c for c in calls if c[1].get("causal", True) == causal]
+            if part:
+                groups[name] = measure(part, fk.flash_attention, flash_plain,
+                                       flash_cost, flash_compare, "bfloat16",
+                                       library=sdpa, reps=3)
+    del calls, part
     torch.cuda.empty_cache()
-    report(f"{label}: flash_attention bfloat16 over one forward (query "
-           f"heads {cfg.n_heads}, KV heads {cfg.n_kv_heads}: GQA group "
-           f"{cfg.n_heads // cfg.n_kv_heads})", flash, {"bound_ratio": 1.0},
+    heads = (f"query heads {cfg.n_heads}, KV heads {cfg.n_kv_heads}: GQA "
+             f"group {cfg.n_heads // cfg.n_kv_heads}")
+    if len(groups) > 1:
+        for name, res in groups.items():
+            report(f"{label}: flash_attention bfloat16, the {name} calls of "
+                   f"one forward ({heads})", res, {"bound_ratio": 1.0},
+                   library="scaled_dot_product_attention")
+            flash_rates(res, "bfloat16")
+    flash = merge_measures(list(groups.values()), "bfloat16")
+    report(f"{label}: flash_attention bfloat16 over one forward ({heads})",
+           flash, {"bound_ratio": 1.0},
            library="scaled_dot_product_attention")
     flash_rates(flash, "bfloat16")
+    if len(groups) > 1:
+        flash["groups"] = groups
     return flash
 
 
-def moe_ssm_serve(label: str, model, cfg, seed: int, batch: int,
-                  prompt: int, steps: int, forced_rows: int) -> dict:
-    """Serving of one phase 12 config: prefill of ``batch`` prompts of
-    ``prompt`` tokens (one warm-up, one timed); greedy `sample_loop` for
-    ``steps`` steps (one eager decode step, then replays of one captured
-    graph) with the counters zeroed around it; one replay against one eager
-    step from the same cache and tokens, bit for bit; timed and profiled
-    replays; the teacher-forced decode against the forward on
+def config_serve(label: str, model, cfg, seed: int, batch: int,
+                 prompt: int, steps: int, forced_rows: int,
+                 extra=None) -> dict:
+    """Serving of one phase 12 or 13 config: prefill of ``batch`` prompts
+    of ``prompt`` tokens (one warm-up, one timed), with ``extra``'s frames
+    or patches (a patch config's cache holds its patches too); greedy
+    `sample_loop` for ``steps`` steps (one eager decode step, then replays
+    of one captured graph) with the counters zeroed around it; one replay
+    against one eager step from the same cache and tokens, bit for bit;
+    timed eager steps; timed and profiled replays; the teacher-forced
+    decode against the forward on
     ``forced_rows`` sequences: with float32 parameters the model runs it
     in float32 compute, held at the JAX package's 2e-3 × max(max |logits|,
     1) (in bf16 the decode drifts from the forward by several percent over
@@ -3880,11 +3979,12 @@ def moe_ssm_serve(label: str, model, cfg, seed: int, batch: int,
     from repro_torch.train.serve import (DecodeGraph, make_decode_step,
                                          make_prefill, sample_loop)
 
-    max_len = prompt + steps + 1
+    extra = extra or {}
+    max_len = cfg.patch_positions + prompt + steps + 1
     gen = torch.Generator(device="cuda").manual_seed(seed + 3)
     tokens = torch.randint(0, cfg.vocab, (batch, prompt + SERVE_FORCED),
                            generator=gen, device="cuda")
-    first = {"tokens": tokens[:, :prompt]}
+    first = {"tokens": tokens[:, :prompt], **extra}
     prefill = make_prefill(cfg, max_len)
     decode = make_decode_step(cfg)
     (logits, cache), t_pre, _, warm = wall(lambda: prefill(model, first), 1)
@@ -3892,8 +3992,10 @@ def moe_ssm_serve(label: str, model, cfg, seed: int, batch: int,
     slots = {kind: tuple(leaf.shape) for sub in cache["blocks"].values()
              for kind, leaves in sub.items() for leaf in leaves.values()}
     del logits, cache
-    log(f"{label}: prefill of {batch} x {prompt} tokens (max_len {max_len})"
-        f": {t_pre * 1e3:.1f} ms (warm-up {warm * 1e3:.1f} ms), "
+    log(f"{label}: prefill of {batch} x {prompt} tokens"
+        f"{f' after {cfg.patch_positions} patches' * bool(cfg.patch_positions)}"
+        f"{f' with {cfg.encoder_len} frames' * cfg.is_enc_dec} (max_len "
+        f"{max_len}): {t_pre * 1e3:.1f} ms (warm-up {warm * 1e3:.1f} ms), "
         f"{batch * prompt / t_pre:.0f} prompt tokens/s; cache leaves by "
         f"kind {slots}")
 
@@ -3907,7 +4009,8 @@ def moe_ssm_serve(label: str, model, cfg, seed: int, batch: int,
           and int(toks.max()) < cfg.vocab, f"{label}: sampled tokens")
     log(f"{label}: sample_loop ({steps} steps: one eager step, then "
         f"replays) {t_loop * 1e3:.1f} ms; launch counts {launches} (the "
-        "decode path reaches no port kernel)")
+        "decode steps reach no port kernel; an encoder-decoder's prefill "
+        "runs its encoder through the flash kernel)")
 
     logits, cache = prefill(model, first)
     logits, cache = decode(model, cache, logits.argmax(-1)[:, None])
@@ -3925,7 +4028,17 @@ def moe_ssm_serve(label: str, model, cfg, seed: int, batch: int,
     check(bit_equal, f"{label}: a replayed decode step equals the eager "
           "step")
     check(bool(torch.isfinite(replayed).all()), f"{label}: decode finite")
+    eager_ms = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        eager, snap = decode(model, snap, tok)
+        torch.cuda.synchronize()
+        eager_ms.append((time.perf_counter() - t0) * 1e3)
+    t_eager = statistics.median(eager_ms)
+    log(f"{label}: eager decode median {t_eager:.2f} ms a step of "
+        f"{[round(x, 2) for x in eager_ms]}")
     del snap, eager
+    torch.cuda.empty_cache()
     tok = replayed.argmax(-1)[:, None].to(torch.int32)
     replay_ms = []
     for _ in range(steps - 4):
@@ -3942,19 +4055,20 @@ def moe_ssm_serve(label: str, model, cfg, seed: int, batch: int,
     graph.close()
     del graph, cache, replayed
     torch.cuda.empty_cache()
+    rows = {k: v[:forced_rows] for k, v in extra.items()}
     if cfg.param_dtype == "float32":
         forced = decode_vs_forward(
             f"{label} float32", model, dataclasses.replace(
                 cfg, compute_dtype="float32"), tokens[:forced_rows], prompt,
-            forced_rows, 2e-3, 1.0, moe=cfg.moe is not None)
+            forced_rows, 2e-3, 1.0, moe=cfg.moe is not None, extra=rows)
     else:
         forced = decode_vs_forward(label, model, cfg, tokens[:forced_rows],
                                    prompt, forced_rows, 2e-2, 0.0,
-                                   moe=cfg.moe is not None)
+                                   moe=cfg.moe is not None, extra=rows)
     return {"prefill_ms": t_pre * 1e3,
             "prefill_tokens_per_s": batch * prompt / t_pre,
             "sample_loop_ms": t_loop * 1e3, "launches": launches,
-            "replay_step_ms": t_replay,
+            "eager_step_ms": t_eager, "replay_step_ms": t_replay,
             "decode_tokens_per_s": batch * 1e3 / t_replay,
             "replay_bit_equal": bit_equal, "profile_replay": prof,
             "forced": forced}
@@ -3981,10 +4095,13 @@ class ExpandableSegments:
         torch.cuda.memory._set_allocator_settings("expandable_segments:False")
 
 
-def moe_ssm_train(label: str, cfg, seed: int, batch: int, seq: int) -> dict:
-    """One phase 12 config's train step: `init_state` on the card, one
-    warm-up step, then `REPS` steps of ``batch`` × ``seq`` tokens timed by
-    CUDA events; loss, aux and grad_norm finite; peak reserved memory. The
+def config_train(label: str, cfg, seed: int, batch: int, seq: int,
+                 fixed=None) -> dict:
+    """One phase 12 or 13 config's train step: `init_state` on the card,
+    one warm-up step, then `REPS` steps of ``batch`` × ``seq`` positions
+    timed by CUDA events, the pipeline's tokens or, given, every step on
+    the batch ``fixed`` (tokens with their frames or patches); loss, aux
+    and grad_norm finite; peak reserved memory. The
     step runs on expandable segments: with fixed ones, mixtral's backward
     (bf16 weight casts, `_attend`'s float32 scores) keeps blocks the
     optimizer's 3.2 GB float32 temporaries cannot use, and one block on
@@ -3995,8 +4112,11 @@ def moe_ssm_train(label: str, cfg, seed: int, batch: int, seq: int) -> dict:
     from repro_torch.train import init_state, make_train_step
 
     opt = AdamWConfig(lr=warmup_cosine(3e-4, 2, REPS + 4))
-    pipe = TokenPipeline(cfg.vocab, seq, batch, seed=seed)
-    batches = [pipe.batch_at(s) for s in range(REPS + 1)]
+    if fixed is None:
+        pipe = TokenPipeline(cfg.vocab, seq, batch, seed=seed)
+        batches = [pipe.batch_at(s) for s in range(REPS + 1)]
+    else:
+        batches = [fixed] * (REPS + 1)
     rows = []
     with ExpandableSegments():
         torch.cuda.reset_peak_memory_stats()
@@ -4028,8 +4148,8 @@ def moe_ssm_train(label: str, cfg, seed: int, batch: int, seq: int) -> dict:
     log(f"{label} train ({cfg.n_blocks} blocks, {n_params / 1e9:.4f} B "
         f"parameters, state {16 * n_params / 1e9:.2f} GB): step median "
         f"{step_ms:.1f} ms of {[round(r['ms'], 1) for r in rows]} (warm-up "
-        f"{warm * 1e3:.1f} ms wall); {batch} x {seq} tokens, "
-        f"{batch * seq / step_ms * 1e3:.0f} tokens/s; loss "
+        f"{warm * 1e3:.1f} ms wall); {batch} x {seq} positions, "
+        f"{batch * seq / step_ms * 1e3:.0f} positions/s; loss "
         f"{[round(r['loss'], 4) for r in rows]}, aux "
         f"{[round(r['aux'], 5) for r in rows]}, grad_norm "
         f"{[round(r['grad_norm'], 4) for r in rows]}; peak reserved "
@@ -4043,20 +4163,43 @@ def moe_ssm_train(label: str, cfg, seed: int, batch: int, seq: int) -> dict:
             "peak_allocated_gb": peak_alloc / 1e9}
 
 
-def phase_moe_ssm(name: str, seed: int, *, blocks: int | None,
-                  serve: tuple[int, int],
-                  train: tuple[int, int, int] | None) -> dict:
-    """12a–12d: one MoE or state-space config at its published widths,
-    ``blocks`` of its super-blocks (None: all), initialized on the card from
-    ``seed``: the eval step on `LM_BATCH` × `LM_SEQ` tokens through
+def modality_inputs(cfg, batch: int, gen) -> dict:
+    """What the stubbed front ends give the backbone, standard normal on
+    the card from ``gen`` in the parameters' dtype: an encoder-decoder's
+    ``frames`` [batch, encoder_len, d], a patch config's ``patches``
+    [batch, patch_positions, d]; nothing for another config."""
+    import torch
+
+    dt = getattr(torch, cfg.param_dtype)
+    out = {}
+    if cfg.is_enc_dec:
+        out["frames"] = torch.randn(batch, cfg.encoder_len, cfg.d_model,
+                                    generator=gen, device="cuda").to(dt)
+    if cfg.patch_positions:
+        out["patches"] = torch.randn(batch, cfg.patch_positions,
+                                     cfg.d_model, generator=gen,
+                                     device="cuda").to(dt)
+    return out
+
+
+def phase_lm_config(name: str, seed: int, *, blocks: int | None,
+                    serve: tuple[int, int, int],
+                    train: tuple[int, int, int] | None,
+                    shape: tuple[int, int] = (LM_BATCH, LM_SEQ)) -> dict:
+    """12a–12d and 13a–13b: one config at its published widths, ``blocks``
+    of its super-blocks (None: all), initialized on the card from ``seed``:
+    the eval step on ``shape`` = (batch, positions) through
     ``make_eval_step`` (median of `REPS` after a warm-up; the flash kernel
-    where it has attention, every call of one forward against the plain
-    version and SDPA) with the counters zeroed around it, one profiled eval
-    step, then serving (``serve`` = (prompts, prompt tokens),
-    `moe_ssm_serve`), then, with ``train`` = (blocks, batch, seq), the
-    train step at that depth on ``batch`` × ``seq`` tokens
-    (`moe_ssm_train`, after the eval model is freed). Peak reserved memory under 80 GB
-    throughout."""
+    where it has attention, encoder layers included, every call of one
+    forward against the plain version and SDPA) with the counters zeroed
+    around it, one profiled eval step, then serving (``serve`` = (prompts,
+    prompt tokens, decode steps), `config_serve`), then, with ``train`` =
+    (blocks, batch, seq), the train step at that depth on ``batch`` ×
+    ``seq`` positions (`config_train`, after the eval model is freed). An
+    encoder-decoder's batches hold frames of its encoder length, a patch
+    config's its patches before the tokens (the positions count them), and
+    its train step runs on the eval batch. Peak reserved memory under 80
+    GB throughout."""
     import dataclasses
 
     import torch
@@ -4070,6 +4213,9 @@ def phase_moe_ssm(name: str, seed: int, *, blocks: int | None,
     n_attn = sum(s.mixer == "attn" for s in full.block)
     cfg = dataclasses.replace(full, n_blocks=blocks or full.n_blocks,
                               use_flash_kernel=n_attn > 0)
+    n_flash = cfg.n_blocks * n_attn + (cfg.encoder_blocks * sum(
+        s.mixer == "attn" for s in cfg.encoder_block) if cfg.is_enc_dec
+        else 0)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4077,41 +4223,49 @@ def phase_moe_ssm(name: str, seed: int, *, blocks: int | None,
     model = Transformer(cfg, device="cuda").init(gen)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
+    enc = (f"; encoder {cfg.encoder_blocks} blocks over {cfg.encoder_len} "
+           f"frames" if cfg.is_enc_dec else "") + (
+        f"; {cfg.patch_positions} patch positions" if cfg.patch_positions
+        else "")
     log(f"{name}: {cfg.n_blocks} of {full.n_blocks} super-blocks of "
-        f"{len(cfg.block)} layers ({[(s.mixer, s.mlp) for s in cfg.block]}), "
-        f"d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, d_ff "
-        f"{cfg.d_ff}, vocab {cfg.vocab}, moe {cfg.moe}, mamba {cfg.mamba}, "
-        f"rwkv {cfg.rwkv}, window {cfg.swa_window}; {n_params / 1e9:.4f} B "
-        f"parameters ({cfg.param_dtype}; the full config "
-        f"{full.param_count() / 1e9:.2f} B by param_count()), compute "
-        f"{cfg.compute_dtype}; initialized on the card in "
-        f"{time.perf_counter() - t0:.2f} s")
-    tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_SEQ), generator=gen,
-                           device="cuda")
-    batch = {"tokens": tokens}
+        f"{len(cfg.block)} layers ({[(s.mixer, s.mlp) for s in cfg.block]}"
+        f"{enc}), d_model {cfg.d_model}, heads {cfg.n_heads}/"
+        f"{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, moe "
+        f"{cfg.moe}, mamba {cfg.mamba}, rwkv {cfg.rwkv}, window "
+        f"{cfg.swa_window}; {n_params / 1e9:.4f} B parameters "
+        f"({cfg.param_dtype}; the full config {full.param_count() / 1e9:.2f}"
+        f" B by param_count()), compute {cfg.compute_dtype}; initialized on "
+        f"the card in {time.perf_counter() - t0:.2f} s")
+    b, seq = shape
+    tokens = torch.randint(0, cfg.vocab, (b, seq - cfg.patch_positions),
+                           generator=gen, device="cuda")
+    batch = {"tokens": tokens, **modality_inputs(cfg, b, gen)}
     eval_fn = make_eval_step(cfg)
     _platform.reset_launch_counts()
     metrics, t_step, ts, warm = wall(lambda: eval_fn(model, batch), REPS)
     launches = _platform.launch_counts()
     loss, aux = float(metrics["loss"]), float(metrics["aux"])
-    tok_s = LM_BATCH * LM_SEQ / t_step
-    log(f"{name} eval step ({LM_BATCH} x {LM_SEQ} tokens): median "
+    tok_s = b * seq / t_step
+    log(f"{name} eval step ({b} x {seq} positions"
+        f"{f', {cfg.encoder_len} frames each' * cfg.is_enc_dec}): median "
         f"{t_step * 1e3:.1f} ms of {[round(x * 1e3, 1) for x in ts]} ms "
-        f"(warm-up {warm * 1e3:.1f} ms); {tok_s:.0f} tokens/s; loss "
+        f"(warm-up {warm * 1e3:.1f} ms); {tok_s:.0f} positions/s; loss "
         f"{loss:.4f}, aux {aux:.5f}; launches {launches} over {REPS + 1} "
         "steps")
     check(math.isfinite(loss) and math.isfinite(aux),
           f"{name}: eval loss and aux finite")
-    check(launches.get("flash_attention_sm90", 0)
-          == (REPS + 1) * cfg.n_blocks * n_attn,
+    check(launches.get("flash_attention_sm90", 0) == (REPS + 1) * n_flash,
           f"{name}: the bfloat16 flash kernel launched once per attention "
           "layer")
     out = {"blocks": cfg.n_blocks, "params": n_params, "launches": launches,
-           "step_ms": t_step * 1e3, "tokens_per_s": tok_s, "loss": loss,
-           "aux": aux}
+           "batch": b, "positions": seq, "step_ms": t_step * 1e3,
+           "tokens_per_s": tok_s, "loss": loss, "aux": aux}
     with torch.inference_mode(), MoEDrops(model, cfg) as drops:
-        logits, _, _ = model(batch, cfg)
-    check(bool(torch.isfinite(logits).all()), f"{name}: logits finite")
+        logits, _, offset = model(batch, cfg)
+    check(bool(torch.isfinite(logits).all()) and logits.shape[:2] == (b, seq)
+          and offset == cfg.patch_positions,
+          f"{name}: logits finite over every position, text after the "
+          "patches")
     del logits
     out["eval_drop_shares"] = drops.shares()
     if cfg.moe is not None:
@@ -4120,7 +4274,8 @@ def phase_moe_ssm(name: str, seed: int, *, blocks: int | None,
     if n_attn:
         out["flash"] = flash_at(name, model, cfg, batch)
         out["flash"]["launches"] = launches.get("flash_attention_sm90", 0)
-    flops = lm_eval_flops(cfg, LM_BATCH, LM_SEQ)
+        out["flash"]["launches_per_forward"] = n_flash
+    flops = lm_eval_flops(cfg, b, seq, cfg.encoder_len * cfg.is_enc_dec)
     total = flops["compute"] + flops["float32"]
     out["flops"] = flops
     out["bf16_peak_share"] = total / t_step / PEAK_FLOPS["bfloat16"]
@@ -4139,8 +4294,10 @@ def phase_moe_ssm(name: str, seed: int, *, blocks: int | None,
         f"{time.perf_counter() - t_phase:.1f} s")
     del metrics
     torch.cuda.empty_cache()
-    out["serve"] = moe_ssm_serve(name, model, cfg, seed, serve[0], serve[1],
-                                 MOE_SSM_STEPS[name], min(2, serve[0]))
+    prompts, prompt, steps = serve
+    out["serve"] = config_serve(name, model, cfg, seed, prompts, prompt,
+                                steps, min(2, prompts),
+                                extra=modality_inputs(cfg, prompts, gen))
     out["eval_peak_reserved_gb"] = torch.cuda.max_memory_reserved() / 1e9
     log(f"{name}: peak reserved {out['eval_peak_reserved_gb']:.2f} GB over "
         "eval and serving")
@@ -4151,11 +4308,37 @@ def phase_moe_ssm(name: str, seed: int, *, blocks: int | None,
     torch.cuda.empty_cache()
     log(f"{name}: eval and serving {time.perf_counter() - t_phase:.1f} s")
     if train is not None:
-        out["train"] = moe_ssm_train(name, dataclasses.replace(
-            cfg, n_blocks=train[0], use_flash_kernel=False), seed, *train[1:])
+        fixed = batch if len(batch) > 1 else None
+        out["train"] = config_train(name, dataclasses.replace(
+            cfg, n_blocks=train[0], use_flash_kernel=False), seed, *train[1:],
+            fixed=fixed)
+        del fixed
+    del batch
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"{name}: phase {out['wall_s']:.1f} s")
     return out
+
+
+def phase_enc_dec(seed: int, t_start: float) -> dict:
+    """Phase 13: whisper-tiny (its encoder's flash calls without causality)
+    and llava-next-34b (GQA group 7 behind 2,880 patch positions), each
+    through `phase_lm_config` at its `ENC_DEC_CELLS` entry."""
+    out = {}
+    for sub, name, blocks, serve, train, shape in ENC_DEC_CELLS:
+        log(f"== phase {sub}: {name}")
+        out[name] = phase_lm_config(name, seed, blocks=blocks, serve=serve,
+                                    train=train, shape=shape)
+        log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    return out
+
+
+def flash_entry(res: dict) -> dict:
+    """The kernels line's keys of one config's flash `measure` result."""
+    return {k: res[k] for k in (
+        "launches", "launches_per_forward", "calls", "shapes",
+        "max_abs_err", "max_rel_err", "bound_ratio", "ms", "plain_ms",
+        "bound_ms", "bound_by", "library_ms", "tflops", "bound_share",
+        "vs_library") if k in res}
 
 
 def main(argv=None) -> int:
@@ -4411,9 +4594,13 @@ def main(argv=None) -> int:
     moe_ssm = {}
     for sub, name, blocks, serve, train in MOE_SSM_CELLS:
         log(f"== phase {sub}: {name}")
-        moe_ssm[name] = phase_moe_ssm(name, args.seed, blocks=blocks,
-                                      serve=serve, train=train)
+        moe_ssm[name] = phase_lm_config(name, args.seed, blocks=blocks,
+                                        serve=serve, train=train)
         log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+
+    log("== phase 13: encoder-decoder and patch configs (13a whisper-tiny, "
+        "13b llava-next-34b)")
+    enc_dec = phase_enc_dec(args.seed, t_start)
 
     log("== phase 8: summary")
     measured = {
@@ -4467,14 +4654,15 @@ def main(argv=None) -> int:
             entry["dtypes"] = FLASH_DTYPES[kname]
         if kname == "flash_attention_sm90":
             entry["launches_per_forward"] = lm["launches_per_forward"]
-            # Phase 12's GQA groups: mixtral 48/8, arctic 56/8, jamba 32/8.
-            for name, res in moe_ssm.items():
+            # Phase 12's GQA groups: mixtral 48/8, arctic 56/8, jamba 32/8;
+            # phase 13's whisper 6/6 (its encoder's calls non-causal) and
+            # llava 56/8.
+            for name, res in {**moe_ssm, **enc_dec}.items():
                 if "flash" in res:
-                    entry[name] = {k: res["flash"][k] for k in (
-                        "launches", "calls", "shapes", "max_abs_err",
-                        "max_rel_err", "bound_ratio", "ms", "plain_ms",
-                        "bound_ms", "bound_by", "library_ms", "tflops",
-                        "bound_share", "vs_library")}
+                    entry[name] = flash_entry(res["flash"])
+                    for group, part in res["flash"].get("groups",
+                                                        {}).items():
+                        entry[name][group] = flash_entry(part)
         if kname in FLASH_DTYPES:
             entry.update({k: main[k] for k in (
                 "tflops", "bound_share", "vs_library")})
@@ -4524,6 +4712,9 @@ def main(argv=None) -> int:
                     "moe_ssm": {n: {k: v for k, v in r.items()
                                     if k != "flash"}
                                 for n, r in moe_ssm.items()},
+                    "enc_dec": {n: {k: v for k, v in r.items()
+                                    if k != "flash"}
+                                for n, r in enc_dec.items()},
                     "lm32_eval_step_ms": lm32["step_ms"],
                     "lm32_loss": lm32["loss"],
                     "build_spill_bytes": build["spill_bytes"],

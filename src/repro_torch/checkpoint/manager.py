@@ -84,7 +84,6 @@ def _targets(target: Any) -> dict[str, tuple]:
         return {k: (v, None, tuple(v.shape))
                 for k, v in _flat_tree(target).items()}
     model = target.model
-    n = model.cfg.n_blocks
     out = {".step": (target.step, None, ()),
            ".opt_state/step": (target.opt_state["step"], None, ())}
     named = [(".params", dict(model.named_parameters())),
@@ -93,10 +92,11 @@ def _targets(target: Any) -> dict[str, tuple]:
     for prefix, tensors in named:
         for name, t in tensors.items():
             key = "/".join((prefix,) + weights.jax_path(name))
-            if name.startswith("blocks."):
-                out.setdefault(key, [])
-                out[key].append((t, int(name.split(".")[1]),
-                                 (n,) + tuple(t.shape)))
+            i = weights.block_index(name)
+            if i is not None:
+                out.setdefault(key, []).append(
+                    (t, i, (weights.stack_depth(model.cfg, name),)
+                     + tuple(t.shape)))
             else:
                 out[key] = (t, None, tuple(t.shape))
     return out

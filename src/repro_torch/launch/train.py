@@ -20,8 +20,10 @@ The port of the JAX package's ``launch/train.py``, on one device:
 
 --device picks the device (default: the card; ``--device cpu`` runs the
 plain PyTorch path). ``--mesh single|multi`` and ``--model-parallel`` > 1
-need the production mesh and the sharding rules (ROADMAP A14.6) and raise;
-architectures whose layers are not ported raise naming their item.
+need the production mesh and the sharding rules (ROADMAP A14.6) and raise.
+The token pipeline gives tokens only, as the JAX driver's: whisper-tiny's
+and llava-next-34b's first step fails with a `KeyError` naming the
+``frames`` or ``patches`` its batch lacks, as the JAX driver's does.
 
 Usage (CPU, reduced config):
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\

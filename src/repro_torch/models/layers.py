@@ -7,11 +7,12 @@ The port of the JAX package's ``models/layers.py``. Its ``init_*`` /
 it is (`models.weights.params_from_jax`). A module's ``init_`` fills its
 parameters from an explicit `torch.Generator`; the constructor leaves them
 uninitialized. Weights are cast to the compute dtype at the call, as JAX
-casts them. Attention is ported in its train branch and its KV-cache
-branch (prefill, decode; a linear buffer, or a ring buffer under a sliding
-window), which writes the cache's tensors in place; cross-attention raises
-`NotImplementedError`, and so does the flash branch whenever autograd would
-record through it (`FLASH_NO_BACKWARD`).
+casts them. Attention is ported in its train branch, its KV-cache branch
+(prefill, decode; a linear buffer, or a ring buffer under a sliding
+window), which writes the cache's tensors in place, and its cross branch
+(the decoder's attention over the encoder's output, or over the K/V a
+prefill cached from it). The flash branch raises `NotImplementedError`
+whenever autograd would record through it (`FLASH_NO_BACKWARD`).
 """
 
 from __future__ import annotations
@@ -144,7 +145,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Attention (GQA, optional qk-norm / sliding window)
+# Attention (GQA, optional qk-norm / sliding window / cross-attention)
 # ---------------------------------------------------------------------------
 
 
@@ -225,7 +226,8 @@ def _proj(x, w):
 
 
 class Attention(nn.Module):
-    """GQA self-attention: train mode (no cache), prefill and decode."""
+    """GQA attention: self-attention in train mode (no cache), prefill and
+    decode; cross-attention over an encoder's output."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -249,36 +251,38 @@ class Attention(nn.Module):
             self.k_norm.fill_(1.0)
 
     def forward(self, x, cfg: ModelConfig, *, positions=None,
-                causal: bool = True, cross: bool = False, cache=None,
-                cache_pos=None):
+                causal: bool = True, cross: bool = False, kv_x=None,
+                cache=None, cache_pos=None):
         """Modes, as JAX's ``attention``:
 
           train:    cache=None  -> attend over x (blockwise if long)
           prefill:  cache given, T > 1  -> attend over x, then fill the cache
           decode:   cache given, T == 1 -> write one slot, attend over the
                     whole cache
+          cross:    cross=True  -> attend over ``kv_x`` [B, Tk, d], or over
+                    the ``{"k", "v"}`` of a cache that holds them
 
         ``cache`` is one layer's ``{"k", "v", "pos"}`` (`init_attn_cache`);
         ``cache_pos`` the 0-d write position of a decode step, a device
         tensor. Returns ``(y, cache)``: the cache's tensors are written in
         place and the same dict comes back (None in train mode), where JAX
         returns a new one. A decode step reads no device value on the host,
-        so it can be captured into a CUDA graph.
+        so it can be captured into a CUDA graph. The cross branch writes
+        nothing and returns the cache it was given.
         """
-        if cross:
-            raise NotImplementedError(
-                "cross-attention is not ported yet (ROADMAP A14.5, "
-                "encoder-decoder)")
         b, t, _ = x.shape
         cdt = dtype_of(cfg.compute_dtype)
         if positions is None:
             positions = torch.arange(t, device=x.device)
         xc = x.to(cdt)
         q = _proj(xc, self.wq.to(cdt))
+        if cfg.qk_norm:
+            q = rms_norm_vec(q, self.q_norm)
+        if cross:
+            return self._cross(x, q, cfg, positions, kv_x, cache), cache
         k = _proj(xc, self.wk.to(cdt))
         v = _proj(xc, self.wv.to(cdt))
         if cfg.qk_norm:
-            q = rms_norm_vec(q, self.q_norm)
             k = rms_norm_vec(k, self.k_norm)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -312,9 +316,42 @@ class Attention(nn.Module):
             out = _attend(q, k, v, positions, positions, causal, window,
                           cfg.attn_block_kv)
             _fill_cache(cache, k, v, positions)
+        return self._out(out, x, cdt), cache
+
+    def _cross(self, x, q, cfg: ModelConfig, positions, kv_x, cache):
+        """The cross branch: no RoPE, every key visible (keys at
+        ``arange(Tk)``, no causality, no window), through ``_attend`` and
+        never the flash kernel, as JAX's. K and V come from a cache that
+        holds them, cast to the compute dtype, else from ``kv_x``; only the
+        latter applies ``k_norm`` under qk-norm (JAX's prefill caches them
+        without it)."""
+        cdt = q.dtype
+        if cache is not None and "k" in cache:
+            k, v = cache["k"].to(cdt), cache["v"].to(cdt)
+        else:
+            k, v = self.cross_kv(kv_x, cfg)
+            if cfg.qk_norm:
+                k = rms_norm_vec(k, self.k_norm)
+        k_pos = torch.arange(k.shape[1], device=k.device)
+        out = _attend(q, k, v, positions, k_pos, False, None,
+                      cfg.attn_block_kv)
+        return self._out(out, x, cdt)
+
+    def cross_kv(self, enc_out, cfg: ModelConfig):
+        """The K and V the cross branch reads from ``enc_out`` [B, Tk, d],
+        in the compute dtype and without ``k_norm``: what JAX's
+        ``_fill_cross_caches`` stores in a prefill's cache."""
+        cdt = dtype_of(cfg.compute_dtype)
+        src = enc_out.to(cdt)
+        return _proj(src, self.wk.to(cdt)), _proj(src, self.wv.to(cdt))
+
+    def _out(self, out, x, cdt):
+        """The output projection ``einsum("bthk,hkd->btd")`` in ``cdt``,
+        cast to ``x``'s dtype."""
+        b, t = out.shape[:2]
         nq, hd, d = self.wo.shape
         y = out.reshape(b * t, nq * hd) @ self.wo.to(cdt).reshape(nq * hd, d)
-        return y.reshape(b, t, d).to(x.dtype), cache
+        return y.reshape(b, t, d).to(x.dtype)
 
 
 def _fill_cache(cache, k, v, positions) -> None:

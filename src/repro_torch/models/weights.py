@@ -6,13 +6,15 @@ The tests hold the port to the JAX package on the same weights: JAX's
 turns them into numpy, and `params_from_jax` copies them into the port's
 modules. The port's own random init (`Transformer.init`) does not reproduce
 JAX's PRNG. A cache keeps JAX's tree on both sides (``{"blocks":
-{"pos<j>": {<kind>: {<leaf>: …}}}, "pos"}``, the kinds ``attn``, ``mamba``,
-``rwkv`` and ``cmix``, leaves stacked over the super-blocks):
+{"pos<j>": {<kind>: {<leaf>: …}}}, "pos"}``, the kinds ``attn``, ``cross``,
+``mamba``, ``rwkv`` and ``cmix``, leaves stacked over the super-blocks):
 `cache_from_jax` turns JAX's numpy leaves into the port's tensors,
 `cache_to_numpy` the port's back, so tests compare leaf by leaf.
 
-The port holds one parameter per super-block (``blocks.<i>.<j>.<path>``);
-JAX stacks each over the super-blocks (``blocks/pos<j>/<path>``, axis 0).
+The port holds one parameter per super-block (``blocks.<i>.<j>.<path>``,
+and an encoder-decoder's ``encoder.<i>.<j>.<path>``); JAX stacks each over
+its stack's super-blocks (``blocks/pos<j>/<path>`` over ``n_blocks``,
+``encoder/pos<j>/<path>`` over ``encoder_blocks``, axis 0).
 `params_to_numpy` gives JAX's stacked tree of a model, the inverse of
 `params_from_jax`, and `opt_state_to_numpy` / `opt_state_from_jax` do the
 same for AdamW's state, whose moments the port keys by parameter name. The
@@ -33,37 +35,48 @@ from .layers import dtype_of
 from .transformer import Transformer
 
 
+_STACKS = ("blocks", "encoder")  # the trees JAX stacks over super-blocks
+
+
+def block_index(name: str) -> int | None:
+    """The super-block ``i`` of a stacked parameter ``<stack>.<i>.<j>.…``
+    (``stack`` ``blocks`` or ``encoder``); None for any other name."""
+    parts = name.split(".")
+    return int(parts[1]) if parts[0] in _STACKS else None
+
+
 def _leaf(tree, name: str):
     """The array of JAX's tree for the port's parameter ``name``: the stack
-    ``blocks.<i>.<j>.<path>`` is ``tree["blocks"]["pos<j>"][<path>][i]``
+    ``<stack>.<i>.<j>.<path>`` is ``tree[<stack>]["pos<j>"][<path>][i]``
     (super-blocks stacked on axis 0)."""
-    parts = name.split(".")
-    if parts[0] == "blocks":
-        i, j, rest = int(parts[1]), int(parts[2]), parts[3:]
-        node = tree["blocks"][f"pos{j}"]
-        for key in rest:
-            node = node[key]
-        return node[i]
     node = tree
-    for key in parts:
+    for key in jax_path(name):
         node = node[key]
-    return node
+    i = block_index(name)
+    return node if i is None else node[i]
 
 
 def jax_path(name: str) -> tuple[str, ...]:
     """The keys of the port's parameter ``name`` in JAX's tree:
-    ``blocks.<i>.<j>.<path>`` is the slice ``[i]`` of ``("blocks",
+    ``<stack>.<i>.<j>.<path>`` is the slice ``[i]`` of ``(<stack>,
     "pos<j>", *path)``, any other name its own dotted path."""
     parts = name.split(".")
-    if parts[0] == "blocks":
-        return ("blocks", f"pos{parts[2]}", *parts[3:])
+    if parts[0] in _STACKS:
+        return (parts[0], f"pos{parts[2]}", *parts[3:])
     return tuple(parts)
 
 
 def jax_ndim(name: str, t: torch.Tensor) -> int:
     """The rank of JAX's leaf for the port's parameter ``name``: one more
     than the port's for a super-block's parameter (JAX stacks it)."""
-    return t.ndim + 1 if name.startswith("blocks.") else t.ndim
+    return t.ndim if block_index(name) is None else t.ndim + 1
+
+
+def stack_depth(cfg: ModelConfig, name: str) -> int:
+    """The super-blocks JAX stacks a stacked parameter ``name`` over:
+    ``cfg.encoder_blocks`` in the encoder, else ``cfg.n_blocks``."""
+    return cfg.encoder_blocks if name.startswith("encoder.") else \
+        cfg.n_blocks
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -76,20 +89,20 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.to("cpu", copy=True).numpy()
 
 
-def stack_to_tree(named: dict, n_blocks: int) -> dict:
+def stack_to_tree(named: dict) -> dict:
     """Tensors keyed by the port's parameter names → JAX's tree of numpy
-    arrays, each super-block's parameters stacked on axis 0."""
+    arrays, each super-block's parameters stacked on axis 0 in the order
+    of their super-blocks."""
     tree: dict = {}
     stacks: dict = {}
     for name, t in named.items():
-        path = jax_path(name)
-        if name.startswith("blocks."):
-            stacks.setdefault(path, [None] * n_blocks)[
-                int(name.split(".")[1])] = to_numpy(t)
-        else:
+        path, i = jax_path(name), block_index(name)
+        if i is None:
             _put(tree, path, to_numpy(t))
+        else:
+            stacks.setdefault(path, {})[i] = to_numpy(t)
     for path, leaves in stacks.items():
-        _put(tree, path, np.stack(leaves))
+        _put(tree, path, np.stack([leaves[i] for i in range(len(leaves))]))
     return tree
 
 
@@ -103,16 +116,15 @@ def params_to_numpy(model: Transformer) -> dict:
     """The model's parameters as JAX's ``init_params`` tree of numpy
     arrays (super-block parameters stacked), the inverse of
     `params_from_jax`."""
-    return stack_to_tree(dict(model.named_parameters()), model.cfg.n_blocks)
+    return stack_to_tree(dict(model.named_parameters()))
 
 
 def opt_state_to_numpy(opt_state: dict, model: Transformer) -> dict:
     """AdamW's state (`repro_torch.optim.adamw_init`, moments keyed by
     ``model``'s parameter names) as JAX's ``{"mu", "nu", "step"}`` tree of
     numpy arrays."""
-    n = model.cfg.n_blocks
-    return {"mu": stack_to_tree(opt_state["mu"], n),
-            "nu": stack_to_tree(opt_state["nu"], n),
+    return {"mu": stack_to_tree(opt_state["mu"]),
+            "nu": stack_to_tree(opt_state["nu"]),
             "step": to_numpy(opt_state["step"]).astype(np.int32)}
 
 

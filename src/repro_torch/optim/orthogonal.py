@@ -24,7 +24,7 @@ import math
 import torch
 
 from repro_torch.core.postprocess import tsqr_r
-from repro_torch.models.weights import jax_path
+from repro_torch.models.weights import block_index, jax_path
 
 __all__ = ["orthogonalize", "orthogonalized_update"]
 
@@ -65,9 +65,9 @@ def orthogonalized_update(grads: dict, *, min_dim: int = 2,
     out = {}
     stacks: dict = {}
     for name, g in grads.items():
-        if name.startswith("blocks."):
-            stacks.setdefault(jax_path(name), []).append(
-                (int(name.split(".")[1]), name))
+        i = block_index(name)
+        if i is not None:
+            stacks.setdefault(jax_path(name), []).append((i, name))
         else:
             out[name] = _one(g, min_dim)
     for members in stacks.values():

@@ -33,7 +33,7 @@ from repro_torch.kernels import _platform
 from repro_torch.kernels._platform import resolve_device
 from repro_torch.launch.mesh import resolve_shard
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import Transformer, check_supported
+from repro_torch.models.transformer import Transformer
 from repro_torch.train.async_serve import (AsyncFigaroServer, FigaroFuture,
                                            SERVE_KINDS, validate_serve_kind)
 
@@ -167,10 +167,10 @@ def make_figaro_server(plan: FigaroPlan | PlanHolder, *, kind: str = "qr",
 def make_prefill(cfg: ModelConfig, max_len: int, device=None):
     """``prefill_fn(model, batch) -> (logits [B, padded_vocab], cache)`` for
     a `repro_torch.models.transformer.Transformer` on ``device`` (the card
-    unless ``device="cpu"``): ``batch["tokens"]`` [B, T] (arrays or
-    tensors, moved to the device) into a new cache of ``max_len``
-    positions, in inference mode."""
-    check_supported(cfg)
+    unless ``device="cpu"``): ``batch["tokens"]`` [B, T], with the
+    ``"frames"`` of an encoder-decoder or the ``"patches"`` of a patch
+    config (arrays or tensors, moved to the device), into a new cache of
+    ``max_len`` positions, in inference mode."""
     dev = resolve_device(device)
 
     def prefill_fn(model, batch):
@@ -186,7 +186,6 @@ def make_decode_step(cfg: ModelConfig, device=None):
     cache)`` on ``device`` (the card unless ``device="cpu"``): one eager
     step of tokens [B, 1]. The cache is consumed: it is written in place
     and comes back (`Transformer.decode_step`)."""
-    check_supported(cfg)
     dev = resolve_device(device)
 
     def decode_fn(model, cache, tokens):

@@ -23,7 +23,7 @@ import torch
 from repro_torch.kernels._platform import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import FLASH_NO_BACKWARD
-from repro_torch.models.transformer import Transformer, check_supported
+from repro_torch.models.transformer import Transformer
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.orthogonal import orthogonalized_update
 
@@ -79,7 +79,9 @@ def make_train_step(
     the AdamW update of ``state`` in place (the same state comes back, its
     step one higher), on ``device`` (the card unless ``device="cpu"``; a
     one-rank ``mesh`` names its own). ``batch`` maps ``"tokens"`` (and
-    optionally ``"loss_mask"``) to [B, S] arrays or tensors.
+    optionally ``"loss_mask"``) to [B, S] arrays or tensors, and holds the
+    ``"frames"`` [B, T, d] of an encoder-decoder or the ``"patches"`` [B,
+    P, d] of a patch config.
 
     ``microbatch``: split the batch into this many sequential micro-steps,
     row ``j*microbatch + m`` to micro-step ``m`` (JAX's reshape and swap);
@@ -89,7 +91,6 @@ def make_train_step(
     (`repro_torch.optim.orthogonalized_update`, judged as JAX's stacked
     leaves). ``metrics`` is JAX's ``dict(ce, aux, zloss, tokens, loss,
     grad_norm, lr)`` of 0-d tensors on the device."""
-    check_supported(cfg)
     if cfg.use_flash_kernel:
         raise NotImplementedError(f"make_train_step: {FLASH_NO_BACKWARD}")
     dev = _check_mesh(mesh, device)
@@ -146,8 +147,8 @@ def make_eval_step(cfg: ModelConfig, device=None) -> Callable:
     """``eval_fn(model, batch) -> dict(metrics, loss=loss)`` for a
     `repro_torch.models.transformer.Transformer` on ``device`` (the card
     unless ``device="cpu"``). ``batch`` maps ``"tokens"`` (and optionally
-    ``"loss_mask"``) to [B, S] arrays or tensors; they are moved to the
-    device. The forward runs under ``cfg`` — with ``cfg.use_flash_kernel``
+    ``"loss_mask"``) to [B, S] arrays or tensors, with ``"frames"`` or
+    ``"patches"`` as `make_train_step`'s; they are moved to the device. The forward runs under ``cfg`` — with ``cfg.use_flash_kernel``
     its attention goes through the flash-attention kernel."""
     dev = resolve_device(device)
 

@@ -1,10 +1,12 @@
-"""Hold a port LM config to the JAX package's on the CPU: the checks the MoE
-and state-space test files (`test_torch_moe.py`, `test_torch_ssm.py`) share.
+"""Hold a port LM config to the JAX package's on the CPU: the checks the MoE,
+state-space and encoder-decoder test files (`test_torch_moe.py`,
+`test_torch_ssm.py`, `test_torch_enc_dec.py`) share.
 
 Each takes an ``arch`` dict (`arch_fixture`): both packages' smoke config
 with float32 compute, JAX's parameters (``init_params``, jitted, seed 1)
-and their numpy tree. Tolerances are the callers', stated in their
-docstrings.
+and their numpy tree. A batch holds the tokens and, where the config reads
+them, the ``frames`` or ``patches`` `inputs` draws. Tolerances are the
+callers', stated in their docstrings.
 """
 
 import dataclasses
@@ -61,6 +63,32 @@ def arch_fixture(names):
     return arch
 
 
+def inputs(cfg, tokens, seed=7, frames=None):
+    """``{"tokens": tokens}`` (numpy) with the ``"frames"`` [B, T, d] of an
+    encoder-decoder (T = ``frames``, default ``cfg.encoder_len``) and the
+    ``"patches"`` [B, patch_positions, d] of a patch config, standard
+    normal float32 from numpy ``seed``, as the JAX package's smoke tests
+    draw them (`tests/test_models_smoke.py`)."""
+    rng = np.random.default_rng(seed)
+    b = tokens.shape[0]
+    out = {"tokens": tokens}
+    if cfg.is_enc_dec:
+        out["frames"] = rng.standard_normal(
+            (b, frames or cfg.encoder_len, cfg.d_model), np.float32)
+    if cfg.patch_positions:
+        out["patches"] = rng.standard_normal(
+            (b, cfg.patch_positions, cfg.d_model), np.float32)
+    return out
+
+
+def jbatch(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def tbatch(batch):
+    return {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+
+
 def rel(got, want):
     want = np.asarray(want, np.float64)
     return float(np.abs(np.asarray(got, np.float64) - want).max()
@@ -84,15 +112,18 @@ def np_tree(tree):
 
 def forward_and_aux(arch, t):
     """Logits within 1e-4 of max |logits|, aux within 1e-6 relative (exactly
-    0 in both without MoE layers), over 2 × ``t`` tokens."""
+    0 in both without MoE layers), over 2 × ``t`` tokens (after the
+    patches of a patch config, whose count is the offset)."""
     jcfg, tcfg = arch["jcfg"], arch["tcfg"]
-    tokens = np.random.default_rng(2).integers(0, tcfg.vocab, (2, t))
-    logits_j, aux_j, _ = jax.jit(jtf.forward, static_argnums=1)(
-        arch["params"], jcfg, {"tokens": jnp.asarray(tokens)})
+    batch = inputs(tcfg, np.random.default_rng(2).integers(
+        0, tcfg.vocab, (2, t)))
+    logits_j, aux_j, off_j = jax.jit(jtf.forward, static_argnums=1)(
+        arch["params"], jcfg, jbatch(batch))
     model = params_from_jax(arch["tree"], tcfg, device="cpu")
     with torch.no_grad():
-        logits_t, aux_t, off = model({"tokens": torch.from_numpy(tokens)})
-    assert off == 0
+        logits_t, aux_t, off = model(tbatch(batch))
+    assert off == off_j == tcfg.patch_positions
+    assert logits_t.shape == logits_j.shape
     assert rel(logits_t.numpy(), logits_j) < 1e-4
     assert abs(float(aux_t) - float(aux_j)) <= 1e-6 * abs(float(aux_j))
     return float(aux_j)
@@ -103,17 +134,18 @@ def loss_gradients(arch, t, tol):
     ``t`` tokens: the loss within 1e-5 relative, each leaf within ``tol``
     of its max |g|. Returns the leaves' names."""
     jcfg, tcfg = arch["jcfg"], arch["tcfg"]
-    tokens = np.random.default_rng(3).integers(0, tcfg.vocab, (2, t))
+    batch = inputs(tcfg, np.random.default_rng(3).integers(
+        0, tcfg.vocab, (2, t)))
     (loss_j, _), g_j = jax.jit(jax.value_and_grad(
         lambda p, b: jtf.loss_fn(p, jcfg, b), has_aux=True))(
-        arch["tree"], {"tokens": jnp.asarray(tokens)})
+        arch["tree"], jbatch(batch))
     model = params_from_jax(arch["tree"], tcfg, device="cpu")
-    loss_t, _ = model.loss_fn({"tokens": torch.from_numpy(tokens)})
+    loss_t, _ = model.loss_fn(tbatch(batch))
     loss_t.backward()
     assert abs(float(loss_t.detach()) - float(loss_j)) <= 1e-5 * abs(
         float(loss_j))
     got = dict(items(stack_to_tree(
-        {n: p.grad for n, p in model.named_parameters()}, tcfg.n_blocks)))
+        {n: p.grad for n, p in model.named_parameters()})))
     want = dict(items(jax.tree_util.tree_map(np.asarray, g_j)))
     assert set(got) == set(want)
     for key, w in want.items():
@@ -141,20 +173,20 @@ def check_cache(got, want, tol):
     assert int(got["pos"]) == int(want["pos"])
 
 
-def prefill_and_decode(arch, prompt, steps, max_len=32):
-    """Prefill ``prompt`` tokens, then ``steps`` teacher-forced decode
-    steps in both packages: logits within 1e-4 of max |logits| and every
-    cache leaf (`check_cache` at 1e-4) after each call; the port's cache
-    written in place."""
+def prefill_and_decode(arch, prompt, steps, max_len=32, frames=None):
+    """Prefill ``prompt`` tokens (after a patch config's patches, with an
+    encoder-decoder's ``frames`` frames, `inputs`), then ``steps``
+    teacher-forced decode steps in both packages: logits within 1e-4 of
+    max |logits| and every cache leaf (`check_cache` at 1e-4) after each
+    call; the port's cache written in place."""
     jcfg, tcfg = arch["jcfg"], arch["tcfg"]
     tokens = np.random.default_rng(4).integers(0, tcfg.vocab,
                                                (2, prompt + steps))
+    first = inputs(tcfg, tokens[:, :prompt], frames=frames)
     model = params_from_jax(arch["tree"], tcfg, device="cpu")
     lj, cj = jax.jit(jtf.prefill, static_argnums=(1, 3))(
-        arch["params"], jcfg, {"tokens": jnp.asarray(tokens[:, :prompt])},
-        max_len)
-    lt, ct = model.prefill({"tokens": torch.from_numpy(
-        tokens[:, :prompt])}, max_len)
+        arch["params"], jcfg, jbatch(first), max_len)
+    lt, ct = model.prefill(tbatch(first), max_len)
     assert rel(lt.numpy(), lj) < 1e-4
     check_cache(ct, cj, 1e-4)
     jdecode = jax.jit(jtf.decode_step, static_argnums=1)
@@ -168,12 +200,13 @@ def prefill_and_decode(arch, prompt, steps, max_len=32):
         check_cache(ct, cj, 1e-4)
 
 
-def three_train_steps(name, *, orthogonal, tau):
-    """3 steps of ``make_train_step`` with ``warmup_cosine`` on ``name``'s
-    smoke config, each from JAX's state of the step before: the metrics
-    within 1e-5 relative, parameters and moments at rtol 2e-4, atol 2e-6
-    plus the gradient's tolerance ``tau`` (of each leaf's largest) carried
-    through Adam (`_adam_hold.hold_adam_step`)."""
+def three_train_steps(name, *, orthogonal, tau, microbatch=None):
+    """3 steps of ``make_train_step`` (``microbatch`` micro-steps each) with
+    ``warmup_cosine`` on ``name``'s smoke config over batches of 4 × 32
+    tokens (with `inputs`), each from JAX's state of the step before: the
+    metrics within 1e-5 relative, parameters and moments at rtol 2e-4,
+    atol 2e-6 plus the gradient's tolerance ``tau`` (of each leaf's
+    largest) carried through Adam (`_adam_hold.hold_adam_step`)."""
     jcfg, tcfg = cfgs(name)
     tree = jax.tree_util.tree_map(
         np.asarray, jinit(jax.random.PRNGKey(5), jcfg))
@@ -181,16 +214,17 @@ def three_train_steps(name, *, orthogonal, tau):
     t_opt = AdamWConfig(lr=warmup_cosine(3e-3, 2, 10))
     jmesh = jmake_host_mesh()
     jfn = jax.jit(jstep.make_train_step(jcfg, j_opt, jmesh,
+                                        microbatch=microbatch,
                                         orthogonal_update=orthogonal))
     jstate = jstep.TrainState(
         params=jax.tree_util.tree_map(jnp.asarray, tree),
         opt_state=jadamw.adamw_init(tree, j_opt),
         step=jnp.zeros((), jnp.int32))
-    tfn = make_train_step(tcfg, t_opt, orthogonal_update=orthogonal,
-                          device="cpu")
+    tfn = make_train_step(tcfg, t_opt, microbatch=microbatch,
+                          orthogonal_update=orthogonal, device="cpu")
     rng = np.random.default_rng(6)
     for s in range(3):
-        batch = {"tokens": rng.integers(0, tcfg.vocab, (4, 32))}
+        batch = inputs(tcfg, rng.integers(0, tcfg.vocab, (4, 32)), seed=s)
         before = jax.tree_util.tree_map(np.asarray, jstate)
         model = params_from_jax(before.params, tcfg, device="cpu")
         tstate = TrainState(model=model, opt_state=opt_state_from_jax(

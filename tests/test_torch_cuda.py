@@ -543,6 +543,20 @@ def test_flash_attention_bf16_packed_sequences(causal, window, hd):
     assert _flash_excess(got, want, BF16_TOL) <= 1.0
 
 
+def test_flash_attention_bf16_encoder_non_causal():
+    """whisper-tiny's encoder: bf16 without causality over 1,500 keys
+    (eleven full 128-key tiles and a tail of 92, which no causal test
+    hides), GQA group 1 at hd 64, against the plain version at one bf16
+    step; the tail's keys carry values far from the rest, so a tail
+    dropped or read past shows."""
+    _need_card()
+    q, k, v = _qkv(2, 1500, 1500, 6, 6, 64, torch.bfloat16, 1500)
+    v[:, 1408:] += 8.0
+    pos = torch.arange(1500, device="cuda", dtype=torch.int32)
+    got, want = _flash_run(q, k, v, pos, pos, causal=False)
+    assert _flash_excess(got, want, BF16_TOL) <= 1.0
+
+
 @pytest.mark.parametrize("hd", [32, 128, 256])
 def test_flash_attention_bf16_padded_key_block(hd):
     """A block of padded keys (k_pos = −1) in the middle of the keys, across
@@ -1159,14 +1173,22 @@ def _cache_leaves(c):
 def _replay_vs_eager(cfg, model, prompt=17):
     """A `DecodeGraph` replay against the eager decode step from the same
     cache and tokens, three times: logits and every cache leaf bit for
-    bit; capturing runs nothing."""
+    bit; capturing runs nothing. The prompts carry an encoder-decoder's
+    frames or a patch config's patches (numpy, seeded)."""
     from repro_torch.train import serve
 
     prefill = serve.make_prefill(cfg, 40)
     decode = serve.make_decode_step(cfg)
-    tokens = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab, (3, prompt)))
-    logits, cache = prefill(model, {"tokens": tokens})
+    rng = np.random.default_rng(1)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab,
+                                                     (3, prompt)))}
+    if cfg.is_enc_dec:
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (3, cfg.encoder_len, cfg.d_model), np.float32))
+    if cfg.patch_positions:
+        batch["patches"] = torch.from_numpy(rng.standard_normal(
+            (3, cfg.patch_positions, cfg.d_model), np.float32))
+    logits, cache = prefill(model, batch)
     tok = logits.argmax(-1)[:, None].to(torch.int32)
     logits, cache = decode(model, cache, tok)  # the eager warm-up step
     tok = logits.argmax(-1)[:, None].to(torch.int32)
@@ -1185,7 +1207,7 @@ def _replay_vs_eager(cfg, model, prompt=17):
             assert all(torch.equal(a, b) for a, b in zip(
                 _cache_leaves(cache), _cache_leaves(snap)))
             tok = eager.argmax(-1)[:, None].to(torch.int32)
-        assert int(cache["pos"]) == prompt + 4
+        assert int(cache["pos"]) == cfg.patch_positions + prompt + 4
     finally:
         graph.close()
 
@@ -1211,6 +1233,19 @@ def test_moe_and_ssm_decode_replay_is_bit_equal_to_eager(name,
     and rwkv's shift and wkv states, each written in place: a replay
     equals the eager step bit for bit. mixtral's smoke window of 8 slots
     is decoded past through the ring."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg, model = _lm_smoke("cuda", compute_dtype, name)
+    _replay_vs_eager(cfg, model)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["whisper-tiny", "llava-next-34b"])
+def test_enc_dec_and_patch_decode_replay_is_bit_equal_to_eager(
+        name, compute_dtype):
+    """The same over whisper-smoke's cross-attention, which reads the
+    ``cross`` caches its prefill filled from the frames and writes nothing,
+    and llava-smoke's cache, whose first 8 slots hold the patches."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     cfg, model = _lm_smoke("cuda", compute_dtype, name)

@@ -261,15 +261,6 @@ def test_unported_parts_raise_naming_their_items():
     with pytest.raises(NotImplementedError, match="A14.6"):
         make_train_step(get_config("qwen3-8b", smoke=True), AdamWConfig(),
                         two)
-    for name, item in (("whisper-tiny", "A14.5"), ("llava-next-34b", "A14.5")):
-        cfg = get_config(name, smoke=True)
-        with pytest.raises(NotImplementedError, match=item):
-            serve.make_prefill(cfg, 16, device="cpu")
-        with pytest.raises(NotImplementedError, match=item):
-            serve.sample_loop(None, cfg, {}, steps=1, max_len=16,
-                              device="cpu")
-        with pytest.raises(NotImplementedError, match=item):
-            make_train_step(cfg, AdamWConfig(), device="cpu")
 
 
 def test_serving_defaults_to_the_card():

@@ -129,25 +129,22 @@ def test_flash_path_matches_attend_path(head_dim):
 
 
 @pytest.mark.parametrize("name", ARCH_NAMES)
-def test_only_dense_attention_configs_are_ported(name):
-    """Every config but the encoder-decoder and patch ones builds, its
-    parameters' shapes JAX's leaf for leaf (the dense-attention, MoE and
-    state-space layers are ported); whisper-tiny and llava-next-34b raise
-    naming A14.5."""
+def test_every_config_builds_with_jax_shapes(name):
+    """Every config builds, its parameters' shapes JAX's leaf for leaf: the
+    dense-attention, MoE and state-space layers, whisper-tiny's encoder
+    (stacked over ``encoder_blocks``), ``enc_pos``, ``enc_norm`` and
+    cross-attention, and llava-next-34b's ``patch_proj``."""
     cfg = get_config(name, smoke=True)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(
         jget_config(name, smoke=True))
-    if name in ("whisper-tiny", "llava-next-34b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A14.5"):
-            Transformer(cfg, device="cpu")
-        return
     model = Transformer(cfg, device="cpu")
     shapes = jax.eval_shape(lambda k: jtf.init_params(k, jget_config(
         name, smoke=True)), jax.random.PRNGKey(0))
     want = {"/".join(str(k.key) for k in path): tuple(x.shape)
             for path, x in jax.tree_util.tree_leaves_with_path(shapes)}
-    got = {"/".join(weights.jax_path(n)): (cfg.n_blocks,) + tuple(p.shape)
-           if n.startswith("blocks.") else tuple(p.shape)
+    got = {"/".join(weights.jax_path(n)): tuple(p.shape)
+           if weights.block_index(n) is None
+           else (weights.stack_depth(cfg, n),) + tuple(p.shape)
            for n, p in model.named_parameters()}
     assert got == want
     assert sum(p.numel() for p in model.parameters()) == sum(
@@ -196,17 +193,30 @@ def test_forward_refuses_a_config_of_another_shape():
         model({"tokens": torch.zeros(1, 4, dtype=torch.long)}, other)
 
 
-def test_attention_cache_and_cross_branches_are_not_ported():
-    """Cross-attention still raises, naming its item (A14.5). The cache
-    branch is ported (A14.1): a prefill fills the cache it is given, in
-    place, and returns it (`tests/test_torch_decode.py` holds it to JAX)."""
+def test_attention_cache_and_cross_branches_are_ported():
+    """The cross branch (A14.5) attends over ``kv_x``, or over the K/V of
+    a cache it returns unwritten (`tests/test_torch_enc_dec.py` holds it to
+    JAX). The cache branch (A14.1): a prefill fills the cache it is given,
+    in place, and returns it (`tests/test_torch_decode.py` holds it to
+    JAX)."""
     _, tcfg = _cfgs("float32")
     model = Transformer(tcfg, device="cpu").init(
         torch.Generator().manual_seed(2))
     attn = model.blocks[0][0].mixer
-    x = torch.zeros(1, 4, tcfg.d_model)
-    with pytest.raises(NotImplementedError, match="A14.5"):
-        attn(x, tcfg, cross=True)
+    x = torch.randn(1, 4, tcfg.d_model, generator=torch.Generator(
+        ).manual_seed(3))
+    enc = torch.randn(1, 6, tcfg.d_model, generator=torch.Generator(
+        ).manual_seed(4))
+    with torch.no_grad():
+        y, none = attn(x, tcfg, cross=True, kv_x=enc)
+        k, v = attn.cross_kv(enc, tcfg)
+        assert tcfg.qk_norm  # which norms the projected K, not a cached one
+        kv = {"k": layers.rms_norm_vec(k, attn.k_norm), "v": v}
+        before = {name: t.clone() for name, t in kv.items()}
+        y_cached, same = attn(x, tcfg, cross=True, cache=kv)
+    assert none is None and same is kv and y.shape == x.shape
+    assert all(torch.equal(kv[name], before[name]) for name in kv)
+    assert torch.allclose(y, y_cached, atol=1e-6)
     cache = layers.init_attn_cache(tcfg, 1, 8, torch.float32)
     with torch.no_grad():
         y, out = attn(x, tcfg, cache=cache,

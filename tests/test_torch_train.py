@@ -106,8 +106,7 @@ def test_loss_gradients_match_jax(name, remat):
     loss_t, _ = model.loss_fn({"tokens": torch.from_numpy(tokens)})
     loss_t.backward()
     assert abs(float(loss_t) - float(loss_j)) <= 1e-5 * abs(float(loss_j))
-    got = stack_to_tree({n: p.grad for n, p in model.named_parameters()},
-                        tcfg.n_blocks)
+    got = stack_to_tree({n: p.grad for n, p in model.named_parameters()})
     want = dict(_items(jax.tree_util.tree_map(np.asarray, g_j)))
     got = dict(_items(got))
     assert set(got) == set(want)
