@@ -347,6 +347,7 @@ import argparse
 import gc
 import json
 import math
+import os
 import pathlib
 import re
 import statistics
@@ -4332,6 +4333,222 @@ def phase_enc_dec(seed: int, t_start: float) -> dict:
     return out
 
 
+MESH_STEPS, MESH_TIMED = 2, 3  # 14a: steps held to the mesh-less run, timed
+
+
+def _dryrun_cmd(out_dir: pathlib.Path, *args) -> list[str]:
+    return [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+            "qwen3-8b", "--shape", "train_4k", "--out", str(out_dir), *args]
+
+
+def _dryrun_start(out_dir: pathlib.Path, args) -> tuple:
+    """The dry run as a subprocess of its own (its fake world of ranks
+    lives there), on the CPU: (process, start time, output dir)."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.Popen(_dryrun_cmd(out_dir, *args), cwd=REPO, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, time.perf_counter(), out_dir
+
+
+def _dryrun_wait(run, label: str, timeout: float = 240.0) -> dict:
+    proc, t0, out_dir = run
+    try:
+        text = proc.communicate(timeout=timeout)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    secs = time.perf_counter() - t0
+    for line in text.strip().splitlines()[-4:]:
+        log(f"  [{label}] {line}")
+    check(proc.returncode == 0, f"{label}: the dry run exited with "
+          f"{proc.returncode}:\n{text[-3000:]}")
+    (path,) = sorted(out_dir.glob("*.json"))
+    rec = json.loads(path.read_text())
+    check(rec.get("status") == "ok", f"{label}: record status "
+          f"{rec.get('status')}: {rec.get('error')}")
+    rec["seconds"] = secs
+    return rec
+
+
+def phase_train_mesh(seed: int, step_ms_11a: float) -> dict:
+    """Phase 14: LM training through the mesh path (A14.6).
+
+    14a: qwen3-8b at 11a's cut (`TRAIN_BLOCKS` of 36 blocks, 2 × 4096
+    tokens, float32 state, bf16 compute, remat) over a one-rank NCCL world
+    and `make_host_mesh`, from the state the mesh-less step starts from
+    (the same seed). The step runs the mesh path (each super-block's
+    parameters installed through the gather, again under remat, the
+    gradients through its reduction, the norm over slices) with nothing
+    to exchange: after `MESH_STEPS` steps the metrics, parameters and
+    moments are held to the mesh-less run's bit for bit (the mesh-less
+    run's are snapshotted to the host first: both states do not fit the
+    card at once), and the mesh issues no collective; then `MESH_TIMED`
+    steps are timed (CUDA events) beside 11a's, with the peak allocated
+    memory, and one more step runs under ``FlopCounterMode``
+    (`repro_torch.launch.dryrun.flop_counter`, whose module tracker is
+    left out: it would keep every block's activations through remat).
+    14b: the dry run of 14a's cell on a (1, 1) mesh (``--host-mesh 1,1
+    --blocks 4 --batch 2 --micro 1``, fake tensors on the CPU, in a
+    subprocess): its ``flops_per_device`` must equal 14a's count exactly
+    and its ``peak_memory_per_device`` lie within [0.5, 2] of 14a's
+    ``max_memory_allocated``; its roofline ``step_s`` over the measured
+    step is printed. 14c: the full-size train_4k cell of qwen3-8b on the
+    single-pod (16 × 16) mesh, in a subprocess: every field of its record
+    and its seconds. Both dry runs run while 14a holds the card."""
+    import dataclasses
+    import datetime
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.dryrun import flop_counter
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import AdamWConfig, warmup_cosine
+    from repro_torch.sharding.collectives import recording
+    from repro_torch.train import init_state, make_train_step
+
+    out_root = REPO / "chiprun_out" / "dryrun"
+    runs = {
+        "14b": _dryrun_start(out_root / "14b", [
+            "--host-mesh", "1,1", "--blocks", str(TRAIN_BLOCKS), "--batch",
+            str(LM_BATCH), "--seq", str(LM_SEQ), "--micro", "1"]),
+        "14c": _dryrun_start(out_root / "14c", ["--mesh", "single"])}
+
+    cfg = dataclasses.replace(get_config("qwen3-8b"), n_blocks=TRAIN_BLOCKS,
+                              remat=True)
+    opt = AdamWConfig(lr=warmup_cosine(3e-4, 2, MESH_STEPS + MESH_TIMED + 4))
+    pipe = TokenPipeline(cfg.vocab, LM_SEQ, LM_BATCH, seed=seed)
+    batches = [pipe.batch_at(s) for s in range(MESH_STEPS + MESH_TIMED + 1)]
+    gen = lambda: torch.Generator(device="cuda").manual_seed(seed)  # noqa
+
+    # The mesh-less run, snapshotted to the host.
+    torch.cuda.empty_cache()
+    state = init_state(gen(), cfg, opt)
+    step = make_train_step(cfg, opt)
+    ref_metrics = [{k: float(v) for k, v in step(state, b)[1].items()}
+                   for b in batches[:MESH_STEPS]]
+    ref = {"params": {n: p.detach().cpu() for n, p in
+                      state.model.named_parameters()},
+           **{k: {n: t.cpu() for n, t in state.opt_state[k].items()}
+              for k in ("mu", "nu")}}
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out = {}
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(str(pathlib.Path(tmp) / "store"), 1),
+            rank=0, world_size=1, timeout=datetime.timedelta(seconds=300),
+            device_id=torch.device("cuda", 0))
+        try:
+            mesh = make_host_mesh()
+            check(mesh.size == 1 and mesh.backend == "nccl"
+                  and mesh.device == torch.device("cuda", 0),
+                  f"14a: a one-rank NCCL mesh on cuda:0 ({mesh.shape})")
+            state = init_state(gen(), cfg, opt, mesh=mesh)
+            step = make_train_step(cfg, opt, mesh)
+            with recording() as record:
+                metrics = [{k: float(v) for k, v in step(state, b)[1].items()}
+                           for b in batches[:MESH_STEPS]]
+            check(record == [], "14a: a one-rank mesh issues no collective")
+            unequal = []
+            for key, named in (("params",
+                                dict(state.model.named_parameters())),
+                               ("mu", state.opt_state["mu"]),
+                               ("nu", state.opt_state["nu"])):
+                for n, t in named.items():
+                    if not torch.equal(t.detach().cpu(), ref[key][n]):
+                        unequal.append(f"{key}/{n}")
+            bit_equal = not unequal and metrics == ref_metrics
+            if bit_equal:
+                log(f"14a: {MESH_STEPS} steps over the one-rank NCCL mesh "
+                    f"bit-equal to the mesh-less steps (metrics, "
+                    f"{len(ref['params'])} parameters and their moments)")
+            else:
+                # Held as 11c holds two runs of the card: the metrics within
+                # 1e-5 relative, the state at rtol 2e-4, atol 2e-6.
+                log(f"14a: NOT bit-equal ({len(unequal)} tensors differ, "
+                    f"e.g. {unequal[:3]}; metrics {metrics} vs "
+                    f"{ref_metrics}): held within 11c's tolerance")
+                for a, b in zip(metrics, ref_metrics):
+                    for k in b:
+                        check(abs(a[k] - b[k]) <= 1e-5 * abs(b[k]),
+                              f"14a: metric {k} {a[k]} vs {b[k]}")
+                for name in unequal:
+                    key, n = name.split("/", 1)
+                    got = (dict(state.model.named_parameters()) if key ==
+                           "params" else state.opt_state[key])[n]
+                    check(torch.allclose(got.detach().cpu(), ref[key][n],
+                                         rtol=2e-4, atol=2e-6),
+                          f"14a: {name} beyond rtol 2e-4, atol 2e-6")
+            del ref
+            gc.collect()
+            torch.cuda.reset_peak_memory_stats()
+            rows = []
+            for b in batches[MESH_STEPS:MESH_STEPS + MESH_TIMED]:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                _, m = step(state, b)
+                end.record()
+                torch.cuda.synchronize()
+                rows.append(start.elapsed_time(end))
+            peak_alloc = torch.cuda.max_memory_allocated()
+            with flop_counter() as fc:  # FlopCounterMode's count
+                step(state, batches[-1])
+            torch.cuda.synchronize()
+            flops = fc.get_total_flops()
+            step_ms = statistics.median(rows)
+            log(f"14a: mesh step median {step_ms:.1f} ms of "
+                f"{[round(r, 1) for r in rows]} (CUDA events) against 11a's "
+                f"{step_ms_11a:.1f} ms; peak allocated {peak_alloc / 1e9:.2f} "
+                f"GB; FlopCounterMode {flops:.6e} FLOPs a step")
+            out["14a"] = {"bit_equal": bit_equal, "unequal": len(unequal),
+                          "step_ms": rows, "median_ms": step_ms,
+                          "step_ms_11a": step_ms_11a,
+                          "peak_allocated_gb": peak_alloc / 1e9,
+                          "flops": flops,
+                          "loss": float(m["loss"])}
+            del state, step
+        finally:
+            dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rec = _dryrun_wait(runs["14b"], "14b")
+    ratio = rec["peak_memory_per_device"] / out["14a"]["peak_allocated_gb"] \
+        / 1e9
+    log(f"14b: dry run of 14a's cell on (1, 1) in {rec['seconds']:.1f} s: "
+        f"flops_per_device {rec['flops_per_device']:.6e} (14a "
+        f"{out['14a']['flops']:.6e}); peak_memory_per_device "
+        f"{rec['peak_memory_per_device'] / 1e9:.2f} GB, "
+        f"{ratio:.3f} of 14a's max_memory_allocated; roofline step_s "
+        f"{rec['step_s'] * 1e3:.1f} ms, {rec['step_s'] * 1e3 / step_ms:.3f} "
+        f"of the measured step ({rec['dominant']}-bound)")
+    check(rec["flops_per_device"] == out["14a"]["flops"],
+          "14b: the dry run's FLOPs equal FlopCounterMode's count of 14a")
+    check(0.5 <= ratio <= 2.0, f"14b: peak memory ratio {ratio:.3f} within "
+          "[0.5, 2]")
+    out["14b"] = {**rec, "memory_ratio": ratio,
+                  "step_s_over_measured": rec["step_s"] * 1e3 / step_ms}
+
+    rec = _dryrun_wait(runs["14c"], "14c")
+    log(f"14c: qwen3-8b train_4k on the 16 x 16 mesh in {rec['seconds']:.1f} "
+        f"s of dry run:")
+    for key, value in rec.items():
+        log(f"  {key}: {value}")
+    out["14c"] = rec
+    return out
+
+
 def flash_entry(res: dict) -> dict:
     """The kernels line's keys of one config's flash `measure` result."""
     return {k: res[k] for k in (
@@ -4592,15 +4809,23 @@ def main(argv=None) -> int:
     log("== phase 12: mixture-of-experts and state-space configs (12a "
         "mixtral-8x22b, 12b arctic-480b, 12c rwkv6-1.6b, 12d jamba-v0.1-52b)")
     moe_ssm = {}
-    for sub, name, blocks, serve, train in MOE_SSM_CELLS:
+    for sub, name, blocks, serve, train_cut in MOE_SSM_CELLS:
         log(f"== phase {sub}: {name}")
         moe_ssm[name] = phase_lm_config(name, args.seed, blocks=blocks,
-                                        serve=serve, train=train)
+                                        serve=serve, train=train_cut)
         log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
     log("== phase 13: encoder-decoder and patch configs (13a whisper-tiny, "
         "13b llava-next-34b)")
     enc_dec = phase_enc_dec(args.seed, t_start)
+
+    log("== phase 14: training through the mesh path (14a one-rank NCCL "
+        "mesh against the mesh-less step; 14b the dry run of 14a's cell; 14c "
+        "qwen3-8b train_4k on 16 x 16)")
+    t14 = time.perf_counter()
+    train_mesh = phase_train_mesh(args.seed, train["full"]["step_ms"])
+    log(f"phase 14 took {time.perf_counter() - t14:.1f} s; elapsed "
+        f"{time.perf_counter() - t_start:.1f} s")
 
     log("== phase 8: summary")
     measured = {
@@ -4709,6 +4934,7 @@ def main(argv=None) -> int:
                         for k, v in random_passes.items()},
                     "flash_cases_bound_ratio": flash_case_err,
                     "lm_train": train,
+                    "lm_train_mesh": train_mesh,
                     "moe_ssm": {n: {k: v for k, v in r.items()
                                     if k != "flash"}
                                 for n, r in moe_ssm.items()},

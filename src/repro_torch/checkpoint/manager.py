@@ -19,6 +19,12 @@ The port of the JAX package's ``checkpoint/manager.py``.
 * **Placement**: `restore` writes into a target of the same structure, in
   place and on the target's devices and dtypes (a `TrainState`'s model
   parameters, moments and steps), and returns it.
+* **Sharded states**: a `TrainState` sharded over a mesh
+  (`repro_torch.train.step.shard_state`) is gathered leaf by leaf, every
+  rank taking part, and rank 0 alone writes the file (the other ranks'
+  `save` writes nothing). Restore reads the full leaves and keeps each
+  rank's slice, so a checkpoint restores onto any mesh, or none, and in
+  either package.
 * **Resumable data**: metadata records the step so the data pipeline can
   deterministically skip ahead (`repro_torch.data.pipeline`).
 """
@@ -63,11 +69,38 @@ def _host(leaf) -> np.ndarray:
     return np.array(leaf)  # a copy
 
 
+def _writes(state: Any) -> bool:
+    """Whether this process writes ``state``'s file: rank 0 of a sharded
+    state's mesh, and any process otherwise."""
+    place = getattr(state, "placement", None)
+    return place is None or place.mesh.rank == 0
+
+
+def _full_numpy(named: dict, place) -> dict:
+    """Each full leaf as numpy, one gathered at a time (every rank takes
+    part; the ranks that do not write get nothing back)."""
+    if place is None:
+        return dict(named)
+    out = {}
+    for name, t in named.items():
+        full = place.full(name, t)
+        if place.mesh.rank == 0:
+            out[name] = weights.to_numpy(full)
+        del full
+    return out
+
+
 def _state_tree(state: TrainState) -> dict:
     """JAX's ``TrainState`` tree of ``state`` as numpy (host copies)."""
-    model = state.model
-    return {".params": weights.params_to_numpy(model),
-            ".opt_state": weights.opt_state_to_numpy(state.opt_state, model),
+    place = state.placement
+    params = _full_numpy(dict(state.model.named_parameters()), place)
+    opt = {k: _full_numpy(state.opt_state[k], place) for k in ("mu", "nu")}
+    return {".params": weights.stack_to_tree(params),
+            ".opt_state": {
+                "mu": weights.stack_to_tree(opt["mu"]),
+                "nu": weights.stack_to_tree(opt["nu"]),
+                "step": weights.to_numpy(
+                    state.opt_state["step"]).astype(np.int32)},
             ".step": weights.to_numpy(state.step).astype(np.int32)}
 
 
@@ -79,26 +112,29 @@ def _flatten(state: Any) -> dict[str, np.ndarray]:
 
 def _targets(target: Any) -> dict[str, tuple]:
     """Each checkpoint key of ``target`` → (the tensor to write, the index
-    of its slice in the stored array or None, the stored array's shape)."""
+    of its super-block in the stored array or None, the stored array's
+    shape, the slice of the full leaf the tensor holds or None)."""
     if not isinstance(target, TrainState):
-        return {k: (v, None, tuple(v.shape))
+        return {k: (v, None, tuple(v.shape), None)
                 for k, v in _flat_tree(target).items()}
-    model = target.model
-    out = {".step": (target.step, None, ()),
-           ".opt_state/step": (target.opt_state["step"], None, ())}
+    model, place = target.model, target.placement
+    out = {".step": (target.step, None, (), None),
+           ".opt_state/step": (target.opt_state["step"], None, (), None)}
     named = [(".params", dict(model.named_parameters())),
              (".opt_state/mu", target.opt_state["mu"]),
              (".opt_state/nu", target.opt_state["nu"])]
     for prefix, tensors in named:
         for name, t in tensors.items():
             key = "/".join((prefix,) + weights.jax_path(name))
+            full = tuple(t.shape) if place is None else place.shapes[name]
+            sl = None if place is None else place.slices(name)
             i = weights.block_index(name)
             if i is not None:
                 out.setdefault(key, []).append(
-                    (t, i, (weights.stack_depth(model.cfg, name),)
-                     + tuple(t.shape)))
+                    (t, i, (weights.stack_depth(model.cfg, name),) + full,
+                     sl))
             else:
-                out[key] = (t, None, tuple(t.shape))
+                out[key] = (t, None, full, sl)
     return out
 
 
@@ -115,9 +151,12 @@ class CheckpointManager:
              extra_meta: dict | None = None) -> None:
         """Write ``state`` (a `TrainState`, or a tree of tensors / arrays)
         as checkpoint ``step``. The host copy is taken before this returns;
-        the file is written on a background thread unless ``blocking``."""
+        the file is written on a background thread unless ``blocking``.
+        Every rank of a sharded state's mesh calls this; rank 0 writes."""
         self.wait()  # at most one in-flight write
         flat = _flatten(state)
+        if not _writes(state):
+            return
         meta = {"step": int(step), "time": time.time(), **(extra_meta or {})}
 
         def write():
@@ -170,17 +209,21 @@ class CheckpointManager:
         a tree of tensors of the stored shapes — in place, each leaf on its
         tensor's device and in its dtype. Returns ``target``. Raises
         `ValueError` when a stored leaf's shape differs from the target's
-        (JAX's stacked shape for a `TrainState`'s super-block leaves)."""
+        (JAX's stacked shape for a `TrainState`'s super-block leaves; the
+        full shape for a sharded state, whose every rank keeps its slice
+        of the stored leaf)."""
         path = os.path.join(self.dir, f"step_{step:08d}.npz")
         with np.load(path) as data:
             for key, spec in _targets(target).items():
                 arr = data[key]
-                for t, index, shape in (spec if isinstance(spec, list)
-                                        else [spec]):
+                for t, index, shape, sl in (spec if isinstance(spec, list)
+                                            else [spec]):
                     if tuple(arr.shape) != shape:
                         raise ValueError(f"checkpoint leaf {key}: shape "
                                          f"{arr.shape} != target {shape}")
                     src = arr if index is None else arr[index]
+                    if sl is not None:
+                        src = src[sl]
                     t.copy_(torch.from_numpy(np.array(src)))
         return target
 

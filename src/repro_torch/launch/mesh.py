@@ -17,15 +17,21 @@ before its gather, whether any rank failed (`DataMesh.agree`).
 
 `serving_batch_capacity` picks the request-batch capacity the async serving
 queue (`repro_torch.train.async_serve`) dispatches a coalesced micro-batch
-at. `make_host_mesh` is the LM trainer's one-rank mesh; the production mesh
-and a host mesh with a ``model`` axis are ROADMAP item A14.6 and raise
-`NotImplementedError` naming it.
+at.
+
+`AxisMesh` is the LM trainer's mesh of named axes (``("data", "model")``,
+or ``("pod", "data", "model")``) over the ranks of the process group, one
+rank per device, each axis with a process group of its own.
+`make_host_mesh` builds it over whatever world exists (one rank without a
+process group), `make_production_mesh` the 16 × 16 and 2 × 16 × 16 meshes
+of the JAX package, over exactly 256 or 512 ranks.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 import os
 import weakref
 
@@ -34,7 +40,7 @@ import torch
 from repro_torch.core.plan_cache import next_pow2
 from repro_torch.kernels._platform import resolve_device
 
-__all__ = ["DataMesh", "RankDispatchError", "resolve_shard",
+__all__ = ["DataMesh", "AxisMesh", "RankDispatchError", "resolve_shard",
            "serving_batch_capacity", "make_data_mesh", "make_production_mesh",
            "make_host_mesh"]
 
@@ -276,20 +282,131 @@ def serving_batch_capacity(b: int, *, axis_size: int = 1) -> int:
     return cap
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """The LM scaffolding's production mesh — not ported yet (ROADMAP.md,
-    A14.6)."""
-    raise NotImplementedError("make_production_mesh is not ported yet "
-                              "(ROADMAP.md, A14.6)")
+@dataclasses.dataclass(frozen=True, eq=False, init=False)
+class AxisMesh:
+    """A mesh of named axes over the ranks of a process group.
+
+    ``axes`` and ``dims`` name the axes and their sizes (``shape`` maps one
+    to the other, as the JAX package's ``Mesh.shape``); a rank's global
+    rank is its coordinates read row-major. ``rank`` is this process's
+    global rank, ``coords`` its coordinate on each axis, ``device`` its
+    device (``cuda:LOCAL_RANK`` under NCCL, the CPU otherwise),
+    ``backend`` the world's backend (None without a process group).
+    `group` gives the process group of an axis: the ranks that differ from
+    this one on that axis alone, in the order of their coordinate; an axis
+    of one rank has none and issues no collective. As `DataMesh`, the mesh
+    refers to its groups and does not own them."""
+
+    axes: tuple[str, ...]
+    dims: tuple[int, ...]
+    rank: int
+    coords: dict
+    device: torch.device
+    backend: str | None
+
+    def __init__(self, axes, dims, rank: int, device: torch.device,
+                 backend: str | None, groups: dict | None = None):
+        coords, rest = {}, rank
+        for axis, n in reversed(list(zip(axes, dims))):
+            coords[axis], rest = rest % n, rest // n
+        for name, value in (("axes", tuple(axes)), ("dims", tuple(dims)),
+                            ("rank", rank),
+                            ("coords", {a: coords[a] for a in axes}),
+                            ("device", device), ("backend", backend),
+                            ("_groups", {a: _borrow(g) for a, g in
+                                         (groups or {}).items()})):
+            object.__setattr__(self, name, value)
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axes, self.dims))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.dims)
+
+    def group(self, axis: str):
+        """The process group of ``axis`` (None for an axis of one rank)."""
+        if self.shape[axis] == 1:
+            return None
+        return _lend(self._groups[axis], f"{axis} group")
+
+    def check_device(self, device=None) -> torch.device:
+        """This rank's device; ``device``, when given, must name it."""
+        if device is not None and resolve_device(device) != self.device:
+            raise ValueError(f"device {device} is not the mesh's device "
+                             f"{self.device} for this rank")
+        return self.device
 
 
-def make_host_mesh(model: int = 1, device=None) -> DataMesh:
-    """The LM trainer's mesh: one rank on ``device`` (the card unless the
-    caller names another), ``make_data_mesh(1, device=device)``. A
-    ``model`` axis of more than one rank (tensor parallelism) needs the
-    sharding rules, not ported yet (ROADMAP.md, A14.6)."""
-    if model != 1:
-        raise NotImplementedError(
-            f"make_host_mesh(model={model}): tensor parallelism needs the "
-            "sharding rules, not ported yet (ROADMAP.md, A14.6)")
-    return make_data_mesh(1, device=device)
+def _axis_mesh(dims: tuple[int, ...], axes: tuple[str, ...],
+               device) -> AxisMesh:
+    """The mesh of ``dims`` over the initialized world, whose size must be
+    their product; every rank calls this (the axes' groups are made
+    collectively)."""
+    import torch.distributed as dist
+
+    world, me = dist.get_world_size(), dist.get_rank()
+    backend = str(dist.get_backend())
+    if backend == "nccl":
+        local = int(os.environ.get("LOCAL_RANK", me))
+        if not 0 <= local < torch.cuda.device_count():
+            raise ValueError(f"LOCAL_RANK={local} names no card of this "
+                             f"host ({torch.cuda.device_count()} cards)")
+        rank_device = torch.device("cuda", local)
+    else:
+        rank_device = torch.device("cpu")
+    if device is not None and resolve_device(device) != rank_device:
+        raise ValueError(f"device {device} is not this rank's device "
+                         f"{rank_device} under {backend}")
+    groups = {}
+    if world > 1:
+        from torch.distributed.device_mesh import init_device_mesh
+
+        dm = init_device_mesh(rank_device.type, dims, mesh_dim_names=axes)
+        groups = {a: dm.get_group(a) for a, n in zip(axes, dims) if n > 1}
+    return AxisMesh(axes, dims, me, rank_device, backend, groups)
+
+
+def _world() -> int:
+    import torch.distributed as dist
+
+    return dist.get_world_size() if (dist.is_available()
+                                     and dist.is_initialized()) else 1
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> AxisMesh:
+    """The JAX package's production mesh: (16, 16) over ``("data",
+    "model")``, or (2, 16, 16) over ``("pod", "data", "model")`` with
+    ``multi_pod``, over a world of exactly 256 or 512 ranks (any other
+    world raises `ValueError` naming the one it found)."""
+    dims = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    world = _world()
+    if world != math.prod(dims):
+        raise ValueError(
+            f"make_production_mesh(multi_pod={multi_pod}) is a "
+            f"{' x '.join(map(str, dims))} mesh of {math.prod(dims)} ranks; "
+            f"the world has {world}")
+    return _axis_mesh(dims, axes, device)
+
+
+def make_host_mesh(model: int = 1, device=None) -> AxisMesh:
+    """The trainer's mesh over whatever ranks exist: ``("data", "model")``
+    of shape (world / ``model``, ``model``). Without a process group it is
+    this process alone on ``device`` (the card unless the caller names
+    another), and issues no collective. A ``model`` that does not divide
+    the world raises `ValueError` naming both (the JAX package asserts
+    it)."""
+    world = _world()
+    if model < 1 or world % model:
+        raise ValueError(f"make_host_mesh(model={model}): a model axis of "
+                         f"{model} does not divide the world of {world} "
+                         f"rank(s)")
+    if world == 1:
+        import torch.distributed as dist
+
+        if not (dist.is_available() and dist.is_initialized()):
+            return AxisMesh(("data", "model"), (1, 1), 0,
+                            resolve_device(device), None)
+    return _axis_mesh((world // model, model), ("data", "model"), device)

@@ -188,6 +188,10 @@ class Transformer(nn.Module):
         if cfg.patch_positions:
             self.patch_proj = nn.Parameter(torch.empty(
                 cfg.d_model, cfg.d_model, dtype=dt, device=device))
+        # Runs in place of `_block_forward` when set: a sharded train step
+        # gathers a super-block's parameters there
+        # (`repro_torch.sharding.placement.Placement.bind`).
+        self.block_runner = None
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "Transformer":
@@ -291,24 +295,35 @@ class Transformer(nn.Module):
         checkpointed (JAX's ``jax.checkpoint(block_fn)``)."""
         aux = None
         remat = caches is None and cfg.remat and torch.is_grad_enabled()
+        run = self.block_runner or _block_forward
         for i, block in enumerate(self.blocks if stack is None else stack):
             if remat:
                 x, a = torch.utils.checkpoint.checkpoint(
-                    _block_forward, block, x, cfg, positions, causal,
+                    run, block, x, cfg, positions, causal,
                     enc_out, use_reentrant=False)
             else:
                 c = None if caches is None else {
                     j: {kind: {name: leaf[i] for name, leaf in sub.items()}
                         for kind, sub in kinds.items()}
                     for j, kinds in caches.items()}
-                x, a = _block_forward(block, x, cfg, positions, causal,
-                                      enc_out, c, cache_pos)
+                x, a = run(block, x, cfg, positions, causal, enc_out, c,
+                           cache_pos)
             aux = _add(aux, a)
         return x, aux
 
-    def loss_fn(self, batch, cfg: ModelConfig | None = None):
+    def loss_fn(self, batch, cfg: ModelConfig | None = None, *,
+                sum_over=None):
         """Next-token cross entropy (+ MoE aux + z-loss). Returns (loss,
-        metrics)."""
+        metrics).
+
+        ``sum_over`` (a data-parallel step's `DataAxes.sum`) sums a tensor
+        over the ranks that hold the other rows of the global batch: the
+        token count is then the global one, the metrics the global batch's
+        (JAX's ``denom`` over the whole batch), and ``loss`` this rank's
+        share of the global loss — its rows' terms over the global count,
+        plus the MoE aux (global in value, its gradient this rank's
+        tokens') — whose gradients, summed over the ranks, are the global
+        loss's."""
         logits, aux, offset = self.forward(batch, cfg)
         tokens = batch["tokens"]
         logits_text = logits[:, offset:][:, :-1]
@@ -323,10 +338,15 @@ class Transformer(nn.Module):
             -1, targets[..., None].long()).squeeze(-1)
         del logits, logits_text
         nll = (lse - tgt_logit) * mask
-        denom = torch.clamp(mask.sum(), min=1.0)
+        count = mask.sum() if sum_over is None else sum_over(mask.sum())
+        denom = torch.clamp(count, min=1.0)
         ce = nll.sum() / denom
         zloss = 1e-4 * ((lse * mask) ** 2).sum() / denom
         loss = ce + zloss + aux
+        if sum_over is not None:
+            ce_g, zloss_g = sum_over(torch.stack([ce, zloss])).unbind(0)
+            return loss, {"ce": ce_g, "aux": aux.detach(), "zloss": zloss_g,
+                          "tokens": denom}
         return loss, {"ce": ce, "aux": aux, "zloss": zloss, "tokens": denom}
 
     # -- serving: prefill and decode with caches -----------------------------

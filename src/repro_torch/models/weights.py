@@ -90,17 +90,18 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def stack_to_tree(named: dict) -> dict:
-    """Tensors keyed by the port's parameter names → JAX's tree of numpy
-    arrays, each super-block's parameters stacked on axis 0 in the order
-    of their super-blocks."""
+    """Tensors (or numpy arrays) keyed by the port's parameter names →
+    JAX's tree of numpy arrays, each super-block's parameters stacked on
+    axis 0 in the order of their super-blocks."""
     tree: dict = {}
     stacks: dict = {}
     for name, t in named.items():
         path, i = jax_path(name), block_index(name)
+        arr = t if isinstance(t, np.ndarray) else to_numpy(t)
         if i is None:
-            _put(tree, path, to_numpy(t))
+            _put(tree, path, arr)
         else:
-            stacks.setdefault(path, {})[i] = to_numpy(t)
+            stacks.setdefault(path, {})[i] = arr
     for path, leaves in stacks.items():
         _put(tree, path, np.stack([leaves[i] for i in range(len(leaves))]))
     return tree

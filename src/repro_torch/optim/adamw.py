@@ -74,14 +74,16 @@ def adamw_init(params, cfg: AdamWConfig) -> dict:
 
 @torch.no_grad()
 def adamw_update(grads: dict, opt_state: dict, params,
-                 cfg: AdamWConfig) -> tuple:
+                 cfg: AdamWConfig, *, grad_norm=None) -> tuple:
     """One AdamW step. ``grads`` maps each parameter name to its gradient.
     Writes the parameters, the moments and the step in place and returns
     ``(params, opt_state, metrics)`` — the objects passed in — with
-    ``metrics = {"grad_norm", "lr"}`` (0-d float32 tensors)."""
+    ``metrics = {"grad_norm", "lr"}`` (0-d float32 tensors). ``grad_norm``
+    is the gradients' global norm where the caller has it (a sharded step,
+    whose ``grads`` are slices); by default `global_norm` of ``grads``."""
     named, ndims = _named(params)
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     lr = cfg.lr(step) if callable(cfg.lr) else cfg.lr

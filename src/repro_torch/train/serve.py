@@ -8,7 +8,9 @@ cache in place (`Transformer.decode_step`). ``sample_loop`` prefills, then
 samples greedily or at a temperature: on the card it runs the first decode
 step eagerly and replays the rest from one CUDA graph (`DecodeGraph`), the
 counterpart of the ``jax.jit`` JAX's loop applies; on the CPU it runs
-eagerly. ``cache_specs`` needs the port's sharding rules (ROADMAP A14.6).
+eagerly. ``cache_specs`` gives the partition spec of every leaf of a
+decode cache over a mesh, as JAX's does; in the port it is a table so far
+(sharded prefill and decode are ROADMAP A14.7).
 
 ``make_figaro_server`` serves one join structure (a `FigaroPlan`) to many
 concurrent users' feature-sets — each dispatch runs Algorithm 2 and the
@@ -196,12 +198,71 @@ def make_decode_step(cfg: ModelConfig, device=None):
     return decode_fn
 
 
-def cache_specs(cfg: ModelConfig, mesh, *, shard_seq: bool = False,
-                kv_seq_over_model: bool = True):
-    """The decode cache's partition specs over a mesh: not ported yet."""
-    raise NotImplementedError(
-        "cache_specs needs the port's sharding rules (ROADMAP A14.6, "
-        "sharding/rules.py)")
+def cache_specs(cfg: ModelConfig, mesh, cache: dict, *,
+                shard_seq: bool = False, kv_seq_over_model: bool = True):
+    """The partition spec of every leaf of ``cache`` (`Transformer.
+    init_cache`'s ``{"pos<j>": {<kind>: {<leaf>: …}}}``, or a prefill's
+    ``{"blocks": …, "pos": …}``; leaves stacked over the super-blocks) over
+    ``mesh`` (anything with a ``shape``, or a dict), as a tree of the same
+    keys: JAX's ``cache_specs``.
+
+    Batch-sharded by default; ``shard_seq`` shards attention KV slots over
+    `data` (long_500k, global_batch=1). SSM states are O(1) in seq — they
+    stay batch-sharded (or replicated at batch 1). ``kv_seq_over_model``:
+    when the kv-head count does not divide the model axis (all assigned
+    archs: kv=8 < 16), the KV slots shard over `model`; otherwise the
+    head_dim does. A sharding that does not divide its dim evenly is
+    dropped (JAX's ``_fit``)."""
+    from repro_torch.sharding.rules import P, data_axes, mesh_shape
+
+    shape = mesh_shape(mesh)
+    dp = data_axes(mesh)
+    msz = shape.get("model", 1)
+    kv_ax = "model" if cfg.n_kv_heads % msz == 0 else None
+    seq_model_ax = None
+    if kv_ax is None and kv_seq_over_model:
+        hd_ax = None
+        seq_model_ax = "model"
+    else:
+        hd_ax = None if kv_ax else "model"
+
+    def _fit(spec, dims):
+        fixed = []
+        for dim, ax in zip(dims, tuple(spec) + (None,) * len(dims)):
+            if ax is None:
+                fixed.append(None)
+                continue
+            size = 1
+            for a in (ax if isinstance(ax, tuple) else (ax,)):
+                size *= shape[a]
+            fixed.append(ax if dim >= size and dim % size == 0 else None)
+        return P(*fixed)
+
+    def spec(name: str, dims) -> P:
+        ndim = len(dims)
+        if name == "pos":
+            return P()
+        batch_ax = None if shard_seq else dp
+        if name in ("k", "v"):  # [n_blocks, B, S, kv, hd]
+            if shard_seq:  # batch == 1: context parallelism over data(+model)
+                seq_ax = ("data", "model") if seq_model_ax else "data"
+            else:
+                seq_ax = seq_model_ax
+            return _fit(P(None, batch_ax, seq_ax, kv_ax, hd_ax), dims)
+        if name in ("conv", "shift"):  # [n_blocks, B, w, di]
+            return _fit(P(None, batch_ax, None, "model"), dims)
+        if name == "ssm":  # [n_blocks, B, di, d_state]
+            return _fit(P(None, batch_ax, "model", None), dims)
+        if name == "state":  # rwkv [n_blocks, B, h, hd, hd]
+            return _fit(P(None, batch_ax, "model", None, None), dims)
+        return P(*([None] * ndim))
+
+    def walk(node, name):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        return spec(name, tuple(node.shape))
+
+    return walk(cache, "")
 
 
 class DecodeGraph:

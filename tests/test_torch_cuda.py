@@ -1348,3 +1348,58 @@ def test_flash_branch_refuses_autograd_on_the_card():
     assert _platform.launch_counts().get("flash_attention", 0) == 0
     with pytest.raises(NotImplementedError, match="_attend"):
         make_train_step(cfg, AdamWConfig())
+
+
+def test_one_rank_nccl_mesh_trains_as_the_mesh_less_step(tmp_path):
+    """A train step over a one-rank NCCL mesh (`make_host_mesh`, ``cuda:0``)
+    from the same state as the mesh-less step: the same metrics,
+    parameters and moments, bit for bit, over two steps (qwen3 smoke, FSDP
+    and remat on, with micro-steps); the mesh issues no collective."""
+    _need_card()
+    import dataclasses
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.sharding.collectives import recording
+    from repro_torch.train import init_state, make_train_step
+
+    cfg = dataclasses.replace(get_config("qwen3-8b", smoke=True), fsdp=True,
+                              remat=True)
+    opt = AdamWConfig(lr=1e-2)
+    rng = np.random.default_rng(0)
+    batches = [{"tokens": rng.integers(0, cfg.vocab, (4, 32))}
+               for _ in range(2)]
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=60),
+        device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_host_mesh()
+        assert mesh.size == 1 and mesh.backend == "nccl"
+        assert mesh.device == torch.device("cuda", 0)
+        runs = []
+        for m in (None, mesh):
+            state = init_state(torch.Generator(device="cuda").manual_seed(3),
+                               cfg, opt, mesh=m)
+            step = make_train_step(cfg, opt, m, microbatch=2)
+            with recording() as record:
+                metrics = [step(state, b)[1] for b in batches]
+            assert record == []
+            runs.append((metrics, state))
+        (m0, s0), (m1, s1) = runs
+        for a, b in zip(m0, m1):
+            assert {k: float(v) for k, v in a.items()} == \
+                {k: float(v) for k, v in b.items()}
+        for (n, p), (_, q) in zip(s0.model.named_parameters(),
+                                  s1.model.named_parameters()):
+            assert torch.equal(p, q), n
+        for key in ("mu", "nu"):
+            for n, t in s0.opt_state[key].items():
+                assert torch.equal(t, s1.opt_state[key][n]), (key, n)
+    finally:
+        dist.destroy_process_group()

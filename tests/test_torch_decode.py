@@ -245,22 +245,36 @@ def test_temperature_sampling_is_repeatable_and_in_vocab():
 
 
 def test_unported_parts_raise_naming_their_items():
+    """A14.6 ported the cache specs, the meshes with a model axis and
+    training over a mesh: the cache specs are a table, the production mesh
+    refuses a world that is not 256 or 512 ranks, a model axis that does
+    not divide the world is refused, and the serving mesh is not a
+    training mesh. Sharded prefill and decode (the dry run's serving
+    cells) are A14.7 and raise naming it."""
+    from repro_torch.launch.dryrun import input_specs
     from repro_torch.launch.mesh import (DataMesh, make_host_mesh,
                                          make_production_mesh)
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import make_train_step
 
-    with pytest.raises(NotImplementedError, match="A14.6"):
-        serve.cache_specs(get_config("qwen3-8b", smoke=True), None)
-    with pytest.raises(NotImplementedError, match="A14.6"):
+    cfg = get_config("qwen3-8b", smoke=True)
+    cache = {"blocks": Transformer(cfg, device="cpu").init_cache(2, 8),
+             "pos": torch.zeros((), dtype=torch.int32)}
+    specs = serve.cache_specs(cfg, {"data": 2, "model": 1}, cache)
+    assert tuple(specs["blocks"]["pos0"]["attn"]["k"]) == \
+        (None, "data", None, "model", None)
+    assert tuple(specs["pos"]) == ()
+    with pytest.raises(ValueError, match="256 ranks"):
         make_production_mesh()
-    with pytest.raises(NotImplementedError, match="A14.6"):
+    with pytest.raises(ValueError, match="model=2"):
         make_host_mesh(model=2, device="cpu")
     two = DataMesh(group=None, size=2, rank=0, device=torch.device("cpu"),
                    ranks=(0, 1), backend="gloo")
-    with pytest.raises(NotImplementedError, match="A14.6"):
-        make_train_step(get_config("qwen3-8b", smoke=True), AdamWConfig(),
-                        two)
+    with pytest.raises(TypeError, match="AxisMesh"):
+        make_train_step(cfg, AdamWConfig(), two)
+    for shape in ("prefill_32k", "decode_32k"):
+        with pytest.raises(NotImplementedError, match="A14.7"):
+            input_specs(cfg, shape, make_host_mesh(device="cpu"))
 
 
 def test_serving_defaults_to_the_card():

@@ -56,7 +56,11 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
                  "repro_torch.optim.compression",
                  "repro_torch.data.pipeline", "repro_torch.checkpoint",
                  "repro_torch.checkpoint.manager",
-                 "repro_torch.launch.train"):
+                 "repro_torch.launch.train", "repro_torch.sharding",
+                 "repro_torch.sharding.rules",
+                 "repro_torch.sharding.placement",
+                 "repro_torch.sharding.collectives",
+                 "repro_torch.launch.roofline", "repro_torch.launch.dryrun"):
         assert name in mods, name
     code = (
         "import importlib, sys\n"

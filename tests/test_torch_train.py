@@ -260,16 +260,32 @@ def test_entry_points_default_to_the_card():
 
 
 def test_train_mesh_of_several_ranks_is_not_ported():
+    """Training over several ranks is ported (A14.6; held to JAX over gloo
+    ranks in ``tests/test_torch_train_mesh.py``): a one-rank
+    `make_host_mesh` is an `AxisMesh` that takes the step; the serving
+    `DataMesh` is refused, a state not sharded over a mesh of several
+    ranks is refused, and a model axis the world does not divide raises
+    `ValueError`, as JAX's assertion."""
+    from repro_torch.launch.mesh import AxisMesh
+
     _, tcfg = _cfgs()
     mesh = DataMesh(group=None, size=2, rank=0, device=torch.device("cpu"),
                     ranks=(0, 1), backend="gloo")
-    with pytest.raises(NotImplementedError, match="A14.6"):
+    with pytest.raises(TypeError, match="AxisMesh"):
         make_train_step(tcfg, AdamWConfig(), mesh)
     one = make_host_mesh(device="cpu")
+    assert isinstance(one, AxisMesh)
     assert one.size == 1 and one.device.type == "cpu"
     make_train_step(tcfg, AdamWConfig(), one)  # a one-rank mesh names its
-    with pytest.raises(NotImplementedError, match="A14.6"):
+    with pytest.raises(ValueError, match="does not divide"):
         make_host_mesh(model=2, device="cpu")
+    four = AxisMesh(("data", "model"), (2, 2), 0, torch.device("cpu"),
+                    "gloo")
+    state = init_state(torch.Generator().manual_seed(0), tcfg,
+                       AdamWConfig(), device="cpu")
+    step = make_train_step(tcfg, AdamWConfig(), four, device="cpu")
+    with pytest.raises(ValueError, match="not sharded over this mesh"):
+        step(state, {"tokens": np.zeros((4, 8), np.int64)})
 
 
 # -- the token pipeline --------------------------------------------------------

@@ -95,13 +95,17 @@ def test_driver_halts_on_a_non_finite_loss(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--arch", "jamba-v0.1-52b", "--model-parallel", "2"], "A14.6"),
-    (["--mesh", "single"], "A14.6"),
-    (["--mesh", "multi"], "A14.6"),
-    (["--model-parallel", "2"], "A14.6"),
+    (["--arch", "jamba-v0.1-52b", "--model-parallel", "2"],
+     "model axis of 2 does not divide the world of 1"),
+    (["--mesh", "single"], "256 ranks; the world has 1"),
+    (["--mesh", "multi"], "512 ranks; the world has 1"),
+    (["--model-parallel", "2"], "model axis of 2 does not divide"),
 ])
 def test_driver_refuses_what_is_not_ported(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """On a world of one rank the driver refuses a model axis of 2 and
+    the production meshes (256 or 512 ranks), as JAX's driver refuses
+    them on one device."""
+    with pytest.raises(ValueError, match=item):
         train_main(["--smoke", "--steps", "1", "--batch", "2", "--seq", "16",
                     "--device", "cpu"] + argv)
 
