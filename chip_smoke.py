@@ -4334,6 +4334,12 @@ def phase_enc_dec(seed: int, t_start: float) -> dict:
 
 
 MESH_STEPS, MESH_TIMED = 2, 3  # 14a: steps held to the mesh-less run, timed
+# 14c's record before the model axis split compute (the dry run's qwen3-8b
+# train_4k on 16 x 16 as this phase printed it then; PERF.md §6 keeps it):
+# each model rank computed its data rank's rows whole.
+UNSPLIT_14C = {"flops_per_device": 4.282e15,
+               "useful_flops_fraction": 0.0470,
+               "peak_memory_per_device": 19.63e9, "collective_bytes": 2.54e10}
 
 
 def _dryrun_cmd(out_dir: pathlib.Path, *args) -> list[str]:
@@ -4375,15 +4381,17 @@ def _dryrun_wait(run, label: str, timeout: float = 240.0) -> dict:
 
 
 def phase_train_mesh(seed: int, step_ms_11a: float) -> dict:
-    """Phase 14: LM training through the mesh path (A14.6).
+    """Phase 14: LM training through the mesh path (A14.6) and its compute
+    split over ``model`` (A14.7).
 
     14a: qwen3-8b at 11a's cut (`TRAIN_BLOCKS` of 36 blocks, 2 × 4096
     tokens, float32 state, bf16 compute, remat) over a one-rank NCCL world
     and `make_host_mesh`, from the state the mesh-less step starts from
     (the same seed). The step runs the mesh path (each super-block's
-    parameters installed through the gather, again under remat, the
-    gradients through its reduction, the norm over slices) with nothing
-    to exchange: after `MESH_STEPS` steps the metrics, parameters and
+    parameters installed through the gather, again under remat, every
+    layer's split body on a model axis of one rank, the gradients through
+    the gather's reduction, the norm over slices) with nothing to
+    exchange: after `MESH_STEPS` steps the metrics, parameters and
     moments are held to the mesh-less run's bit for bit (the mesh-less
     run's are snapshotted to the host first: both states do not fit the
     card at once), and the mesh issues no collective; then `MESH_TIMED`
@@ -4397,8 +4405,11 @@ def phase_train_mesh(seed: int, step_ms_11a: float) -> dict:
     and its ``peak_memory_per_device`` lie within [0.5, 2] of 14a's
     ``max_memory_allocated``; its roofline ``step_s`` over the measured
     step is printed. 14c: the full-size train_4k cell of qwen3-8b on the
-    single-pod (16 × 16) mesh, in a subprocess: every field of its record
-    and its seconds. Both dry runs run while 14a holds the card."""
+    single-pod (16 × 16) mesh, in a subprocess, its compute split over the
+    16-way model axis: every field of its record and its seconds, and its
+    FLOPs, useful fraction, peak and collective bytes beside the record of
+    the step that split no compute (`UNSPLIT_14C`). Both dry runs run while
+    14a holds the card."""
     import dataclasses
     import datetime
     import tempfile
@@ -4545,7 +4556,23 @@ def phase_train_mesh(seed: int, step_ms_11a: float) -> dict:
         f"s of dry run:")
     for key, value in rec.items():
         log(f"  {key}: {value}")
-    out["14c"] = rec
+    coll = sum(rec["coll_breakdown"].values())
+    log(f"14c against the step that split no compute (UNSPLIT_14C): "
+        f"flops_per_device {rec['flops_per_device']:.4e} (was "
+        f"{UNSPLIT_14C['flops_per_device']:.4e}, "
+        f"{UNSPLIT_14C['flops_per_device'] / rec['flops_per_device']:.2f}"
+        f"x); "
+        f"useful_flops_fraction {rec['useful_flops_fraction']:.4f} (was "
+        f"{UNSPLIT_14C['useful_flops_fraction']:.4f}); peak "
+        f"{rec['peak_memory_per_device'] / 1e9:.2f} GB (was "
+        f"{UNSPLIT_14C['peak_memory_per_device'] / 1e9:.2f}); collective "
+        f"bytes {coll:.4e} (was {UNSPLIT_14C['collective_bytes']:.4e}); "
+        f"dominant {rec['dominant']}")
+    check(rec["useful_flops_fraction"]
+          > UNSPLIT_14C["useful_flops_fraction"],
+          "14c: the split raises useful_flops_fraction above the step that "
+          "split no compute")
+    out["14c"] = dict(rec, collective_bytes=coll, unsplit=UNSPLIT_14C)
     return out
 
 

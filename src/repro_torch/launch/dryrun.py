@@ -33,8 +33,9 @@ micro-step and JAX's overrides ``attn_block_kv = max(seq, …)`` and
 memory pass took to build its fake states, ``compile_s`` the seconds of
 its steps, ``cost_pass_s`` the cost pass's.
 
-Prefill and decode cells need the compute split over ``model`` and sharded
-decode (ROADMAP A14.7) and raise `NotImplementedError` naming it.
+Prefill and decode cells need sharded prefill and decode on
+``cache_specs``' layout (ROADMAP A14.8) and raise `NotImplementedError`
+naming it.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k --mesh single
@@ -72,15 +73,20 @@ __all__ = ["OPT_DEFAULTS", "cell_config", "flop_counter", "input_specs",
 
 #: Post-hillclimb defaults of the JAX package (its EXPERIMENTS.md §Perf),
 #: with JAX's keys. In the port's train cells two of them change the step;
-#: the others are JAX's hints for layouts the port does not have yet (the
-#: compute split over ``model`` and the serving cells, ROADMAP A14.7) and
-#: change nothing.
+#: the others change nothing: two are hints JAX's sharding constraints read
+#: and the port has no counterpart of, two the serving cells' (ROADMAP
+#: A14.8).
 OPT_DEFAULTS = {
     "hier_moe": True,       # moe_groups = the data ranks (else 1)
-    "seq_parallel": True,   # no effect in the port
-    "sharded_logits": True,  # no effect in the port
-    "serve_bf16": True,     # no effect: serving cells are A14.7
-    "kv_seq_shard": True,   # no effect: serving cells are A14.7
+    # No effect: JAX's hint to keep activations split over the sequence
+    # between layers; the port's activations between layers are whole over
+    # ``model`` (each layer's output summed or gathered over it).
+    "seq_parallel": True,
+    # No effect: the port's head is always vocab-split over ``model`` and
+    # its loss vocab-parallel; only the eval forward gathers the logits.
+    "sharded_logits": True,
+    "serve_bf16": True,     # no effect: serving cells are A14.8
+    "kv_seq_shard": True,   # no effect: serving cells are A14.8
     "train_bf16": False,    # bfloat16 parameters and moments
 }
 
@@ -174,9 +180,8 @@ def input_specs(cfg: ModelConfig, shape, mesh, *,
     spec = _shape_spec(shape)
     if spec.kind != "train":
         raise NotImplementedError(
-            f"{spec.name}: the dry run's {spec.kind} cells need the compute "
-            f"split over `model` and sharded prefill and decode (ROADMAP "
-            f"A14.7)")
+            f"{spec.name}: the dry run's {spec.kind} cells need sharded "
+            f"prefill and decode (ROADMAP A14.8)")
     batch, seq = spec.global_batch, spec.seq_len
     dp_size = math.prod(mesh.shape[a] for a in data_axes(mesh))
     cfg = cell_config(cfg, spec, mesh, opts)
@@ -406,8 +411,7 @@ def run_cell(arch: str, shape_name, multi_pod: bool, out_dir: str, *,
     if spec.kind != "train":
         raise NotImplementedError(
             f"{arch} × {spec.name} × {mesh_name}: the dry run's {spec.kind} "
-            f"cells need the compute split over `model` and sharded prefill "
-            f"and decode (ROADMAP A14.7)")
+            f"cells need sharded prefill and decode (ROADMAP A14.8)")
     if with_cost is None:
         # Roofline table is single-pod; multi-pod proves the `pod` axis
         # shards.
@@ -478,7 +482,7 @@ def main(argv=None) -> None:
                     default="single")
     ap.add_argument("--all", action="store_true",
                     help="every arch × train shape (the serving cells are "
-                         "ROADMAP A14.7)")
+                         "ROADMAP A14.8)")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced configs (CI sanity, not the deliverable)")
     ap.add_argument("--baseline", action="store_true",

@@ -45,10 +45,10 @@ _COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
 
 def collective_bytes(record) -> dict[str, int]:
     """Operand bytes per collective kind of ``record`` (``(kind, bytes)``
-    pairs, as `repro_torch.sharding.collectives.recording` collects
-    them)."""
+    pairs, or the ``(kind, bytes, label)`` entries
+    `repro_torch.sharding.collectives.recording` collects)."""
     out = {k: 0 for k in _COLLECTIVES}
-    for kind, nbytes in record:
+    for kind, nbytes, *_ in record:
         out[kind] += int(nbytes)
     return out
 

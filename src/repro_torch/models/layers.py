@@ -13,6 +13,18 @@ window), which writes the cache's tensors in place, and its cross branch
 (the decoder's attention over the encoder's output, or over the K/V a
 prefill cached from it). The flash branch raises `NotImplementedError`
 whenever autograd would record through it (`FLASH_NO_BACKWARD`).
+
+Over a mesh each layer splits its compute over the ``model`` axis on the
+layout of `repro_torch.sharding.rules` (``self.tp``, a
+`repro_torch.sharding.collectives.ModelAxis`; without a mesh the trivial
+axis, whose collectives are the identity, and the same code runs):
+attention on the rank's q heads (``wq``, ``wo``) and on the kv heads they
+read (``wk``/``wv`` split with them where the kv heads divide the axis,
+else held whole and cut), or, where the heads do not divide the axis,
+row-parallel (``wq``/``wk``/``wv`` on the rank's rows of d, all heads
+attended, ``wo``'s columns gathered); the MLP on its ff columns. The train
+and cross branches split; the cache branches run on one rank's axis only
+(sharded serving is ROADMAP A14.8).
 """
 
 from __future__ import annotations
@@ -23,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.sharding.collectives import TRIVIAL
 from .config import ModelConfig
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -241,6 +254,7 @@ class Attention(nn.Module):
         if cfg.qk_norm:
             self.q_norm = _param((hd,), dt, device)
             self.k_norm = _param((hd,), dt, device)
+        self.tp = TRIVIAL  # the model axis (`Placement.shard` sets it)
 
     @torch.no_grad()
     def init_(self, generator):
@@ -274,16 +288,15 @@ class Attention(nn.Module):
         cdt = dtype_of(cfg.compute_dtype)
         if positions is None:
             positions = torch.arange(t, device=x.device)
-        xc = x.to(cdt)
-        q = _proj(xc, self.wq.to(cdt))
+        xc = self._in(x).to(cdt)
+        q = self._heads(xc, self.wq, cdt)
         if cfg.qk_norm:
-            q = rms_norm_vec(q, self.q_norm)
+            q = rms_norm_vec(q, self._whole(self.q_norm))
         if cross:
             return self._cross(x, q, cfg, positions, kv_x, cache), cache
-        k = _proj(xc, self.wk.to(cdt))
-        v = _proj(xc, self.wv.to(cdt))
+        k, v = self._kv(xc, cfg, cdt)
         if cfg.qk_norm:
-            k = rms_norm_vec(k, self.k_norm)
+            k = rms_norm_vec(k, self._whole(self.k_norm))
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
         window = cfg.swa_window
@@ -318,6 +331,58 @@ class Attention(nn.Module):
             _fill_cache(cache, k, v, positions)
         return self._out(out, x, cdt), cache
 
+    # -- the split over `model` ---------------------------------------------
+
+    def _rows(self) -> bool:
+        """Row-parallel: the heads do not divide the model axis, so
+        ``wq``/``wk``/``wv`` hold the rank's rows of d."""
+        return self.tp.split("wq", 0)
+
+    def _in(self, x):
+        """An input held alike over ``model`` for the rank's projections:
+        copied in, and cut to the rank's rows of d where row-parallel."""
+        x = self.tp.copy(x)
+        if self._rows():
+            r0, r1 = self.tp.span("wq", 0, self.wq.shape[0])
+            x = x[..., r0:r1]
+        return x
+
+    def _whole(self, w):
+        """A parameter held whole over ``model`` for per-head work: copied
+        in where the rank works on its own heads, as it is where every
+        rank works on all of them (row-parallel)."""
+        return w if self._rows() else self.tp.copy(w)
+
+    def _heads(self, xc, w, cdt):
+        """``_proj`` of ``xc`` (from `_in`) on ``w``: the rank's heads, or
+        all heads' sums over the ranks' rows where row-parallel."""
+        y = _proj(xc, w.to(cdt))
+        return self.tp.reduce(y) if self._rows() else y
+
+    def _kv(self, src, cfg: ModelConfig, cdt):
+        """K and V of ``src`` (from `_in`) for the rank's q heads: all kv
+        heads where row-parallel or one rank; the rank's kv heads where
+        they divide the axis; else (``wk``/``wv`` held whole) the kv heads
+        its q heads read, repeated per q head where its q heads do not
+        fall on whole GQA groups."""
+        tp = self.tp
+        wk, wv = self.wk, self.wv
+        if self._rows() or tp.split("wk", 1):
+            return self._heads(src, wk, cdt), self._heads(src, wv, cdt)
+        nq, nkv = cfg.n_heads, cfg.n_kv_heads
+        g = nq // nkv
+        h0, h1 = tp.span("wq", 1, nq)
+        k0, k1 = h0 // g, (h1 - 1) // g + 1
+        if tp.split("wq", 1):  # held whole, read in part by this rank
+            wk, wv = tp.copy(wk), tp.copy(wv)
+        if (k0, k1) != (0, nkv):
+            wk, wv = wk[:, k0:k1], wv[:, k0:k1]
+        k, v = _proj(src, wk.to(cdt)), _proj(src, wv.to(cdt))
+        if k1 - k0 > 1 and (h0 % g or h1 % g):
+            idx = torch.arange(h0, h1, device=k.device) // g - k0
+            k, v = k.index_select(2, idx), v.index_select(2, idx)
+        return k, v
+
     def _cross(self, x, q, cfg: ModelConfig, positions, kv_x, cache):
         """The cross branch: no RoPE, every key visible (keys at
         ``arange(Tk)``, no causality, no window), through ``_attend`` and
@@ -329,9 +394,9 @@ class Attention(nn.Module):
         if cache is not None and "k" in cache:
             k, v = cache["k"].to(cdt), cache["v"].to(cdt)
         else:
-            k, v = self.cross_kv(kv_x, cfg)
+            k, v = self._kv(self._in(kv_x).to(cdt), cfg, cdt)
             if cfg.qk_norm:
-                k = rms_norm_vec(k, self.k_norm)
+                k = rms_norm_vec(k, self._whole(self.k_norm))
         k_pos = torch.arange(k.shape[1], device=k.device)
         out = _attend(q, k, v, positions, k_pos, False, None,
                       cfg.attn_block_kv)
@@ -342,16 +407,23 @@ class Attention(nn.Module):
         in the compute dtype and without ``k_norm``: what JAX's
         ``_fill_cross_caches`` stores in a prefill's cache."""
         cdt = dtype_of(cfg.compute_dtype)
-        src = enc_out.to(cdt)
-        return _proj(src, self.wk.to(cdt)), _proj(src, self.wv.to(cdt))
+        return self._kv(self._in(enc_out).to(cdt), cfg, cdt)
 
     def _out(self, out, x, cdt):
         """The output projection ``einsum("bthk,hkd->btd")`` in ``cdt``,
-        cast to ``x``'s dtype."""
+        cast to ``x``'s dtype: the rank's heads' part summed over the
+        ranks, or, row-parallel, the rank's columns of d gathered."""
         b, t = out.shape[:2]
         nq, hd, d = self.wo.shape
+        if self._rows():
+            out = self.tp.copy(out)
         y = out.reshape(b * t, nq * hd) @ self.wo.to(cdt).reshape(nq * hd, d)
-        return y.reshape(b, t, d).to(x.dtype)
+        y = y.reshape(b, t, d)
+        if self._rows():
+            y = self.tp.gather(y, -1, "wo", 2)
+        else:
+            y = self.tp.reduce(y)
+        return y.to(x.dtype)
 
 
 def _fill_cache(cache, k, v, positions) -> None:
@@ -390,6 +462,9 @@ def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
 
 
 class MLP(nn.Module):
+    """The SwiGLU MLP; over ``model`` on the rank's ff columns (``w_gate``,
+    ``w_up``) and rows (``w_down``), the output summed over the ranks."""
+
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         d, ff = cfg.d_model, cfg.d_ff
@@ -397,6 +472,7 @@ class MLP(nn.Module):
         self.w_gate = _param((d, ff), dt, device)
         self.w_up = _param((d, ff), dt, device)
         self.w_down = _param((ff, d), dt, device)
+        self.tp = TRIVIAL
 
     @torch.no_grad()
     def init_(self, generator):
@@ -405,6 +481,6 @@ class MLP(nn.Module):
 
     def forward(self, x, cfg: ModelConfig):
         cdt = dtype_of(cfg.compute_dtype)
-        xc = x.to(cdt)
+        xc = self.tp.copy(x).to(cdt)
         h = F.silu(xc @ self.w_gate.to(cdt)) * (xc @ self.w_up.to(cdt))
-        return (h @ self.w_down.to(cdt)).to(x.dtype)
+        return self.tp.reduce(h @ self.w_down.to(cdt)).to(x.dtype)

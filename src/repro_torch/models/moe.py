@@ -33,6 +33,15 @@ counts once a layer and add the earlier ranks' (JAX's token-major stable
 sort). Each rank runs the experts over its own kept assignments. Without
 data axes (serving, a step without a mesh) the same code runs with the
 whole batch as the one rank's block.
+
+Over the mesh's ``model`` axis (``self.tp``) every model rank routes its
+data rank's tokens alike (the routing, groups, capacity, slots and aux
+unchanged) and runs the experts on its own part: under expert parallelism
+(``num_experts`` divides the axis) its E/m experts' slots, otherwise every
+expert on its columns of the ff dim. Its weighted contributions are
+combined and summed over the model ranks. The tokens dispatched and the
+gate weights enter that rank-local work through `ModelAxis.copy`; the
+router's logits and the aux are computed alike on every rank and do not.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.sharding.collectives import TRIVIAL
 from .config import ModelConfig
 from .layers import _param, dense_init_, dtype_of
 
@@ -71,6 +81,7 @@ class MoE(nn.Module):
         self.w_up = _param((e, d, ff), dt, device)
         self.w_down = _param((e, ff, d), dt, device)
         self.data_axes = None  # a data-parallel step's `DataAxes`
+        self.tp = TRIVIAL  # the model axis (`Placement.shard` sets it)
 
     @torch.no_grad()
     def init_(self, generator):
@@ -186,25 +197,39 @@ class MoE(nn.Module):
         aux = mc.aux_loss_coef * e * torch.sum(me * ce)
         aux = aux + mc.router_z_coef * z
 
-        # Dispatch into [G_loc·E·cap, d]: a dropped assignment adds zeros at
-        # its expert's slot 0, as JAX's where(keep, …, 0).
+        # Dispatch into [G_loc·E_m·cap, d], E_m this model rank's experts
+        # [e0, e1) (all of them on one rank or under the ff split): a
+        # dropped assignment, or one to another rank's expert, adds zeros
+        # at slot 0, as JAX's where(keep, …, 0).
         slot, stok, sw, keep, g_loc = self._dispatch(gate_e, gate_w, cfg)
+        tp = self.tp
+        e0, e1 = tp.span("w_gate", 0, e)
+        em = e1 - e0
+        if tp.split("w_gate", 0):
+            ex = slot // cap % e
+            keep = keep & (ex >= e0) & (ex < e1)
+            slot = torch.where(keep, ((slot // (cap * e)) * em + ex - e0)
+                               * cap + slot % cap, torch.zeros_like(slot))
+        xt = tp.copy(xt)
         src = torch.where(keep[:, None], xt[stok],
                           torch.zeros((), dtype=cdt, device=x.device))
-        buf = torch.zeros(g_loc * e * cap, d, dtype=cdt, device=x.device)
+        buf = torch.zeros(g_loc * em * cap, d, dtype=cdt, device=x.device)
         buf = buf.index_add(0, slot, src)
 
-        # The experts: batched products over E, every group's slots as rows.
-        xe = buf.reshape(g_loc, e, cap, d).transpose(0, 1).reshape(
-            e, g_loc * cap, d)
+        # The experts: batched products over E_m, every group's slots as
+        # rows (under the ff split, the rank's ff columns).
+        xe = buf.reshape(g_loc, em, cap, d).transpose(0, 1).reshape(
+            em, g_loc * cap, d)
         h = F.silu(torch.bmm(xe, self.w_gate.to(cdt))) * torch.bmm(
             xe, self.w_up.to(cdt))
         out = torch.bmm(h, self.w_down.to(cdt)).reshape(
-            e, g_loc, cap, d).transpose(0, 1).reshape(g_loc * e * cap, d)
+            em, g_loc, cap, d).transpose(0, 1).reshape(g_loc * em * cap, d)
 
-        # Combine: each token sums its kept assignments' weighted outputs.
-        contrib = torch.where(keep[:, None], out[slot] * sw[:, None].to(cdt),
+        # Combine: each token sums its kept assignments' weighted outputs,
+        # then the model ranks' parts are summed.
+        contrib = torch.where(keep[:, None],
+                              out[slot] * tp.copy(sw)[:, None].to(cdt),
                               torch.zeros((), dtype=cdt, device=x.device))
         y = torch.zeros(n_loc, d, dtype=cdt, device=x.device).index_add(
             0, stok, contrib)
-        return y.reshape(b, t, d).to(x.dtype), aux.float()
+        return tp.reduce(y).reshape(b, t, d).to(x.dtype), aux.float()

@@ -24,6 +24,22 @@ As in JAX, a sequence longer than a chunk and not a multiple of it is
 padded with zeros at its end, and the state returned is the one after the
 padding: Mamba's padded steps keep the state (their Δ is 0), RWKV's zero
 it (their decay is 0).
+
+Over a mesh each mixer splits its compute over the ``model`` axis
+(``self.tp``, a `repro_torch.sharding.collectives.ModelAxis`; the trivial
+axis without one). `Mamba` runs on the rank's channels of d_inner (its x
+and z columns of ``in_proj``, gathered whole since the columns split
+contiguously, then ``conv_*``, ``dt_*``, ``a_log``, ``d_skip``, the scan,
+``x_proj``'s and ``out_proj``'s rows), with Δ, B and C summed over the
+ranks; the RWKV time mix on its heads (``wr``/``wk``/``wv``/``wg``
+columns, ``bonus``, the wkv scan, the group norm, ``wo`` rows), the leaves
+it holds whole (``mu``, the LoRA mixes, ``w0``, the decay LoRA, ``ln_x``;
+``wk``/``wv``/``wo`` too where the attention's rules, which their names
+match, split them off its heads, gathered first) copied in and cut to its
+heads where per channel; where the heads do not divide the axis it gathers
+its split weights and computes whole. The channel mix splits the ff dim
+(``wk`` columns, ``wv`` rows) and gathers the receptance over d. The cache
+branches run on one rank's axis only (sharded serving is ROADMAP A14.8).
 """
 
 from __future__ import annotations
@@ -34,6 +50,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.core.heads_tails import _assoc_scan
+from repro_torch.sharding.collectives import TRIVIAL
 from .config import MambaConfig, ModelConfig, RWKVConfig
 from .layers import _param, dense_init_, dtype_of
 
@@ -85,6 +102,10 @@ def _assoc_inclusive(decay, u):
     return dd, uu
 
 
+def _same(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
 def _softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus``: log(1 + eˣ) as logaddexp(x, 0)."""
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
@@ -127,6 +148,7 @@ class Mamba(nn.Module):
         self.a_log = _param((di, mc.d_state), dt, device)
         self.d_skip = _param((di,), dt, device)
         self.out_proj = _param((di, d), dt, device)
+        self.tp = TRIVIAL  # the model axis (`Placement.shard` sets it)
 
     @torch.no_grad()
     def init_(self, generator):
@@ -142,22 +164,31 @@ class Mamba(nn.Module):
         self.d_skip.fill_(1.0)
 
     def forward(self, x, cfg: ModelConfig, cache=None):
-        """x [B, T, d] → ``(y [B, T, d] in x's dtype, {"conv", "ssm"})``."""
+        """x [B, T, d] → ``(y [B, T, d] in x's dtype, {"conv", "ssm"})``:
+        over ``model``, the rank's channels [c0, c1) of d_inner."""
         mc = cfg.mamba or MambaConfig()
         cdt = dtype_of(cfg.compute_dtype)
         b = x.shape[0]
         di = mc.expand * cfg.d_model
-        xz = x.to(cdt) @ self.in_proj.to(cdt)
+        tp = self.tp
+        c0, c1 = tp.span("conv_b", 0, di)
+        w = self.in_proj
+        if tp.split("in_proj", 1):
+            w = tp.gather(w, 1, "in_proj", 1, weight=True)
+        if tp.split("conv_b", 0):
+            w = tp.copy(w)
+            w = torch.cat([w[:, c0:c1], w[:, di + c0:di + c1]], dim=1)
+        xz = tp.copy(x).to(cdt) @ w.to(cdt)
         xi, z = xz.chunk(2, dim=-1)
         if cache is None:
-            conv_state = torch.zeros(b, mc.d_conv - 1, di, dtype=cdt,
+            conv_state = torch.zeros(b, mc.d_conv - 1, c1 - c0, dtype=cdt,
                                      device=x.device)
-            h0 = torch.zeros(b, di, mc.d_state, dtype=torch.float32,
+            h0 = torch.zeros(b, c1 - c0, mc.d_state, dtype=torch.float32,
                              device=x.device)
         else:
             conv_state, h0 = cache["conv"], cache["ssm"]
         y, conv_state, h_last = self._inner(xi, z, conv_state, h0, cfg)
-        out = y @ self.out_proj.to(cdt)
+        out = tp.reduce(y @ self.out_proj.to(cdt))
         return out.to(x.dtype), _write(cache, {"conv": conv_state.to(cdt),
                                                "ssm": h_last})
 
@@ -176,7 +207,7 @@ class Mamba(nn.Module):
         conv = sum(xin[:, i:i + t] * conv_w[i] for i in range(mc.d_conv))
         x = F.silu(conv + self.conv_b.to(cdt))
 
-        dbc = x @ self.x_proj.to(cdt)
+        dbc = self.tp.copy(self.tp.reduce(x @ self.x_proj.to(cdt)))
         dt_r, bmat, cmat = dbc.split([dtr, ds, ds], dim=-1)
         delta = _softplus(dt_r @ self.dt_proj.to(cdt)
                           + self.dt_bias.to(cdt)).float()
@@ -237,6 +268,7 @@ class RWKV(nn.Module):
         self.decay_w2 = _param((rc.lora_decay, d), dt, device)
         self.bonus = _param((d // rc.head_size, rc.head_size), dt, device)
         self.ln_x = _param((d,), dt, device)
+        self.tp = TRIVIAL  # the model axis (`Placement.shard` sets it)
 
     @torch.no_grad()
     def init_(self, generator):
@@ -253,13 +285,41 @@ class RWKV(nn.Module):
 
     def forward(self, x, cfg: ModelConfig, cache=None):
         """x [B, T, d] → ``(y [B, T, d] in x's dtype, {"shift",
-        "state"})``."""
+        "state"})``: over ``model``, the rank's heads, channels [c0, c1)."""
         rc = cfg.rwkv or RWKVConfig()
         cdt = dtype_of(cfg.compute_dtype)
         b, t, d = x.shape
         hd = rc.head_size
-        h = d // hd
-        xc = x.to(cdt)
+        tp = self.tp
+        # Where the heads divide the axis, the rank computes its heads, its
+        # channels [c0, c1): whole leaves are copied in and cut. Otherwise
+        # (and on one rank) it computes every head, and nothing is copied.
+        heads = tp.split("bonus", 0)
+        h0, h1 = tp.span("bonus", 0, d // hd)
+        c0, c1 = h0 * hd, h1 * hd
+        cp, rd = (tp.copy, tp.reduce) if heads else (_same, _same)
+
+        def cols(t_, dim=-1):  # a leaf's channels of this rank's heads
+            return t_ if (c0, c1) == (0, d) else t_.narrow(dim, c0, c1 - c0)
+
+        def weight(n, ch):
+            """``n`` as the rank computes with it, ``ch`` its channel dim:
+            its own part where that is split on its heads, else held whole
+            (gathered where split otherwise: the rules give ``wk``, ``wv``
+            and ``wo`` the attention's specs) and cut."""
+            t_ = getattr(self, n)
+            if heads and tp.split(n, ch):
+                return t_
+            for dim in range(t_.ndim):
+                if tp.split(n, dim):
+                    t_ = tp.gather(t_, dim, n, dim, weight=True)
+            return cols(cp(t_), ch)
+
+        w = {n: weight(n, 0 if n == "wo" else 1)
+             for n in ("wr", "wk", "wv", "wg", "wo")}
+        h = (c1 - c0) // hd
+
+        xc = cp(x).to(cdt)
         if cache is None:
             x_prev_last = torch.zeros(b, 1, d, dtype=cdt, device=x.device)
             s0 = torch.zeros(b, h, hd, hd, dtype=torch.float32,
@@ -270,19 +330,20 @@ class RWKV(nn.Module):
         dx = x_prev - xc
 
         # Data-dependent token-shift (ddlerp): per-channel r,k,v,w,g mixes.
-        lora = torch.tanh(xc @ self.mix_w1.to(cdt)).reshape(b, t, 5,
-                                                             rc.lora_mix)
-        mix = self.mu.to(cdt)[None, None] + torch.einsum(
-            "btcl,cld->btcd", lora, self.mix_w2.to(cdt))
+        lora = torch.tanh(xc @ cp(self.mix_w1).to(cdt)).reshape(
+            b, t, 5, rc.lora_mix)
+        mix = cp(self.mu).to(cdt)[None, None] + torch.einsum(
+            "btcl,cld->btcd", lora, cp(self.mix_w2).to(cdt))
         xr, xk, xv, xw, xg = [xc + dx * mix[:, :, i] for i in range(5)]
 
-        r = (xr @ self.wr.to(cdt)).reshape(b, t, h, hd)
-        k = (xk @ self.wk.to(cdt)).reshape(b, t, h, hd)
-        v = (xv @ self.wv.to(cdt)).reshape(b, t, h, hd)
-        g = F.silu(xg @ self.wg.to(cdt))
+        r = (xr @ w["wr"].to(cdt)).reshape(b, t, h, hd)
+        k = (xk @ w["wk"].to(cdt)).reshape(b, t, h, hd)
+        v = (xv @ w["wv"].to(cdt)).reshape(b, t, h, hd)
+        g = F.silu(xg @ w["wg"].to(cdt))
         # Data-dependent decay w_t = exp(-exp(w0 + lora_w(x_w))) in (0, 1).
-        wlog = self.w0.float() + (xw.float() @ self.decay_w1.float()) \
-            @ self.decay_w2.float()
+        wlog = cols(cp(self.w0)).float() + (
+            xw.float() @ cp(self.decay_w1).float()) @ cols(
+            cp(self.decay_w2)).float()
         decay = torch.exp(-torch.exp(wlog)).reshape(b, t, h, hd)
         u = self.bonus.float()  # [h, hd]
 
@@ -303,8 +364,8 @@ class RWKV(nn.Module):
         mu_ = y.mean(-1, keepdim=True)
         var = ((y - mu_) ** 2).mean(-1, keepdim=True)
         yf = (y - mu_) * torch.rsqrt(var + 1e-5)
-        yf = yf.reshape(b, t, d) * self.ln_x.float()
-        out = (yf.to(cdt) * g) @ self.wo.to(cdt)
+        yf = yf.reshape(b, t, h * hd) * cols(cp(self.ln_x)).float()
+        out = rd((yf.to(cdt) * g) @ w["wo"].to(cdt))
         return out.to(x.dtype), _write(cache, {"shift": xc[:, -1:],
                                                "state": s_last})
 
@@ -334,6 +395,7 @@ class RWKVCMix(nn.Module):
         self.wk = _param((d, ff), dt, device)
         self.wv = _param((ff, d), dt, device)
         self.wr = _param((d, d), dt, device)
+        self.tp = TRIVIAL  # the model axis (`Placement.shard` sets it)
 
     @torch.no_grad()
     def init_(self, generator):
@@ -343,18 +405,21 @@ class RWKVCMix(nn.Module):
             dense_init_(w, generator)
 
     def forward(self, x, cfg: ModelConfig, cache=None):
-        """x [B, T, d] → ``(y [B, T, d] in x's dtype, {"shift"})``."""
+        """x [B, T, d] → ``(y [B, T, d] in x's dtype, {"shift"})``: over
+        ``model``, the rank's ff columns summed over the ranks, gated by
+        the receptance its columns of d gather."""
         cdt = dtype_of(cfg.compute_dtype)
         b, _, d = x.shape
-        xc = x.to(cdt)
+        tp = self.tp
+        xc = tp.copy(x).to(cdt)
         prev = torch.zeros(b, 1, d, dtype=cdt, device=x.device) \
             if cache is None else cache["shift"].to(cdt)
         dx = torch.cat([prev, xc[:, :-1]], dim=1) - xc
-        xk = xc + dx * self.mu_k.to(cdt)
-        xr = xc + dx * self.mu_r.to(cdt)
+        xk = xc + dx * tp.copy(self.mu_k).to(cdt)
+        xr = xc + dx * tp.copy(self.mu_r).to(cdt)
         kk = torch.square(F.relu(xk @ self.wk.to(cdt)))
-        vv = kk @ self.wv.to(cdt)
-        rr = torch.sigmoid(xr @ self.wr.to(cdt))
+        vv = tp.reduce(kk @ self.wv.to(cdt))
+        rr = tp.gather(torch.sigmoid(xr @ self.wr.to(cdt)), -1, "wr", 1)
         return (rr * vv).to(x.dtype), _write(cache, {"shift": xc[:, -1:]})
 
 

@@ -31,8 +31,19 @@ each super-block runs under ``torch.utils.checkpoint`` (non-reentrant), so
 the backward pass recomputes its activations instead of keeping them; an
 eval forward, prefill and decode record nothing and run the blocks as they
 are. ``scan_layers``, ``dp_axes`` and the activation constraints
-(``_constrain_act``) have no effect on one card: PyTorch runs the loop
-eagerly and nothing is sharded.
+(``_constrain_act``) have no effect: PyTorch runs the loop eagerly.
+
+Over a mesh (`repro_torch.sharding.placement.Placement.bind`) every layer
+splits its compute over the ``model`` axis (``tp``, a
+`repro_torch.sharding.collectives.ModelAxis`; the trivial axis without a
+mesh, and the same code). Here the embedding looks up the ids in the
+rank's vocab rows (zeros elsewhere) and sums over the ranks, the patch
+projection gathers its columns, and the head computes the rank's vocab
+columns (``lm_head``'s, or ``embed``'s rows where tied): ``forward``
+gathers the logits to [B, S, padded_vocab], ``loss_fn`` never does — its
+log-sum-exp and target logit are summed over the ranks' columns. Prefill
+and decode run on one rank's axis only (sharded serving is ROADMAP
+A14.8).
 """
 
 from __future__ import annotations
@@ -42,6 +53,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.kernels._platform import resolve_device
+from repro_torch.sharding.collectives import TRIVIAL
 from . import layers, moe as moe_lib, ssm
 from .config import LayerSpec, ModelConfig
 from .layers import dtype_of
@@ -131,6 +143,28 @@ class Sublayer(nn.Module):
         return x, aux
 
 
+class _LogSumExp(torch.autograd.Function):
+    """``torch.logsumexp(logits, -1)`` over the vocab columns of every rank
+    of ``axis`` (each holding its own, ``logits`` [..., V_m]): the max
+    (detached) and Σ exp all-reduced. On one rank the same arithmetic as
+    ``torch.logsumexp``, forward and backward, bit for bit; it saves
+    ``logits`` and the result, as that does."""
+
+    @staticmethod
+    def forward(ctx, logits, axis):
+        m = logits.amax(-1, keepdim=True)
+        m = axis.max(m.masked_fill_(m.abs() == float("inf"), 0))
+        se = axis.reduce(torch.sum((logits - m).exp_(), -1))
+        lse = se.log_().add_(m.squeeze(-1))
+        ctx.save_for_backward(logits, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, grad):
+        logits, lse = ctx.saved_tensors
+        return grad[..., None] * (logits - lse[..., None]).exp(), None
+
+
 def _add(total, aux):
     """``total + aux`` where either may be None (a sum of nothing): JAX adds
     zeros there, which leaves the sum as it is."""
@@ -192,6 +226,7 @@ class Transformer(nn.Module):
         # gathers a super-block's parameters there
         # (`repro_torch.sharding.placement.Placement.bind`).
         self.block_runner = None
+        self.tp = TRIVIAL  # the model axis (`Placement.shard` sets it)
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "Transformer":
@@ -235,17 +270,32 @@ class Transformer(nn.Module):
         ``patch_positions``. Returns (x, positions, text_offset): positions
         over the whole sequence, the offset the patches' count."""
         cdt = dtype_of(cfg.compute_dtype)
-        x = self.embed[batch["tokens"]].to(cdt)
+        x = self._lookup(cfg, batch["tokens"])
         offset = 0
         if cfg.patch_positions:
-            patches = batch["patches"].to(cdt)
+            patches = self.tp.copy(batch["patches"].to(cdt))
             b, p, d = patches.shape
             patches = (patches.reshape(b * p, d) @ self.patch_proj.to(cdt)
                        ).reshape(b, p, -1)
+            patches = self.tp.gather(patches, -1, "patch_proj", 1)
             x = torch.cat([patches, x], dim=1)
             offset = p
         positions = torch.arange(x.shape[1], device=x.device)
         return x, positions, offset
+
+    def _lookup(self, cfg: ModelConfig, tokens):
+        """``embed[tokens]`` in the compute dtype: over ``model``, the ids
+        in the rank's rows [v0, v1) looked up, zeros for the others,
+        summed over the ranks."""
+        if not self.tp.split("embed", 0):
+            return self.embed[tokens].to(dtype_of(cfg.compute_dtype))
+        v0, v1 = self.tp.span("embed", 0, cfg.padded_vocab)
+        ids = tokens.long() - v0
+        inside = (ids >= 0) & (ids < v1 - v0)
+        x = self.embed[ids.clamp(0, max(v1 - v0 - 1, 0))]
+        x = torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                          device=x.device))
+        return self.tp.reduce(x.to(dtype_of(cfg.compute_dtype)))
 
     def _encode(self, cfg: ModelConfig, frames):
         """The encoder over ``frames`` [B, T, d] (JAX's ``_encode``): the
@@ -258,13 +308,42 @@ class Transformer(nn.Module):
                            causal=False)
         return self.enc_norm(x)
 
+    def _head(self, cfg: ModelConfig):
+        """(the head [d, V_m] of the rank's vocab columns, the leaf and dim
+        its columns split as)."""
+        if cfg.tie_embeddings:
+            return self.embed.T, ("embed", 0)
+        return self.lm_head, ("lm_head", 1)
+
     def _logits(self, cfg: ModelConfig, x):
-        head = self.embed.T if cfg.tie_embeddings else self.lm_head
-        logits = x.float() @ head.float()
+        """Float32 logits of the rank's vocab columns [v0, v1) (all of
+        them on one rank), the vocab's padding masked."""
+        head, (leaf, dim) = self._head(cfg)
+        logits = self.tp.copy(x).float() @ head.float()
         if cfg.padded_vocab != cfg.vocab:  # mask the vocab-padding rows
-            pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab
+            v0, v1 = self.tp.span(leaf, dim, cfg.padded_vocab)
+            pad = torch.arange(v0, v1, device=x.device) >= cfg.vocab
             logits = logits.masked_fill(pad, torch.finfo(torch.float32).min)
         return logits
+
+    def _full_logits(self, cfg: ModelConfig, x, logits=None):
+        """`_logits` (``logits``, where given) gathered over ``model``:
+        [..., padded_vocab]."""
+        leaf, dim = self._head(cfg)[1]
+        if logits is None:
+            logits = self._logits(cfg, x)
+        return self.tp.gather(logits, -1, leaf, dim)
+
+    def _hidden(self, cfg: ModelConfig, batch):
+        """The final norm's output over the sequence, aux and offset."""
+        x, positions, offset = self._embed_inputs(cfg, batch)
+        enc_out = (self._encode(cfg, batch["frames"]) if cfg.is_enc_dec
+                   else None)
+        x, aux = self._stack(cfg, x, positions, enc_out=enc_out)
+        x = self.final_norm(x)
+        if aux is None:  # no MoE layer
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return x, aux, offset
 
     def forward(self, batch, cfg: ModelConfig | None = None):
         """Logits over the sequence, a patch config's patches first: ([B,
@@ -274,14 +353,8 @@ class Transformer(nn.Module):
         does not shape the parameters, e.g. ``use_flash_kernel`` or
         ``compute_dtype``."""
         cfg = self._cfg(cfg)
-        x, positions, offset = self._embed_inputs(cfg, batch)
-        enc_out = (self._encode(cfg, batch["frames"]) if cfg.is_enc_dec
-                   else None)
-        x, aux = self._stack(cfg, x, positions, enc_out=enc_out)
-        x = self.final_norm(x)
-        if aux is None:  # no MoE layer
-            aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        return self._logits(cfg, x), aux, offset
+        x, aux, offset = self._hidden(cfg, batch)
+        return self._full_logits(cfg, x), aux, offset
 
     def _stack(self, cfg: ModelConfig, x, positions, caches=None,
                cache_pos=None, *, stack=None, causal: bool = True,
@@ -312,7 +385,7 @@ class Transformer(nn.Module):
         return x, aux
 
     def loss_fn(self, batch, cfg: ModelConfig | None = None, *,
-                sum_over=None):
+                sum_over=None, logits: bool = False):
         """Next-token cross entropy (+ MoE aux + z-loss). Returns (loss,
         metrics).
 
@@ -323,33 +396,59 @@ class Transformer(nn.Module):
         share of the global loss — its rows' terms over the global count,
         plus the MoE aux (global in value, its gradient this rank's
         tokens') — whose gradients, summed over the ranks, are the global
-        loss's."""
-        logits, aux, offset = self.forward(batch, cfg)
+        loss's. Over ``model`` the loss is vocab-parallel: each rank holds
+        its vocab columns' logits, the log-sum-exp and the target logit
+        are summed over the ranks, and every model rank computes the same
+        loss. ``logits=True`` adds ``metrics["logits"]``, the full logits
+        [B, S, padded_vocab] (`forward`'s) of the same pass."""
+        cfg = self._cfg(cfg)
+        x, aux, offset = self._hidden(cfg, batch)
+        logits_m = self._logits(cfg, x)
+        full = None
+        if logits:
+            full = self._full_logits(cfg, x, logits_m)
+        del x
         tokens = batch["tokens"]
-        logits_text = logits[:, offset:][:, :-1]
+        logits_text = logits_m[:, offset:][:, :-1]
         targets = tokens[:, 1:]
         mask = batch.get("loss_mask")
         mask = torch.ones_like(targets, dtype=torch.float32) if mask is None \
             else mask[:, 1:].float()
-        lse = torch.logsumexp(logits_text, dim=-1)
-        # A gather of the target logit: JAX's one-hot contraction adds zeros
-        # to the same value.
+        lse = _LogSumExp.apply(logits_text, self.tp)
+        # A gather of the target logit where the rank holds it: JAX's
+        # one-hot contraction adds zeros to the same value.
+        head = self._head(cfg)[1]
+        v0, v1 = self.tp.span(*head, cfg.padded_vocab)
+        ids = targets.long() - v0
+        inside = (ids >= 0) & (ids < v1 - v0)
         tgt_logit = logits_text.gather(
-            -1, targets[..., None].long()).squeeze(-1)
-        del logits, logits_text
+            -1, ids.clamp(0, max(v1 - v0 - 1, 0))[..., None]).squeeze(-1)
+        if self.tp.split(*head):
+            tgt_logit = self.tp.reduce(torch.where(
+                inside, tgt_logit, torch.zeros((), dtype=tgt_logit.dtype,
+                                               device=tgt_logit.device)))
+        del logits_m, logits_text
         nll = (lse - tgt_logit) * mask
         count = mask.sum() if sum_over is None else sum_over(mask.sum())
         denom = torch.clamp(count, min=1.0)
         ce = nll.sum() / denom
         zloss = 1e-4 * ((lse * mask) ** 2).sum() / denom
         loss = ce + zloss + aux
+        extra = {} if full is None else {"logits": full}
         if sum_over is not None:
             ce_g, zloss_g = sum_over(torch.stack([ce, zloss])).unbind(0)
             return loss, {"ce": ce_g, "aux": aux.detach(), "zloss": zloss_g,
-                          "tokens": denom}
-        return loss, {"ce": ce, "aux": aux, "zloss": zloss, "tokens": denom}
+                          "tokens": denom, **extra}
+        return loss, {"ce": ce, "aux": aux, "zloss": zloss, "tokens": denom,
+                      **extra}
 
     # -- serving: prefill and decode with caches -----------------------------
+
+    def _one_rank(self, what: str) -> None:
+        if not self.tp.trivial:
+            raise NotImplementedError(
+                f"{what} over a model axis of {self.tp.size} ranks: sharded "
+                f"prefill and decode are ROADMAP A14.8")
 
     def init_cache(self, batch: int, max_len: int,
                    cfg: ModelConfig | None = None) -> dict:
@@ -402,6 +501,7 @@ class Transformer(nn.Module):
         cache's tensors are inference tensors: `decode_step` (which also
         enters that mode) writes them in place."""
         cfg = self._cfg(cfg)
+        self._one_rank("prefill")
         x, positions, _ = self._embed_inputs(cfg, batch)
         b, t = x.shape[:2]
         blocks = self.init_cache(b, max_len, cfg)
@@ -412,7 +512,7 @@ class Transformer(nn.Module):
         zero = torch.zeros((), dtype=torch.int32, device=x.device)
         x, _ = self._stack(cfg, x, positions, blocks, cache_pos=zero,
                            enc_out=enc_out)
-        logits = self._logits(cfg, self.final_norm(x[:, -1:]))
+        logits = self._full_logits(cfg, self.final_norm(x[:, -1:]))
         return logits[:, 0], {"blocks": blocks, "pos": torch.full(
             (), t, dtype=torch.int32, device=x.device)}
 
@@ -440,11 +540,12 @@ class Transformer(nn.Module):
         a CUDA graph and replayed (`repro_torch.train.serve.sample_loop`).
         The cross-attention reads its ``cross`` cache and writes nothing."""
         cfg = self._cfg(cfg)
+        self._one_rank("decode_step")
         pos = cache["pos"]
-        x = self.embed[tokens].to(dtype_of(cfg.compute_dtype))
+        x = self._lookup(cfg, tokens)
         positions = pos + torch.arange(tokens.shape[1], dtype=torch.int32,
                                        device=x.device)
         x, _ = self._stack(cfg, x, positions, cache["blocks"], cache_pos=pos)
-        logits = self._logits(cfg, self.final_norm(x[:, -1:]))
+        logits = self._full_logits(cfg, self.final_norm(x[:, -1:]))
         pos.add_(tokens.shape[1])
         return logits[:, 0], cache

@@ -1,4 +1,5 @@
-"""Partition specs, placements and the collectives of sharded training."""
-
-from .rules import (P, PartitionSpec, batch_specs, data_axes,  # noqa: F401
-                    param_shardings, param_specs)
+"""Partition specs (`rules`), placements (`placement`) and the collectives
+(`collectives`) of sharded training and of the compute split over the
+mesh's ``model`` axis. The package imports none of them itself: the model's
+layers import `collectives`, which the rules' own imports of the model
+would otherwise make circular."""

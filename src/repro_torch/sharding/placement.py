@@ -3,21 +3,44 @@
 A `Placement` ties a `Transformer` to an `AxisMesh`: each rank holds only
 its slice (`rules.param_shardings`) of every parameter, AdamW moment and
 gradient. The train step (`repro_torch.train.step`) runs the model on
-gathered parameters and keeps the reduced gradients as slices:
+parameters gathered over the data axes, its compute split over ``model``,
+and keeps the reduced gradients as slices:
 
-  * **Gather.** A super-block's parameters are all-gathered to full just
-    before the block runs (`run_block`, the `Transformer`'s
-    ``block_runner``), and again when remat recomputes the block in the
-    backward; the other parameters (embedding, head, final norm, encoder
-    positions, patch projection) for the whole forward (`bind`). A dim
-    split over several axes gathers over the innermost first, each
-    rank's piece padded to the chunk ⌈dim / Π|axes|⌉.
-  * **Reduce.** The backward of a gather (`_Gather`) turns the full
-    gradient of this rank's rows into the rank's slice of the sum over
-    the data axes (``pod``, ``data``): the dims split over ``model`` are
-    cut locally (the model axis's ranks compute the same rows in this
-    slice of the port), a data axis the spec names is a reduce-scatter,
-    one it does not name an all-reduce.
+  * **Gather.** A super-block's parameters are all-gathered over the data
+    axes (``pod``, ``data``) just before the block runs (`run_block`, the
+    `Transformer`'s ``block_runner``), and again when remat recomputes the
+    block in the backward; the other parameters (embedding, head, final
+    norm, encoder positions, patch projection) for the whole forward
+    (`bind`). A dim split over several axes gathers over its data axes
+    only, each rank's piece padded to the chunk ⌈dim / Π|axes|⌉: the part
+    split over ``model`` (the major axis of a dim's entry) stays local,
+    and the layer computes on it (`collectives.ModelAxis`, set on every
+    layer by `shard`).
+  * **Split.** Each layer splits its compute over ``model`` on the layout
+    the rules give (Megatron-style: column- and row-parallel projections,
+    heads, experts, vocab), with `ModelAxis.copy`, ``reduce`` and
+    ``gather`` (`repro_torch.models`). Where a rank's part of a leaf does
+    not fall on the unit its layer splits on, the layer gathers that leaf
+    over ``model`` (`ModelAxis.gather`) and computes its own part: only
+    the leaves of `GATHERED_OVER_MODEL`, which are
+
+      - ``mixer.in_proj`` of a `ssm.Mamba` layer: its [d, 2·d_inner]
+        columns split contiguously, so at ``model`` 2 one rank holds all
+        of x and the other all of z; every rank takes its x and z columns;
+      - ``mixer.wr``, ``mixer.wk``, ``mixer.wv``, ``mixer.wg`` and
+        ``mixer.wo`` of a `ssm.RWKV` time mix whose heads do not divide
+        ``model`` (its columns are not whole heads, so it computes whole),
+        and its ``wk``, ``wv`` and ``wo`` where they match the attention's
+        rules (JAX's, first in order) and those split them off its heads
+        (rows of ``wk``/``wv`` where the kv heads do not divide ``model``,
+        ``wo`` whole where the heads do not).
+
+  * **Reduce.** The backward of a gather (`_Gather`) turns the gradient of
+    this rank's rows and model part into the rank's slice of the sum over
+    the data axes: a data axis the spec names is a reduce-scatter, one it
+    does not name an all-reduce. Nothing is cut or summed over ``model``:
+    the gradient arrives as the model part's own, whole and alike on every
+    model rank where the leaf is held whole over ``model``.
   * **Norm.** `grad_norm` counts each element once: a slice held alike by
     several ranks (an axis its spec does not name) is counted by the one
     at coordinate 0 of those axes, then one all-reduce over every axis.
@@ -38,10 +61,16 @@ import torch
 from torch import nn
 
 from repro_torch.models.weights import block_index
-from .collectives import all_gather_dim, all_reduce, reduce_scatter_dim
+from .collectives import (ModelAxis, all_gather_dim, all_reduce, pad_dim,
+                          reduce_scatter_dim)
 from .rules import data_axes, param_shardings, param_specs, spec_axes
 
-__all__ = ["Placement", "DataAxes"]
+__all__ = ["Placement", "DataAxes", "GATHERED_OVER_MODEL"]
+
+#: The leaves a layer gathers over ``model`` (by the end of their names),
+#: as the module docstring lists them.
+GATHERED_OVER_MODEL = ("mixer.in_proj", "mixer.wr", "mixer.wk", "mixer.wv",
+                       "mixer.wg", "mixer.wo")
 
 
 class DataAxes:
@@ -106,6 +135,12 @@ class Placement:
                                          for a in spec_axes(entry)))
                      for dim, entry in zip(self.shapes[n], spec))
             for n, spec in self.specs.items()}
+        # Per dim split over ``model``, (lo, hi, chunk, full) of the part
+        # this rank holds over it: the model coordinate's chunks, its data
+        # axes gathered (None for a dim not split over ``model``).
+        self.spans = {n: tuple(self._model_span(dim, entry) for dim, entry
+                               in zip(self.shapes[n], spec))
+                      for n, spec in self.specs.items()}
         self.data = DataAxes(mesh)
         self._blocks: dict[int, list] = {}
         self._top: list = []
@@ -127,9 +162,24 @@ class Placement:
             return full
         return full[self.slices(name)].clone()
 
-    def _split(self, name: str, dim: int) -> tuple[str, ...]:
+    def _model_span(self, dim: int, entry):
+        axes = spec_axes(entry)
+        m = self.shape.get("model", 1)
+        if "model" not in axes or m == 1:
+            return None
+        if axes[0] != "model":
+            raise ValueError(f"a dim split over {axes}: ``model`` must be "
+                             f"its major axis")
+        rest = math.prod(self.shape[a] for a in axes[1:])
+        chunk = -(-dim // (m * rest)) * rest
+        lo = min(dim, self.mesh.coords["model"] * chunk)
+        return (lo, min(dim, lo + chunk), chunk, dim)
+
+    def _data_split(self, name: str, dim: int) -> tuple[str, ...]:
+        """The data axes (of more than one rank) ``name``'s dim ``dim`` is
+        split over, major first."""
         return tuple(a for a in spec_axes(self.specs[name][dim])
-                     if self.shape[a] > 1)
+                     if a in self.data.axes)
 
     def owns(self, name: str) -> bool:
         """Whether this rank counts its slice of ``name`` in a norm: it is
@@ -154,55 +204,56 @@ class Placement:
             for key in ("mu", "nu"):
                 opt_state[key] = {n: self.local(n, t) for n, t in
                                   opt_state[key].items()}
-        for mod in model.modules():
+        group = self.mesh.group("model") if "model" in self.shape else None
+        for mod_name, mod in model.named_modules():
             if hasattr(mod, "data_axes"):
                 mod.data_axes = self.data
+            if hasattr(mod, "tp"):
+                spans = {leaf: self.spans[f"{mod_name}.{leaf}" if mod_name
+                                          else leaf]
+                         for leaf, _ in mod.named_parameters(recurse=False)}
+                mod.tp = ModelAxis(self.shape.get("model", 1),
+                                   self.mesh.coords.get("model", 0), group,
+                                   spans, mod_name)
 
     # -- gathers and reductions ----------------------------------------------
 
     def gather_raw(self, name: str, t: torch.Tensor) -> torch.Tensor:
-        """The full tensor of ``name`` from every rank's slice ``t`` (no
-        gradient)."""
+        """This rank's part over ``model`` of ``name`` (the whole tensor on
+        a dim not split over ``model``) from every data rank's slice ``t``
+        (no gradient)."""
         for dim, chunk in enumerate(self.chunks[name]):
-            axes = self._split(name, dim)
+            axes = self._data_split(name, dim)
             if not axes:
                 continue
-            if t.shape[dim] < chunk:
-                pad = list(t.shape)
-                pad[dim] = chunk - t.shape[dim]
-                t = torch.cat([t, t.new_zeros(pad)], dim=dim)
+            t = pad_dim(t, dim, chunk)
             for a in reversed(axes):
-                t = all_gather_dim(t, dim, self.mesh.group(a), self.shape[a])
-            t = t.narrow(dim, 0, self.shapes[name][dim])
+                t = all_gather_dim(t, dim, self.mesh.group(a), self.shape[a],
+                                   f"{a}:{name}")
+            span = self.spans[name][dim]
+            t = t.narrow(dim, 0, self.shapes[name][dim] if span is None
+                         else span[1] - span[0])
         return t
 
     def gather(self, name: str, shard: torch.Tensor) -> torch.Tensor:
-        """The full tensor of ``name`` for the forward; its gradient
-        reaches ``shard`` as the slice of the sum over the data ranks."""
+        """This rank's part of ``name`` over ``model`` for the forward; its
+        gradient reaches ``shard`` as the slice of the sum over the data
+        ranks."""
         return _Gather.apply(shard, self, name)
 
     def reduce(self, name: str, grad: torch.Tensor) -> torch.Tensor:
-        """This rank's slice of ``grad`` (the full gradient of its rows)
-        summed over the data ranks."""
+        """This rank's slice of ``grad`` (the gradient of its rows and its
+        part over ``model``) summed over the data ranks."""
         daxes = self.data.axes
         g = grad
         for dim, (sl, chunk) in enumerate(zip(self.slices(name),
                                               self.chunks[name])):
-            axes = spec_axes(self.specs[name][dim])
-            if not any(self.shape[a] > 1 for a in axes):
+            kept = self._data_split(name, dim)
+            if not kept:
                 continue
-            sizes = tuple(self.shape[a] for a in axes)
-            total = math.prod(sizes) * chunk
-            if g.shape[dim] < total:
-                pad = list(g.shape)
-                pad[dim] = total - g.shape[dim]
-                g = torch.cat([g, g.new_zeros(pad)], dim=dim)
+            sizes = tuple(self.shape[a] for a in kept)
+            g = pad_dim(g, dim, math.prod(sizes) * chunk)
             g = g.unflatten(dim, sizes + (chunk,))
-            # Cut the axes no data rank sums over; the rest stay split.
-            for i in reversed(range(len(axes))):
-                if axes[i] not in daxes:
-                    g = g.select(dim + i, self.mesh.coords[axes[i]])
-            kept = [a for a in axes if a in daxes]
             for i in reversed(range(len(kept))):
                 g = reduce_scatter_dim(g, dim + i, self.mesh.group(kept[i]),
                                        self.shape[kept[i]])
@@ -218,7 +269,16 @@ class Placement:
     def full(self, name: str, t: torch.Tensor) -> torch.Tensor:
         """The full tensor of ``name`` from this rank's slice ``t``, for a
         checkpoint or the orthogonal update (no gradient; collective)."""
-        return self.gather_raw(name, t.detach())
+        t = self.gather_raw(name, t.detach())
+        for dim, span in enumerate(self.spans[name]):
+            if span is None:
+                continue
+            _, _, chunk, full = span
+            t = all_gather_dim(pad_dim(t, dim, chunk), dim,
+                               self.mesh.group("model"), self.shape["model"],
+                               f"model:{name}")
+            t = t.narrow(dim, 0, full)
+        return t
 
     def grad_norm(self, grads: dict) -> torch.Tensor:
         """√(Σ g²) over the full gradients, each element counted once, in

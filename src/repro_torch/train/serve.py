@@ -10,7 +10,7 @@ step eagerly and replays the rest from one CUDA graph (`DecodeGraph`), the
 counterpart of the ``jax.jit`` JAX's loop applies; on the CPU it runs
 eagerly. ``cache_specs`` gives the partition spec of every leaf of a
 decode cache over a mesh, as JAX's does; in the port it is a table so far
-(sharded prefill and decode are ROADMAP A14.7).
+(sharded prefill and decode are ROADMAP A14.8).
 
 ``make_figaro_server`` serves one join structure (a `FigaroPlan`) to many
 concurrent users' feature-sets — each dispatch runs Algorithm 2 and the

@@ -13,13 +13,15 @@ AdamW, writing the parameters, the moments and the step in place.
 mesh each rank holds its slice of every parameter, moment and gradient
 (`shard_state`, `init_state(mesh=)`: JAX's ``param_shardings``, FSDP over
 ``data`` where ``cfg.fsdp``); the step gathers each super-block's
-parameters just before the block runs (again under remat), reduces the
-gradients over the data axes into the rank's slices (reduce-scatter where
-the spec names ``data``) and runs AdamW on the slices. Rank r of the data
-axes takes the r-th contiguous block of the global batch's rows
-(``batch_specs``); the ``model`` axis's ranks hold slices of the state and
-compute the same rows (the compute split over ``model`` is ROADMAP A14.7).
-A mesh of one rank runs this same code, with nothing to gather or reduce.
+parameters over the data axes just before the block runs (again under
+remat), reduces the gradients over the data axes into the rank's slices
+(reduce-scatter where the spec names ``data``) and runs AdamW on the
+slices. Rank r of the data axes takes the r-th contiguous block of the
+global batch's rows (``batch_specs``); the ``model`` axis's ranks split
+the compute of those rows, each layer on its part of the layout
+(`repro_torch.sharding.placement`: attention heads or rows of d, MLP and
+expert columns, experts, d_inner, vocab), the loss vocab-parallel. A mesh
+of one rank runs this same code, with nothing to gather, split or reduce.
 The step computes JAX's one-device step on the global batch: the loss over
 the global token count, the MoE layers' aux and capacity over the global
 tokens (`repro_torch.models.moe`), the gradient norm with each element
@@ -27,7 +29,9 @@ counted once, the orthogonal update on each leaf's full gradient; the
 metrics are the global batch's; over a mesh of one rank they are the
 mesh-less step's, bit for bit. The flash-attention branch has no backward
 (`models.layers.FLASH_NO_BACKWARD`), so a train step refuses
-``use_flash_kernel=True``.
+``use_flash_kernel=True``. `make_eval_step` runs the same forward over a
+mesh (the flash branch on each rank's heads), and gives the global batch's
+metrics and, when asked, JAX's logits.
 """
 
 from __future__ import annotations
@@ -243,19 +247,41 @@ def make_train_step(
     return step_fn
 
 
-def make_eval_step(cfg: ModelConfig, device=None) -> Callable:
+def make_eval_step(cfg: ModelConfig, device=None, mesh=None, *,
+                   logits: bool = False) -> Callable:
     """``eval_fn(model, batch) -> dict(metrics, loss=loss)`` for a
     `repro_torch.models.transformer.Transformer` on ``device`` (the card
-    unless ``device="cpu"``). ``batch`` maps ``"tokens"`` (and optionally
+    unless ``device="cpu"``), or, over a ``mesh``, for the `TrainState`
+    sharded over it (a mesh names its own device; every rank is given the
+    global batch). ``batch`` maps ``"tokens"`` (and optionally
     ``"loss_mask"``) to [B, S] arrays or tensors, with ``"frames"`` or
-    ``"patches"`` as `make_train_step`'s; they are moved to the device. The forward runs under ``cfg`` — with ``cfg.use_flash_kernel``
-    its attention goes through the flash-attention kernel."""
-    dev = resolve_device(device)
+    ``"patches"`` as `make_train_step`'s; they are moved to the device. The
+    forward runs under ``cfg`` — with ``cfg.use_flash_kernel`` its
+    attention goes through the flash-attention kernel. The metrics are
+    the global batch's; ``logits=True`` adds ``"logits"``, the global
+    batch's [B, S, padded_vocab] float32 logits (JAX's ``forward``'s)."""
+    dev = _check_mesh(mesh, device)
 
     def eval_fn(model, batch):
-        batch = _to_device(batch, dev)
+        place = None
+        if isinstance(model, TrainState):
+            place = _placement(model, mesh)
+            model = model.model
+        elif mesh is not None:
+            raise TypeError("over a mesh, eval the TrainState sharded over "
+                            "it (init_state(mesh=) or shard_state)")
+        batch = _to_device(_rows(batch, place), dev)
         with torch.inference_mode():
-            loss, metrics = model.loss_fn(batch, cfg)
+            if place is None:
+                loss, metrics = model.loss_fn(batch, cfg, logits=logits)
+            else:
+                with place.bind(model):
+                    _, metrics = model.loss_fn(batch, cfg, logits=logits,
+                                               sum_over=place.data.sum)
+                loss = metrics["ce"] + metrics["zloss"] + metrics["aux"]
+                if logits:
+                    metrics["logits"] = place.data.gather(
+                        metrics["logits"]).flatten(0, 1)
         return dict(metrics, loss=loss)
 
     return eval_fn

@@ -17,7 +17,18 @@ result: rank 0 writes each step's full parameters, moments and metrics to
 OUT (``.npz``, the same keys). With a CKPT directory, the first case's
 first step is also checkpointed there (every rank calls ``save``; rank 0
 writes) and restored into a zeroed sharded state, which must gather to the
-saved one bit for bit. Every rank ends with the world's group destroyed.
+saved one bit for bit. Where MODEL > 1 the world also runs, for every case
+of `EVALS`, ``make_eval_step(mesh=, logits=True)`` on the parameters and
+batch IN holds (``eval/<case>/params/…``, ``eval/<case>/batch/…``) under a
+collectives record: rank 0 writes the global logits and metrics
+(``eval/<case>/logits``, ``…/metrics/…``) and the labels of the forward's
+all-gathers over ``model`` (``eval/<case>/gathered``). Every rank ends with
+the world's group destroyed.
+
+``… RANK WORLD MODEL STORE flops OUT`` instead runs one train step of
+`FLOPS_CUT` (the dry-run test's cut) on a state every rank draws from one
+seed, under ``repro_torch.launch.dryrun.flop_counter``: rank 0 writes its
+count (``flops``) to OUT.
 """
 
 import dataclasses
@@ -47,18 +58,51 @@ CASES = {
     "rwkv": dict(arch="rwkv6-1.6b", over={"fsdp": True}, rows=4, seq=16),
     "whisper": dict(arch="whisper-tiny", over={"fsdp": True}, rows=4,
                     seq=16),
+    # E = 3 does not divide a model axis of 2: the experts' ff dim splits.
+    "mixtral_e3": dict(arch="mixtral-8x22b", over={"fsdp": True},
+                       moe={"num_experts": 3}, rows=4, seq=16),
+    "jamba": dict(arch="jamba-v0.1-52b", over={"fsdp": True}, rows=4,
+                  seq=16),
+    "minicpm_tied": dict(arch="minicpm-2b", over={"fsdp": True}, rows=4,
+                         seq=16),
+    # One kv head: wk/wv held whole over `model`, each rank's q heads
+    # reading it.
+    "qwen_mqa": dict(arch="qwen3-8b", over={"n_kv_heads": 1}, rows=4,
+                     seq=16),
 }
+#: name → arch and overrides of the eval forwards held to JAX's where the
+#: model axis is split: the ten archs, and attention's and RWKV's other
+#: splits (wk/wv held whole; q heads off the GQA groups, kv repeated; the
+#: row-parallel fallback; RWKV heads that do not divide the axis).
+EVALS = {
+    **{a: dict(arch=a, over={}) for a in (
+        "jamba-v0.1-52b", "whisper-tiny", "arctic-480b", "mixtral-8x22b",
+        "minicpm-2b", "command-r-35b", "granite-3-8b", "qwen3-8b",
+        "llava-next-34b", "rwkv6-1.6b")},
+    "qwen_mqa": dict(arch="qwen3-8b", over={"n_kv_heads": 1}),
+    "qwen_gqa3": dict(arch="qwen3-8b", over={"n_heads": 6,
+                                             "n_kv_heads": 3}),
+    "qwen_rows": dict(arch="qwen3-8b", over={"n_heads": 1, "n_kv_heads": 1,
+                                             "fsdp": True}),
+    "rwkv_one_head": dict(arch="rwkv6-1.6b", over={},
+                          rwkv={"head_size": 64}),
+}
+EVAL_ROWS, EVAL_SEQ = 4, 16
+#: The dry-run test's cut (`tests/test_torch_dryrun.py`).
+FLOPS_CUT = dict(arch="granite-3-8b", blocks=3, batch=4, seq=64)
 STEPS = 2
 LR = (3e-3, 2, 10)  # warmup_cosine(peak, warmup, total)
 
 
-def case_cfg(get_config, name):
-    """The case's config from ``get_config`` (either package's)."""
-    case = CASES[name]
+def case_cfg(get_config, name, cases=None):
+    """The case's config (of ``cases``, default `CASES`) from
+    ``get_config`` (either package's)."""
+    case = (CASES if cases is None else cases)[name]
     cfg = get_config(case["arch"], smoke=True)
     over = {"compute_dtype": "float32", **case["over"]}
-    if case.get("moe"):
-        over["moe"] = dataclasses.replace(cfg.moe, **case["moe"])
+    for key in ("moe", "rwkv"):
+        if case.get(key):
+            over[key] = dataclasses.replace(getattr(cfg, key), **case[key])
     return dataclasses.replace(cfg, **over)
 
 
@@ -104,16 +148,75 @@ def gathered(state) -> dict:
 
 def main() -> int:
     rank, world, model_ax = (int(a) for a in sys.argv[1:4])
-    store, path_in, path_out, ckpt = sys.argv[4:8]
+    store = sys.argv[4]
     torch.manual_seed(0)
     dist.init_process_group(
         "gloo", store=dist.FileStore(store, world), rank=rank,
         world_size=world, timeout=datetime.timedelta(seconds=60))
     try:
-        run(rank, model_ax, path_in, path_out, ckpt)
+        if sys.argv[5] == "flops":
+            count_flops(rank, model_ax, sys.argv[6])
+        else:
+            path_in, path_out, ckpt = sys.argv[5:8]
+            run(rank, model_ax, path_in, path_out, ckpt)
     finally:
         dist.destroy_process_group()
     return 0
+
+
+def count_flops(rank, model_ax, path_out) -> None:
+    """One train step of `FLOPS_CUT` over the mesh under the dry run's
+    FLOP counter; rank 0 writes its count."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import flop_counter
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import init_state, make_train_step
+
+    cut = FLOPS_CUT
+    cfg = dataclasses.replace(get_config(cut["arch"], smoke=True),
+                              n_blocks=cut["blocks"])
+    mesh = make_host_mesh(model=model_ax, device="cpu")
+    opt = AdamWConfig()
+    state = init_state(torch.Generator().manual_seed(0), cfg, opt,
+                       mesh=mesh)
+    step = make_train_step(cfg, opt, mesh)
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab,
+                                               (cut["batch"], cut["seq"]))
+    with flop_counter() as fc:
+        step(state, {"tokens": tokens})
+    if rank == 0:
+        np.savez(path_out, flops=np.asarray(fc.get_total_flops()))
+
+
+def run_evals(given, out, mesh, rank) -> None:
+    """`EVALS` through ``make_eval_step`` over ``mesh``: rank 0 keeps the
+    global logits, the metrics and the labels of the model axis's
+    all-gathers."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.weights import params_from_jax
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.sharding.collectives import recording
+    from repro_torch.train import TrainState, make_eval_step, shard_state
+
+    for name in EVALS:
+        cfg = case_cfg(get_config, name, EVALS)
+        tree = unflatten(given, f"eval/{name}")
+        model = params_from_jax(tree["params"], cfg, device="cpu")
+        state = TrainState(model=model,
+                           opt_state=adamw_init(model, AdamWConfig()),
+                           step=torch.zeros((), dtype=torch.int32))
+        shard_state(state, mesh)
+        batch = {k: torch.from_numpy(v) for k, v in tree["batch"].items()}
+        with recording() as record:
+            m = make_eval_step(cfg, mesh=mesh, logits=True)(state, batch)
+        if rank == 0:
+            out[f"eval/{name}/logits"] = m.pop("logits").numpy()
+            for key, v in m.items():
+                out[f"eval/{name}/metrics/{key}"] = np.asarray(float(v))
+            out[f"eval/{name}/gathered"] = np.asarray(sorted(
+                {label for kind, _, label in record if kind == "all-gather"
+                 and label and label.startswith("model:")}) or [""])
 
 
 def run(rank, model_ax, path_in, path_out, ckpt) -> None:
@@ -155,6 +258,8 @@ def run(rank, model_ax, path_in, path_out, ckpt) -> None:
                 out[f"{name}/{s}/step"] = np.asarray(int(state.step))
             if ckpt != "-" and name == next(iter(CASES)) and s == 0:
                 check_checkpoint(state, full, ckpt, cfg, opt, mesh, rank)
+    if model_ax > 1:
+        run_evals(given, out, mesh, rank)
     if rank == 0:
         np.savez(path_out, **out)
 

@@ -249,8 +249,9 @@ def test_unported_parts_raise_naming_their_items():
     training over a mesh: the cache specs are a table, the production mesh
     refuses a world that is not 256 or 512 ranks, a model axis that does
     not divide the world is refused, and the serving mesh is not a
-    training mesh. Sharded prefill and decode (the dry run's serving
-    cells) are A14.7 and raise naming it."""
+    training mesh. A14.7 split the compute over ``model`` for the eval
+    forward and training. Sharded prefill and decode (the dry run's
+    serving cells) are A14.8 and raise naming it."""
     from repro_torch.launch.dryrun import input_specs
     from repro_torch.launch.mesh import (DataMesh, make_host_mesh,
                                          make_production_mesh)
@@ -273,8 +274,18 @@ def test_unported_parts_raise_naming_their_items():
     with pytest.raises(TypeError, match="AxisMesh"):
         make_train_step(cfg, AdamWConfig(), two)
     for shape in ("prefill_32k", "decode_32k"):
-        with pytest.raises(NotImplementedError, match="A14.7"):
+        with pytest.raises(NotImplementedError, match="A14.8"):
             input_specs(cfg, shape, make_host_mesh(device="cpu"))
+    from repro_torch.sharding.collectives import ModelAxis
+
+    split = Transformer(cfg, device="cpu")
+    split.tp = ModelAxis(size=2)  # as `Placement.shard` sets it at model 2
+    for call in (lambda: split.prefill({"tokens": torch.zeros(
+            (1, 4), dtype=torch.int64)}, 8),
+                 lambda: split.decode_step(cache, torch.zeros(
+                     (2, 1), dtype=torch.int64))):
+        with pytest.raises(NotImplementedError, match="A14.8"):
+            call()
 
 
 def test_serving_defaults_to_the_card():

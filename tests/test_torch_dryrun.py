@@ -3,12 +3,14 @@ mirroring ``tests/test_dryrun.py``: the CLI in a subprocess (it starts a
 fake world of 256 or 512 ranks of its own), reduced configs.
 
 A smoke train cell on the single-pod mesh prints ``[ok]``; the skip rule
-is JAX's; a serving cell raises naming ROADMAP A14.7. The per-device FLOPs
+is JAX's; a serving cell raises naming ROADMAP A14.8. The per-device FLOPs
 are rank 0's: on a (1, 1) mesh they equal ``FlopCounterMode``'s count of
 the real train step on the CPU at the same cut, exactly; on (2, 2) the
-count of the real step on half the rows (the model axis holds state and
-does not split compute). ``model_flops`` is JAX's 6·N_active·B·S, and the
-`Roofline` record has JAX's keys, with the H100's constants in its terms.
+count rank 0 of a real (2, 2) gloo world takes of the same step (its two
+data rows, the compute split over ``model``: four spawned ranks of
+``tests/_torch_train_mesh_driver.py``). ``model_flops`` is JAX's
+6·N_active·B·S, and the `Roofline` record has JAX's keys, with the H100's
+constants in its terms.
 """
 
 import dataclasses
@@ -24,6 +26,7 @@ import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
+import _torch_train_mesh_driver as driver
 from repro.configs import ARCH_NAMES, get_config as jget_config
 from repro.launch import roofline as jroofline
 from repro_torch.configs import get_config
@@ -62,10 +65,11 @@ def test_serving_cells_raise_naming_the_next_item():
     out = _dryrun(["--arch", "rwkv6-1.6b", "--shape", "long_500k",
                    "--mesh", "multi", "--smoke", "--out", ""], ok=False)
     assert out.returncode != 0
-    assert "NotImplementedError" in out.stderr and "A14.7" in out.stderr
+    assert "NotImplementedError" in out.stderr and "A14.8" in out.stderr
 
 
 CUT = dict(arch="granite-3-8b", blocks=3, batch=4, seq=64)
+assert CUT == driver.FLOPS_CUT
 
 
 @pytest.fixture(scope="module")
@@ -83,6 +87,29 @@ def records(tmp_path_factory):
     return out
 
 
+@pytest.fixture(scope="module")
+def gloo_flops(tmp_path_factory):
+    """Rank 0's count of one train step of the cut in a (2, 2) gloo world
+    of four spawned ranks."""
+    tmp = tmp_path_factory.mktemp("flops2x2")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "tests" / "_torch_train_mesh_driver.py"),
+         str(r), "4", "2", str(tmp / "store"), "flops", str(tmp / "out.npz")],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(4)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    assert all(p.returncode == 0 for p in procs), "\n".join(logs)
+    with np.load(tmp / "out.npz") as f:
+        return int(f["flops"])
+
+
 def _real_step_flops(rows: int) -> int:
     cfg = dataclasses.replace(get_config(CUT["arch"], smoke=True),
                               n_blocks=CUT["blocks"])
@@ -98,15 +125,25 @@ def _real_step_flops(rows: int) -> int:
 
 
 @pytest.mark.parametrize("mesh,rows", [("1,1", 4), ("2,2", 2)])
-def test_flops_per_device_equal_the_real_steps(records, mesh, rows):
+def test_flops_per_device_equal_the_real_steps(records, request, mesh,
+                                               rows):
+    """Rank 0's count of ``rows`` rows: at (1, 1) the whole batch in this
+    process, at (2, 2) a data rank's half with the compute split over
+    ``model`` in a real gloo world."""
     rec = records[mesh]
     assert rec["status"] == "ok", rec
-    assert rec["flops_per_device"] == _real_step_flops(rows)
+    want = _real_step_flops(rows) if mesh == "1,1" else \
+        request.getfixturevalue("gloo_flops")
+    assert rec["flops_per_device"] == want
     coll = rec["coll_breakdown"]
     if mesh == "1,1":
         assert sum(coll.values()) == 0
     else:
-        assert coll["all-gather"] > 0 and coll["all-reduce"] > 0
+        # granite's smoke config has no FSDP: no parameter is split over
+        # ``data``, and none is gathered over ``model`` (its heads, ff and
+        # vocab split there); the model axis's sums and the gradients' sum
+        # over ``data`` are all-reduces.
+        assert coll["all-gather"] == 0 and coll["all-reduce"] > 0
     assert rec["peak_memory_per_device"] > 0
 
 

@@ -2,26 +2,40 @@
 one-device step, on the CPU.
 
 Two worlds, spawned once and side by side
-(`tests/_torch_train_mesh_driver.py`, one process per rank): 2 ranks as the (2, 1) ``("data", "model")`` mesh and 4
-as (2, 2). For every case of the driver's ``CASES`` — qwen3 smoke with an
-uneven ``loss_mask`` and the orthogonal update (FSDP over ``data``), with
-``microbatch=2`` and one head (at (2, 2) its attention weights split over
-``("model", "data")``); mixtral smoke at ``moe_groups`` 1 with forced drops
-(``capacity_factor`` 0.25; its group spans both data ranks) and at
-``moe_groups`` 2 (a group a data rank); rwkv6 smoke; whisper smoke with
-frames — the ranks take two steps of ``make_train_step`` over the mesh,
-each from the JAX package's state of the step before, on the same global
-batch JAX's jitted one-device step takes. Held as in
+(`tests/_torch_train_mesh_driver.py`, one process per rank): 2 ranks as
+the (2, 1) ``("data", "model")`` mesh and 4 as (2, 2), where the model
+axis splits every layer's compute (tensor parallelism). For every case of
+the driver's ``CASES`` — qwen3 smoke with an uneven ``loss_mask`` and the
+orthogonal update (FSDP over ``data``), with ``microbatch=2`` and one head
+(at (2, 2) the row-parallel fallback: its attention weights split over
+``("model", "data")``), with one kv head (``wk``/``wv`` held whole over
+``model``); mixtral smoke at ``moe_groups`` 1 with forced drops
+(``capacity_factor`` 0.25; its group spans both data ranks), at
+``moe_groups`` 2 (a group a data rank) — at (2, 2) its 4 experts split
+over ``model`` — and with 3 experts (the ff dim split instead); jamba
+smoke (mamba and MoE); rwkv6 smoke; whisper smoke with frames; minicpm
+smoke (tied embeddings) — the ranks take two steps of ``make_train_step``
+over the mesh, each from the JAX package's state of the step before, on
+the same global batch JAX's jitted one-device step takes. Held as in
 ``tests/test_torch_train.py``: the metrics (JAX's global ``ce, aux,
 zloss, tokens, loss, grad_norm, lr``) within 1e-5 relative (``grad_norm``
 within the gradient's own tolerance where it is larger), the gathered
 parameters and moments at rtol 2e-4, atol 2e-6 plus the gradient's
 tolerance carried through Adam (`_adam_hold.hold_adam_step`: 1e-6 of each
-leaf's largest, 4e-5 with the orthogonal update, rwkv6's 1e-4 of
-``tests/test_torch_ssm.py``). The (2, 2) world also checkpoints its first
-step: every rank saves, rank 0 writes, and the file restores bit for bit
-into a sharded state (in the driver), on one rank of the port and in the
-JAX package; so does the (2, 1) world's.
+leaf's largest, 4e-5 with the orthogonal update, rwkv6's 1e-4 and jamba's
+1e-5 of ``tests/test_torch_ssm.py``). The (2, 2) world also checkpoints
+its first step: every rank saves, rank 0 writes, and the file restores bit
+for bit into a sharded state (in the driver), on one rank of the port and
+in the JAX package; so does the (2, 1) world's.
+
+At (2, 2) the world also runs the eval forward (``make_eval_step(mesh=,
+logits=True)``) of every case of the driver's ``EVALS`` — the ten archs'
+smoke configs (tied embeddings, patches, frames, mamba, MoE, RWKV) and
+attention's and RWKV's other splits — held to JAX's ``forward`` (logits
+within 1e-5 of their max |value|) and ``loss_fn`` (metrics within 1e-5
+relative) on the same weights and batch; its record of collectives shows
+no parameter gathered over ``model`` but the leaves
+``repro_torch.sharding.placement`` lists.
 """
 
 import functools
@@ -41,6 +55,7 @@ from _adam_hold import flat, hold_adam_step
 from repro.checkpoint.manager import CheckpointManager as JCheckpointManager
 from repro.configs import get_config as jget_config
 from repro.launch.mesh import make_host_mesh as jmake_host_mesh
+from repro.models import transformer as jtf
 from repro.optim import adamw as jadamw
 from repro.optim import schedules as jschedules
 from repro.train import step as jstep
@@ -49,10 +64,11 @@ from repro_torch.configs import get_config
 from repro_torch.models.transformer import Transformer
 from repro_torch.models.weights import opt_state_to_numpy, params_to_numpy
 from repro_torch.optim import AdamWConfig, adamw_init
+from repro_torch.sharding import placement
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 WORLDS = {"2x1": (2, 1), "2x2": (4, 2)}
-TAU = {"qwen_mask_orth": 4e-5, "rwkv": 1e-4}
+TAU = {"qwen_mask_orth": 4e-5, "rwkv": 1e-4, "jamba": 1e-5}
 
 
 def _inputs(cfg, name, rng):
@@ -66,9 +82,19 @@ def _inputs(cfg, name, rng):
         keep = np.array([0.15, 0.3, 0.9, 1.0])[:, None]
         batch["loss_mask"] = (rng.random((rows, seq)) < keep).astype(
             np.float32)
+    return _extra(cfg, batch, rng)
+
+
+def _extra(cfg, batch, rng):
+    """``batch`` with an encoder-decoder's frames or a patch config's
+    patches, standard normal from ``rng``."""
+    rows = batch["tokens"].shape[0]
     if cfg.is_enc_dec:
         batch["frames"] = rng.standard_normal(
             (rows, cfg.encoder_len, cfg.d_model), np.float32)
+    if cfg.patch_positions:
+        batch["patches"] = rng.standard_normal(
+            (rows, cfg.patch_positions, cfg.d_model), np.float32)
     return batch
 
 
@@ -112,11 +138,38 @@ def _reference():
     return given, steps
 
 
+@functools.lru_cache(maxsize=None)
+def _eval_reference():
+    """(the eval cases' ``.npz`` inputs, {case: (JAX's logits, JAX's
+    metrics)}): JAX's jitted ``forward`` and ``loss_fn`` on the port's
+    init of each case's config."""
+    given, want = {}, {}
+    for i, name in enumerate(driver.EVALS):
+        jcfg = driver.case_cfg(jget_config, name, driver.EVALS)
+        tcfg = driver.case_cfg(get_config, name, driver.EVALS)
+        tree = params_to_numpy(Transformer(tcfg, device="cpu").init(
+            torch.Generator().manual_seed(40 + i)))
+        rng = np.random.default_rng(60 + i)
+        batch = _extra(jcfg, {"tokens": rng.integers(
+            0, jcfg.vocab, (driver.EVAL_ROWS, driver.EVAL_SEQ)).astype(
+            np.int32)}, rng)
+        given.update(driver.flatten(tree, f"eval/{name}/params"))
+        given.update(driver.flatten(batch, f"eval/{name}/batch"))
+        logits, (loss, metrics) = jax.jit(
+            lambda p, b, c=jcfg: (jtf.forward(p, c, b)[0],
+                                  jtf.loss_fn(p, c, b)))(
+            jax.tree_util.tree_map(jnp.asarray, tree),
+            {k: jnp.asarray(v) for k, v in batch.items()})
+        want[name] = (np.asarray(logits), dict(
+            {k: float(v) for k, v in metrics.items()}, loss=float(loss)))
+    return given, want
+
+
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
     """Both worlds, spawned at once: each one's rank 0's results and its
     checkpoint dir."""
-    given, _ = _reference()
+    given = dict(_reference()[0], **_eval_reference()[0])
     env = dict(os.environ)
     env["PYTHONPATH"] = str(REPO / "src")
     env["OMP_NUM_THREADS"] = "1"
@@ -181,6 +234,48 @@ def test_mesh_steps_match_jax(world, name):
             tau=TAU.get(name, 1e-6), orthogonal=bool(
                 driver.CASES[name].get("orth")))
         assert int(got["step"]) == int(after.step) == s + 1
+
+
+@pytest.mark.parametrize("name", list(driver.EVALS))
+def test_eval_over_the_model_axis_matches_jax(worlds, name):
+    """The eval forward at (2, 2), every layer split over ``model``: the
+    global batch's logits, gathered over ``model`` and the data ranks,
+    within 1e-5 of the max |logit| of JAX's ``forward``, and the metrics
+    within 1e-5 relative of JAX's ``loss_fn``."""
+    logits_j, m_j = _eval_reference()[1][name]
+    got = driver.unflatten(worlds["2x2"]["out"], f"eval/{name}")
+    assert got["logits"].shape == logits_j.shape
+    err = np.abs(got["logits"].astype(np.float64) - logits_j).max()
+    assert err <= 1e-5 * np.abs(logits_j).max(), (name, err)
+    for key, want in m_j.items():
+        have = float(got["metrics"][key])
+        assert abs(have - want) <= 1e-5 * abs(want), (name, key, have, want)
+
+
+def test_the_forward_gathers_over_model_only_the_listed_leaves(worlds):
+    """The (2, 2) eval forwards' all-gathers over ``model``: the parameters
+    among them are leaves `placement.GATHERED_OVER_MODEL` names (listed in
+    the module's docstring) — mamba's ``in_proj`` and, where the heads do
+    not divide the axis, RWKV's ``w*`` — and nothing else; the rest are
+    activations split as a leaf (the logits, the row-parallel output)."""
+    allowed = placement.GATHERED_OVER_MODEL
+    for leaf in allowed:
+        assert f"``{leaf}``" in placement.__doc__, leaf
+    seen = {}
+    for name in driver.EVALS:
+        labels = [str(x) for x in
+                  worlds["2x2"]["out"][f"eval/{name}/gathered"] if str(x)]
+        params = {x[len("model:"):] for x in labels
+                  if not x.endswith(":out")}
+        bad = [p for p in params if not p.endswith(allowed)]
+        assert not bad, (name, bad)
+        seen[name] = params
+    assert {p.rsplit(".", 1)[1] for p in seen["jamba-v0.1-52b"]} == \
+        {"in_proj"}
+    assert {p.rsplit(".", 1)[1] for p in seen["rwkv_one_head"]} == \
+        {"wr", "wk", "wv", "wg", "wo"}
+    assert all(not seen[n] for n in driver.EVALS
+               if n not in ("jamba-v0.1-52b", "rwkv_one_head"))
 
 
 def test_mixtral_drop_case_oversubscribes_its_experts():

@@ -11,8 +11,10 @@ One process per card forms an NCCL world of N ranks and the ``("data",
 "model")`` mesh of (N / M, M) (`repro_torch.launch.mesh.make_host_mesh`,
 M = ``--model-parallel``). With FSDP and remat on, as qwen3-8b's
 configuration has them, each rank holds its slice of every
-parameter and moment, gathers a super-block's parameters before it runs
-(again under remat) and reduce-scatters the gradients. Two parts, each
+parameter and moment, gathers a super-block's parameters over the data
+axis before it runs (again under remat), splits every layer's compute
+over the model axis (its heads, ff columns and vocab columns) and
+reduce-scatters the gradients. Two parts, each
 from the state ``--seed`` draws and on the same global batch of 2 × 4,096
 tokens (`repro_torch.data.pipeline.TokenPipeline`):
 
@@ -24,6 +26,8 @@ tokens (`repro_torch.data.pipeline.TokenPipeline`):
     largest carried through the first Adam step (the bound of
     ``tests/_adam_hold.py``: the first step's update lr·g/(|g| + eps) is
     monotone in g, so its slack is the larger of its moves at g ± δg).
+    Beside it, each leaf's max |g − g_ref| over its largest |g_ref|, the
+    gradients read off the two first moments (``grad_rel``).
   * **time** — ``chip_smoke.py`` phase 11a's cut (4 of 36 blocks, bfloat16
     compute, float32 state, remat): the mesh-less step on card 0 first,
     then the mesh step: `TIMED` steps after a warm-up, each timed on every
@@ -46,7 +50,7 @@ tokens (`repro_torch.data.pipeline.TokenPipeline`):
     the card's.
 
 It prints the card's name and power limit, a JSON line of the results,
-and writes them to ``chiprun_out/train_mesh_cards.json``. It exits
+and writes them to ``chiprun_out/train_mesh_cards_<D>x<M>.json``. It exits
 non-zero without two cards, when a check above fails, or when a rank does
 not finish within `WORKER_TIMEOUT` seconds (it then kills every rank).
 ``--rehearse`` runs the same code on gloo ranks on the CPU at the smoke
@@ -94,7 +98,8 @@ def _hold_leaf(got, ref, *, lr, b1, b2, eps, what, chunk=1 << 25):
     (param, mu, nu) after the step, the reference's ``mu`` giving the
     clipped gradient g = mu / (1 − b1) (zero moments before the step).
     Float64 on the leaf's device, ``chunk`` elements at a time. Returns the
-    violations' messages."""
+    violations' messages and max |g_got − g_ref| / max |g_ref| (the
+    gradients the two ``mu`` give)."""
     import torch
 
     got = [t.reshape(-1) for t in got]
@@ -105,7 +110,10 @@ def _hold_leaf(got, ref, *, lr, b1, b2, eps, what, chunk=1 << 25):
         return lr * x / (x.abs() + eps)
 
     bad_n, worst = [0, 0, 0], [0.0, 0.0, 0.0]
+    g_err = 0.0
     for i in range(0, ref[0].numel(), chunk):
+        g_err = max(g_err, float((got[1][i:i + chunk].double()
+                                  - ref[1][i:i + chunk].double()).abs().max()))
         g = ref[1][i:i + chunk].double() / (1 - b1)
         u = update(g)
         slack = (torch.maximum((update(g + dg) - u).abs(),
@@ -122,7 +130,7 @@ def _hold_leaf(got, ref, *, lr, b1, b2, eps, what, chunk=1 << 25):
                 worst[j] = max(worst[j], float(err[bad].max()))
     return [f"{what} {name}: {n} elements beyond the bound, max |diff| "
             f"{w:.3e}" for name, n, w in zip(("p", "mu", "nu"), bad_n, worst)
-            if n]
+            if n], g_err / max(float(ref[1].abs().max()), 1e-30)
 
 
 def _worker(args) -> None:
@@ -196,15 +204,16 @@ def _worker(args) -> None:
         step = make_train_step(hold_cfg, opt, mesh)
         m = {k: float(v) for k, v in step(state, batch_h)[1].items()}
         place = state.placement
-        msgs, leaves = [], 0
+        msgs, leaves, g_rel = [], 0, {}
         for n, p in state.model.named_parameters():
             got = [place.full(n, t) for t in (
                 p.detach(), state.opt_state["mu"][n],
                 state.opt_state["nu"][n])]
             if rank == 0:
-                msgs += _hold_leaf(got, [t.to(dev) for t in ref[n]],
-                                   lr=ref_m["lr"], b1=opt.b1, b2=opt.b2,
-                                   eps=opt.eps, what=n)
+                bad, g_rel[n] = _hold_leaf(
+                    got, [t.to(dev) for t in ref[n]], lr=ref_m["lr"],
+                    b1=opt.b1, b2=opt.b2, eps=opt.eps, what=n)
+                msgs += bad
                 leaves += 1
             del got
         if rank == 0:
@@ -214,7 +223,8 @@ def _worker(args) -> None:
                      if rel[k] > (0 if k == "tokens" else 1e-5)]
             out["hold"] = {"metrics": m, "reference": ref_m,
                            "metrics_rel": rel, "leaves": leaves,
-                           "failures": msgs[:20], "ok": not msgs}
+                           "failures": msgs[:20], "ok": not msgs,
+                           "grad_rel": g_rel}
             del ref
         del state, step
 
@@ -397,16 +407,20 @@ def main(argv=None) -> int:
     print(json.dumps(out))
     dest = REPO / "chiprun_out"
     dest.mkdir(exist_ok=True)
-    (dest / ("train_mesh_cards_rehearsal.json" if args.rehearse
-             else "train_mesh_cards.json")).write_text(
+    (dest / (f"train_mesh_cards_{dims[0]}x{dims[1]}"
+             f"{'_rehearsal' if args.rehearse else ''}.json")).write_text(
         json.dumps(out, indent=1))
     vs = out["vs_dryrun"]
     ok = out["hold"]["ok"] and vs["flops_equal"] and all(
         vs["coll_equal"].values()) and all(
         r is None or 0.5 <= r <= 2.0
         for r in (vs["peak_ratio"], vs["micro_peak_ratio"]))
+    g_rel = out["hold"]["grad_rel"]
+    worst = max(g_rel, key=g_rel.get)
     print(f"hold {'ok' if out['hold']['ok'] else 'FAILED'}: "
-          f"{out['hold']['failures']}; mesh step median "
+          f"{out['hold']['failures']}; gradients within "
+          f"{g_rel[worst]:.3e} of a leaf's largest ({worst}); mesh step "
+          f"median "
           f"{t['median_ms']:.1f} ms over {dims}, mesh-less "
           f"{statistics.median(out['mesh_less_ms']):.1f} ms; FLOPs and "
           f"collective bytes equal to the dry run's: "
