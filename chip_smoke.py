@@ -4576,6 +4576,237 @@ def phase_train_mesh(seed: int, step_ms_11a: float) -> dict:
     return out
 
 
+# -- phase 15: prefill and decode over a mesh -----------------------------------
+
+MESH_SERVE_BLOCKS = 4  # 15a/15b: qwen3-8b cut to 4 of its 36 blocks
+MESH_SERVE_STEPS = 8  # 15a: decode steps held bit for bit
+SERVE_CELLS_15C = (("qwen3-8b", "prefill_32k"), ("qwen3-8b", "decode_32k"),
+                   ("mixtral-8x22b", "long_500k"))
+
+
+def _serve_dryrun(out_dir: pathlib.Path, arch: str, shape: str, *args):
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--out", str(out_dir), *args], cwd=REPO, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, time.perf_counter(), out_dir
+
+
+def phase_lm_serve_mesh(seed: int) -> dict:
+    """Phase 15: prefill and decode through the mesh path (A14.8).
+
+    15a: 7c's cut (qwen3-8b at full width, `MESH_SERVE_BLOCKS` of 36
+    blocks, float32 weights, bf16 compute, 8 prompts of 2,048 tokens) over
+    a one-rank NCCL world and `make_host_mesh`: the model sharded over it
+    (`train.serve.shard_model`: every slice whole), prefill and
+    `MESH_SERVE_STEPS` greedy decode steps through `make_prefill(mesh=)`
+    and `make_decode_step(mesh=)`, held to the mesh-less run bit for bit
+    (logits and every cache leaf), with no collective recorded; then one
+    `DecodeGraph` replay on the mesh against one eager step from the same
+    cache, bit for bit. 15b: the dry run of a cut prefill and a cut decode
+    cell on a (1, 1) mesh (``--host-mesh 1,1 --blocks 4 --batch 8 --seq
+    2048``, fake tensors on the CPU, subprocesses): each one's
+    ``flops_per_device`` must equal ``FlopCounterMode``'s count of the same
+    call on the card (the dry run's cell config: bf16 parameters, a decode
+    step attending in one block) exactly, and its peak lie within [0.5, 2]
+    of the call's ``max_memory_allocated``. 15c: the full-size 16 × 16
+    records of `SERVE_CELLS_15C` (a model, not a run): peak, FLOPs,
+    collective bytes and ``dominant``."""
+    import dataclasses
+    import datetime
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch.dryrun import cell_config, flop_counter
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.sharding.collectives import recording
+    from repro_torch.train.serve import (DecodeGraph, make_decode_step,
+                                         make_prefill, shard_model)
+
+    out_root = REPO / "chiprun_out" / "dryrun"
+    cut = ["--host-mesh", "1,1", "--blocks", str(MESH_SERVE_BLOCKS),
+           "--batch", str(SERVE_BATCH), "--seq", str(SERVE_PROMPT)]
+    runs = {"15b_prefill": _serve_dryrun(out_root / "15b_prefill",
+                                         "qwen3-8b", "prefill_32k", *cut),
+            "15b_decode": _serve_dryrun(out_root / "15b_decode", "qwen3-8b",
+                                        "decode_32k", *cut)}
+    for arch, shape in SERVE_CELLS_15C:
+        runs[f"15c_{shape}"] = _serve_dryrun(out_root / f"15c_{shape}", arch,
+                                             shape, "--mesh", "single")
+
+    cfg = dataclasses.replace(get_config("qwen3-8b"),
+                              n_blocks=MESH_SERVE_BLOCKS)
+    max_len = SERVE_PROMPT + MESH_SERVE_STEPS + 1
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    prompt = {"tokens": torch.randint(0, cfg.vocab,
+                                      (SERVE_BATCH, SERVE_PROMPT),
+                                      generator=gen, device="cuda")}
+
+    def served(model, mesh):
+        prefill = make_prefill(cfg, max_len, mesh=mesh)
+        decode = make_decode_step(cfg, mesh=mesh)
+        _, warm = prefill(model, {"tokens": prompt["tokens"][:, :16]})
+        decode(model, warm, prompt["tokens"][:, :1].to(torch.int32))
+        del warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(model, prompt)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        out = [logits.clone()]
+        steps = []
+        for _ in range(MESH_SERVE_STEPS):
+            tok = out[-1].argmax(-1)[:, None].to(torch.int32)
+            t0 = time.perf_counter()
+            logits, cache = decode(model, cache, tok)
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t0) * 1e3)
+            out.append(logits.clone())
+        return out, cache, t_pre * 1e3, steps
+
+    def fresh():
+        g = torch.Generator(device="cuda").manual_seed(seed + 8)
+        return Transformer(cfg, device="cuda").init(g)
+
+    torch.cuda.empty_cache()
+    model = fresh()
+    ref_logits, ref_cache, ref_pre, ref_steps = served(model, None)
+    ref_logits = [t.cpu() for t in ref_logits]
+    ref_cache = {id_: t.cpu() for id_, t in enumerate(cache_leaves(
+        ref_cache))}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out = {}
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(str(pathlib.Path(tmp) / "store"), 1),
+            rank=0, world_size=1, timeout=datetime.timedelta(seconds=300),
+            device_id=torch.device("cuda", 0))
+        try:
+            mesh = make_host_mesh()
+            check(mesh.size == 1 and mesh.backend == "nccl",
+                  f"15a: a one-rank NCCL mesh ({mesh.shape})")
+            model = shard_model(fresh(), mesh)
+            with recording() as record:
+                logits, cache, t_pre, steps = served(model, mesh)
+            check(record == [], "15a: a one-rank mesh issues no collective")
+            leaves = cache_leaves(cache)
+            bit_equal = all(torch.equal(a.cpu(), b) for a, b in
+                            zip(logits, ref_logits, strict=True)) and all(
+                torch.equal(t.cpu(), ref_cache[i])
+                for i, t in enumerate(leaves))
+            check(bit_equal, "15a: prefill, decode and the cache over the "
+                  "one-rank mesh are the mesh-less ones bit for bit")
+            tok = logits[-1].argmax(-1)[:, None].to(torch.int32)
+            decode = make_decode_step(cfg, mesh=mesh)
+            graph_cache = clone_cache(cache)
+            decode(model, graph_cache, tok)  # the step before a capture
+            graph = DecodeGraph(model, cfg, graph_cache, tok)
+            eager_cache = clone_cache(graph_cache)
+            replay = graph(tok).clone()
+            eager, _ = decode(model, eager_cache, tok)
+            torch.cuda.synchronize()
+            replay_equal = torch.equal(replay, eager) and caches_equal(
+                graph_cache, eager_cache)
+            graph.close()
+            check(replay_equal, "15a: a DecodeGraph replay on the one-rank "
+                  "mesh equals an eager step bit for bit")
+            log(f"15a: qwen3-8b {MESH_SERVE_BLOCKS} blocks, {SERVE_BATCH} x "
+                f"{SERVE_PROMPT} prompt tokens over the one-rank NCCL mesh: "
+                f"prefill {t_pre:.1f} ms (mesh-less {ref_pre:.1f}), decode "
+                f"median {statistics.median(steps):.2f} ms a step "
+                f"(mesh-less {statistics.median(ref_steps):.2f}; eager, host "
+                f"clock); bit-equal {bit_equal}, replay bit-equal "
+                f"{replay_equal}, no collective")
+            out["15a"] = {"bit_equal": bit_equal,
+                          "replay_equal": replay_equal,
+                          "prefill_ms": t_pre, "prefill_ms_mesh_less": ref_pre,
+                          "decode_ms": steps, "decode_ms_mesh_less": ref_steps}
+            del model, cache, graph_cache, eager_cache, graph
+        finally:
+            dist.destroy_process_group()
+    del ref_cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 15b: the cut cells on the card, in the dry run's cell config.
+    card = {}
+    for shape, kind in (("prefill_32k", "prefill"), ("decode_32k", "decode")):
+        spec = ShapeSpec(shape, SERVE_PROMPT, SERVE_BATCH, kind)
+        ccfg = cell_config(cfg, spec, {"data": 1, "model": 1})
+        g = torch.Generator(device="cuda").manual_seed(seed + 9)
+        model = Transformer(ccfg, device="cuda").init(g)
+        prefill = make_prefill(ccfg, SERVE_PROMPT)
+        if kind == "prefill":
+            def call():
+                return prefill(model, prompt)
+        else:
+            _, cache = prefill(model, {"tokens": prompt["tokens"][:, :16]})
+            decode = make_decode_step(ccfg)
+            tok = prompt["tokens"][:, :1].to(torch.int32)
+            pos = cache["pos"].clone()
+
+            def call():
+                with torch.inference_mode():
+                    cache["pos"].copy_(pos)
+                return decode(model, cache, tok)
+        call()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        result = call()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        del result
+        with flop_counter() as fc:
+            call()
+        torch.cuda.synchronize()
+        card[kind] = {"flops": fc.get_total_flops(), "peak": peak}
+        del model, prefill
+        if kind == "decode":
+            del cache, decode
+        gc.collect()
+        torch.cuda.empty_cache()
+    for kind in ("prefill", "decode"):
+        rec = _dryrun_wait(runs[f"15b_{kind}"], f"15b {kind}")
+        ratio = rec["peak_memory_per_device"] / card[kind]["peak"]
+        log(f"15b {kind}: dry run of the cut on (1, 1) in "
+            f"{rec['seconds']:.1f} s: flops_per_device "
+            f"{rec['flops_per_device']:.6e} (card "
+            f"{card[kind]['flops']:.6e}); peak "
+            f"{rec['peak_memory_per_device'] / 1e9:.3f} GB, {ratio:.3f} of "
+            f"the card's max_memory_allocated "
+            f"{card[kind]['peak'] / 1e9:.3f} GB")
+        check(rec["flops_per_device"] == card[kind]["flops"],
+              f"15b {kind}: the dry run's FLOPs equal FlopCounterMode's "
+              f"count on the card")
+        check(0.5 <= ratio <= 2.0, f"15b {kind}: peak ratio {ratio:.3f} "
+              f"within [0.5, 2]")
+        out[f"15b_{kind}"] = {**rec, "card_flops": card[kind]["flops"],
+                              "card_peak": card[kind]["peak"],
+                              "memory_ratio": ratio}
+    for arch, shape in SERVE_CELLS_15C:
+        rec = _dryrun_wait(runs[f"15c_{shape}"], f"15c {arch} {shape}")
+        coll = sum(rec["coll_breakdown"].values())
+        log(f"15c: {arch} x {shape} on 16 x 16 (a model, {rec['seconds']:.1f}"
+            f" s of dry run): peak {rec['peak_memory_per_device'] / 1e9:.3f}"
+            f" GB a device, flops_per_device {rec['flops_per_device']:.4e}, "
+            f"collective bytes {coll:.4e}, dominant {rec['dominant']}, "
+            f"model_flops {rec['model_flops']:.4e}, memory_analysis "
+            f"{rec['memory_analysis']}")
+        out[f"15c_{arch}_{shape}"] = dict(rec, collective_bytes=coll)
+    return out
+
+
 def flash_entry(res: dict) -> dict:
     """The kernels line's keys of one config's flash `measure` result."""
     return {k: res[k] for k in (
@@ -4854,6 +5085,14 @@ def main(argv=None) -> int:
     log(f"phase 14 took {time.perf_counter() - t14:.1f} s; elapsed "
         f"{time.perf_counter() - t_start:.1f} s")
 
+    log("== phase 15: prefill and decode through the mesh path (15a "
+        "one-rank NCCL mesh against the mesh-less run; 15b the dry run of "
+        "cut serving cells; 15c the 16 x 16 serving records)")
+    t15 = time.perf_counter()
+    serve_mesh = phase_lm_serve_mesh(args.seed)
+    log(f"phase 15 took {time.perf_counter() - t15:.1f} s; elapsed "
+        f"{time.perf_counter() - t_start:.1f} s")
+
     log("== phase 8: summary")
     measured = {
         "node_fused": (launches, per_dtype["float32"]["node_fused"],
@@ -4962,6 +5201,7 @@ def main(argv=None) -> int:
                     "flash_cases_bound_ratio": flash_case_err,
                     "lm_train": train,
                     "lm_train_mesh": train_mesh,
+                    "lm_serve_mesh": serve_mesh,
                     "moe_ssm": {n: {k: v for k, v in r.items()
                                     if k != "flash"}
                                 for n, r in moe_ssm.items()},

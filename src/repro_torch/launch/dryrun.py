@@ -1,14 +1,17 @@
-"""Dry run of the production training cells: rank 0's real step on fake
-tensors over a fake world of 256 or 512 ranks.
+"""Dry run of the production cells: rank 0's real train step, prefill or
+decode step on fake tensors over a fake world of 256 or 512 ranks.
 
-The port of the JAX package's ``launch/dryrun.py``, for the train cells.
-JAX lowers and compiles each (arch × shape × mesh) cell against 512
-placeholder host devices; the port initializes a ``"fake"`` process group
-of 256 (16 × 16) or 512 (2 × 16 × 16) ranks in this process
+The port of the JAX package's ``launch/dryrun.py``. JAX lowers and
+compiles each (arch × shape × mesh) cell against 512 placeholder host
+devices; the port initializes a ``"fake"`` process group of 256 (16 × 16)
+or 512 (2 × 16 × 16) ranks in this process
 (`torch.testing._internal.distributed.fake_pg.FakeStore`), builds rank
-0's slice of the state under ``FakeTensorMode`` (nothing is allocated) and
-runs rank 0's real train step (`repro_torch.train.step`) on it. Per device,
-that is rank 0's local program:
+0's slice of the state (a train cell's parameters and moments; a serving
+cell's parameters, and a decode cell's cache as ``cache_specs`` lays it
+out) under ``FakeTensorMode`` (nothing is allocated) and runs rank 0's
+real train step (`repro_torch.train.step`), prefill or decode step
+(`repro_torch.train.serve`) on it. Per device, that is rank 0's local
+program:
 
   * FLOPs: ``torch.utils.flop_counter.FlopCounterMode`` over the step
     (`flop_counter`: without its module tracker, whose hooks keep every
@@ -21,7 +24,9 @@ that is rank 0's local program:
   * peak memory: the state and batch slices plus the largest sum of live
     tensor bytes the step reaches (a tracker of every storage the step
     allocates, freed with it), checked against the card in
-    ``chip_smoke.py`` phase 14b.
+    ``chip_smoke.py`` phases 14b and 15b. A decode step writes its cache in
+    place, as JAX's donation aliases it: the cache counts once, in the
+    state.
 
 A fake step's time grows with depth × micro-steps × ops, so, as JAX's cost
 pass, every figure comes from steps of 1 and 2 super-blocks extrapolated
@@ -33,9 +38,13 @@ micro-step and JAX's overrides ``attn_block_kv = max(seq, …)`` and
 memory pass took to build its fake states, ``compile_s`` the seconds of
 its steps, ``cost_pass_s`` the cost pass's.
 
-Prefill and decode cells need sharded prefill and decode on
-``cache_specs``' layout (ROADMAP A14.8) and raise `NotImplementedError`
-naming it.
+A serving cell runs as JAX's: bfloat16 parameters, FSDP kept only where
+the parameters split over ``model`` alone would pass 6 GB a device
+(``serve_bf16``), the KV slots over ``model`` (``kv_seq_shard``), a decode
+step attending in one block (``attn_block_kv = max(seq, …)``), and
+long_500k's batch of one served with ``shard_seq`` (its slots over
+``data``). Model FLOPs are 2·N_active·B·S for a prefill and 2·N_active·B
+for a decode step.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k --mesh single
@@ -72,10 +81,8 @@ __all__ = ["OPT_DEFAULTS", "cell_config", "flop_counter", "input_specs",
            "run_cell", "main"]
 
 #: Post-hillclimb defaults of the JAX package (its EXPERIMENTS.md §Perf),
-#: with JAX's keys. In the port's train cells two of them change the step;
-#: the others change nothing: two are hints JAX's sharding constraints read
-#: and the port has no counterpart of, two the serving cells' (ROADMAP
-#: A14.8).
+#: with JAX's keys. Four of them change the port's cells; two are hints
+#: JAX's sharding constraints read and the port has no counterpart of.
 OPT_DEFAULTS = {
     "hier_moe": True,       # moe_groups = the data ranks (else 1)
     # No effect: JAX's hint to keep activations split over the sequence
@@ -85,8 +92,10 @@ OPT_DEFAULTS = {
     # No effect: the port's head is always vocab-split over ``model`` and
     # its loss vocab-parallel; only the eval forward gathers the logits.
     "sharded_logits": True,
-    "serve_bf16": True,     # no effect: serving cells are A14.8
-    "kv_seq_shard": True,   # no effect: serving cells are A14.8
+    # Serving: bfloat16 parameters, FSDP dropped where the parameters split
+    # over ``model`` fit in 6 GB a device.
+    "serve_bf16": True,
+    "kv_seq_shard": True,   # KV slots over ``model`` (else the head dim)
     "train_bf16": False,    # bfloat16 parameters and moments
 }
 
@@ -151,50 +160,45 @@ def _shape_spec(shape) -> ShapeSpec:
 
 def cell_config(cfg: ModelConfig, shape, mesh,
                 opts: dict | None = None) -> ModelConfig:
-    """``cfg`` as a train cell of ``shape`` on ``mesh`` (a mesh or an axis
-    → size dict) runs it under ``opts`` (over `OPT_DEFAULTS`): with
+    """``cfg`` as a cell of ``shape`` on ``mesh`` (a mesh or an axis →
+    size dict) runs it under ``opts`` (over `OPT_DEFAULTS`): with
     ``hier_moe`` a MoE routes in one group per data rank, else in one
-    global group; ``train_bf16`` stores the parameters and moments in
-    bfloat16. The other options change nothing in the port."""
+    global group; a train cell under ``train_bf16`` stores the parameters
+    and moments in bfloat16; a serving cell under ``serve_bf16`` stores
+    the parameters in bfloat16 and keeps FSDP only where 2·N / |model|
+    passes 6 GB; a decode step attends in one block of the whole cache.
+    ``kv_seq_shard`` is the cache's layout (`input_specs`)."""
     opts = dict(OPT_DEFAULTS, **(opts or {}))
+    spec = _shape_spec(shape)
     shape_of = mesh_shape(mesh)
-    if _shape_spec(shape).global_batch > 1:
+    if spec.global_batch > 1:
         dp_size = math.prod(shape_of[a] for a in data_axes(shape_of))
         cfg = dataclasses.replace(
             cfg, moe_groups=dp_size if (cfg.moe and opts["hier_moe"]) else 1)
-    if opts["train_bf16"]:
+    if spec.kind == "train" and opts["train_bf16"]:
         cfg = dataclasses.replace(cfg, param_dtype="bfloat16",
                                   opt_state_dtype="bfloat16")
+    if spec.kind != "train" and opts["serve_bf16"]:
+        resident_gb = 2 * cfg.param_count() / shape_of.get("model", 1) / 1e9
+        cfg = dataclasses.replace(cfg, param_dtype="bfloat16",
+                                  fsdp=cfg.fsdp and resident_gb > 6.0)
+    if spec.kind == "decode":
+        cfg = dataclasses.replace(
+            cfg, attn_block_kv=max(spec.seq_len, cfg.attn_block_kv))
     return cfg
 
 
-def input_specs(cfg: ModelConfig, shape, mesh, *,
-                force_micro: int | None = None, opts: dict | None = None):
-    """(step_fn, (state, batch), model_flops) of a train cell: rank 0's
-    sharded state and the global batch, built as fake tensors. Call it
-    inside the ``FakeTensorMode`` the step will run in."""
-    from repro_torch.models.transformer import Transformer
-    from repro_torch.train.step import TrainState, make_train_step, \
-        shard_state
+class _Cell:
+    """A cell's program on rank 0: ``fn(*args)``, the tensors that exist
+    before it (``held``: the state, the parameters, a decode step's cache)
+    and the bytes of rank 0's rows of the batch."""
 
-    spec = _shape_spec(shape)
-    if spec.kind != "train":
-        raise NotImplementedError(
-            f"{spec.name}: the dry run's {spec.kind} cells need sharded "
-            f"prefill and decode (ROADMAP A14.8)")
-    batch, seq = spec.global_batch, spec.seq_len
-    dp_size = math.prod(mesh.shape[a] for a in data_axes(mesh))
-    cfg = cell_config(cfg, spec, mesh, opts)
-    opt_cfg = AdamWConfig(state_dtype=cfg.opt_state_dtype)
-    n_active = cfg.active_param_count()
-    micro = max(1, batch // dp_size) if seq >= 4096 else 1
-    if force_micro is not None:
-        micro = force_micro
+    def __init__(self, fn, args, flops, held, rows_bytes, aliased=0):
+        self.fn, self.args, self.flops = fn, args, flops
+        self.held, self.rows_bytes, self.aliased = held, rows_bytes, aliased
 
-    model = Transformer(cfg, device="cpu")
-    state = TrainState(model=model, opt_state=adamw_init(model, opt_cfg),
-                       step=torch.zeros((), dtype=torch.int32))
-    shard_state(state, mesh)
+
+def _inputs(cfg: ModelConfig, batch: int, seq: int) -> dict:
     cdt = dtype_of(cfg.compute_dtype)
     text = seq - cfg.patch_positions if cfg.patch_positions else seq
     inputs = {"tokens": torch.zeros((batch, text), dtype=torch.int32)}
@@ -204,22 +208,92 @@ def input_specs(cfg: ModelConfig, shape, mesh, *,
     if cfg.patch_positions:
         inputs["patches"] = torch.zeros(
             (batch, cfg.patch_positions, cfg.d_model), dtype=cdt)
+    return inputs
+
+
+def _cell(cfg: ModelConfig, shape, mesh, *, force_micro: int | None = None,
+          opts: dict | None = None) -> _Cell:
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.train.step import TrainState, make_train_step, \
+        shard_state
+
+    spec = _shape_spec(shape)
+    opts = dict(OPT_DEFAULTS, **(opts or {}))
+    batch, seq = spec.global_batch, spec.seq_len
+    dp_size = math.prod(mesh.shape[a] for a in data_axes(mesh))
+    cfg = cell_config(cfg, spec, mesh, opts)
+    n_active = cfg.active_param_count()
+    if spec.kind != "train":
+        return _serve_cell(cfg, spec, mesh, opts, n_active)
+    opt_cfg = AdamWConfig(state_dtype=cfg.opt_state_dtype)
+    micro = max(1, batch // dp_size) if seq >= 4096 else 1
+    if force_micro is not None:
+        micro = force_micro
+
+    model = Transformer(cfg, device="cpu")
+    state = TrainState(model=model, opt_state=adamw_init(model, opt_cfg),
+                       step=torch.zeros((), dtype=torch.int32))
+    shard_state(state, mesh)
+    inputs = _inputs(cfg, batch, seq)
     step = make_train_step(cfg, opt_cfg, mesh, microbatch=micro,
                            device="cpu")
-    return step, (state, inputs), 6.0 * n_active * batch * seq
+    held = [*model.parameters(), state.step, state.opt_state["step"],
+            *(t for k in ("mu", "nu") for t in state.opt_state[k].values())]
+    rows = sum(_nbytes(v) // state.placement.data.size
+               for v in inputs.values())
+    return _Cell(step, (state, inputs), 6.0 * n_active * batch * seq, held,
+                 rows)
+
+
+def _serve_cell(cfg: ModelConfig, spec, mesh, opts: dict,
+                n_active: int) -> _Cell:
+    """A prefill or decode cell: rank 0's parameters, the global batch (a
+    prefill) or rank 0's cache slice and token rows (a decode step)."""
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.sharding.cache import CacheLayout, ServeCache
+    from repro_torch.train.serve import (make_decode_step, make_prefill,
+                                         shard_model)
+
+    batch, seq = spec.global_batch, spec.seq_len
+    shard_seq = batch == 1  # context parallelism for long_500k
+    kv_seq = bool(opts["kv_seq_shard"])
+    model = shard_model(Transformer(cfg, device="cpu"), mesh)
+    params = list(model.parameters())
+    if spec.kind == "prefill":
+        inputs = _inputs(cfg, batch, seq)
+        fn = make_prefill(cfg, seq, "cpu", mesh=mesh, shard_seq=shard_seq,
+                          kv_seq_over_model=kv_seq)
+        rows = CacheLayout.rows_of(mesh, shard_seq)
+        return _Cell(fn, (model, inputs), 2.0 * n_active * batch * seq,
+                     params, sum(_nbytes(v) // rows for v in inputs.values()))
+    layout = CacheLayout(cfg, mesh, model.cache_shapes(batch, seq, cfg),
+                         shard_seq=shard_seq, kv_seq_over_model=kv_seq)
+    blocks = model.init_cache(batch, seq, cfg, layout=layout)
+    cache = ServeCache({"blocks": blocks, "pos": torch.zeros(
+        (), dtype=torch.int32)}, layout)
+    tokens = torch.zeros((batch // layout.rows, 1), dtype=torch.int32)
+    leaves = [t for kinds in blocks.values() for leaves in kinds.values()
+              for t in leaves.values()] + [cache["pos"]]
+    fn = make_decode_step(cfg, "cpu", mesh=mesh)
+    return _Cell(fn, (model, cache, tokens), 2.0 * n_active * batch,
+                 params + leaves, _nbytes(tokens),
+                 aliased=sum(_nbytes(t) for t in leaves))
+
+
+def input_specs(cfg: ModelConfig, shape, mesh, *,
+                force_micro: int | None = None, opts: dict | None = None):
+    """(fn, args, model_flops) of a cell: a train cell's step and (rank 0's
+    sharded state, the global batch); a prefill cell's ``prefill_fn`` and
+    (rank 0's sharded model, the global batch); a decode cell's
+    ``decode_fn`` and (the model, rank 0's cache slice, its token rows),
+    built as fake tensors. Call it inside the ``FakeTensorMode`` the
+    program will run in."""
+    cell = _cell(cfg, shape, mesh, force_micro=force_micro, opts=opts)
+    return cell.fn, cell.args, cell.flops
 
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
-
-
-def _state_bytes(state, inputs, place) -> tuple[int, int]:
-    """(the state's bytes, rank 0's rows' bytes) of a fake cell."""
-    state_b = sum(_nbytes(p) for p in state.model.parameters())
-    state_b += sum(_nbytes(t) for k in ("mu", "nu")
-                   for t in state.opt_state[k].values())
-    rows = place.data.size if place is not None else 1
-    return state_b, sum(_nbytes(v) // rows for v in inputs.values())
 
 
 class _Accounting:
@@ -284,20 +358,22 @@ def _pass(cfg: ModelConfig, shape, mesh, *, force_micro, opts,
 
     t0 = time.perf_counter()
     with FakeTensorMode():
-        step, (state, inputs), _ = input_specs(
-            cfg, shape, mesh, force_micro=force_micro, opts=opts)
-        state_b, rows_b = _state_bytes(state, inputs, state.placement)
+        cell = _cell(cfg, shape, mesh, force_micro=force_micro, opts=opts)
+        state_b = sum(_nbytes(t) for t in cell.held
+                      if t.dtype != torch.int32 or t.ndim)
+        rows_b, aliased = cell.rows_bytes, cell.aliased
         t_build = time.perf_counter() - t0
         acc = _Accounting()
-        acc.exclude([*state.model.parameters(), state.step,
-                     *(t for k in ("mu", "nu")
-                       for t in state.opt_state[k].values()),
-                     state.opt_state["step"], *inputs.values()])
+        acc.exclude([*cell.held, *(t for a in cell.args
+                                   if isinstance(a, dict)
+                                   for t in a.values()
+                                   if isinstance(t, torch.Tensor)),
+                     *(a for a in cell.args if isinstance(a, torch.Tensor))])
         with recording() as record, flop_counter() as fc, acc.mode:
-            step(state, inputs)
-        del step, state, inputs
+            cell.fn(*cell.args)
+        del cell
     out = {"build_s": t_build, "run_s": time.perf_counter() - t0 - t_build,
-           "state": state_b, "rows": rows_b}
+           "state": state_b, "rows": rows_b, "aliased": aliased}
     if count:
         out.update({"flops": float(fc.get_total_flops()),
                     "bytes accessed": float(acc.bytes),
@@ -359,7 +435,8 @@ def _memory_pass(cfg: ModelConfig, shape, mesh, *, force_micro, opts):
     micro = max(1, spec.global_batch // dp) if spec.seq_len >= 4096 else 1
     micro = force_micro if force_micro is not None else micro
     run = spec
-    if micro > 2 and spec.global_batch % (dp * micro) == 0:
+    if spec.kind == "train" and micro > 2 and \
+            spec.global_batch % (dp * micro) == 0:
         per_micro = spec.global_batch // (dp * micro)
         run = ShapeSpec(spec.name, spec.seq_len, dp * per_micro * 2,
                         spec.kind)
@@ -375,6 +452,16 @@ def _memory_pass(cfg: ModelConfig, shape, mesh, *, force_micro, opts):
     out["build_s"] = m1["build_s"] + m2["build_s"]
     out["run_s"] = m1["run_s"] + m2["run_s"]
     return out
+
+
+def _model_flops(cfg: ModelConfig, spec) -> float:
+    """JAX's model FLOPs of a cell: 6·N_active·B·S a train step,
+    2·N_active·B·S a prefill, 2·N_active·B a decode step (N_active of the
+    config as given, as JAX's)."""
+    n = cfg.active_param_count() * spec.global_batch
+    if spec.kind == "train":
+        return 6.0 * n * spec.seq_len
+    return 2.0 * n * (spec.seq_len if spec.kind == "prefill" else 1)
 
 
 def run_cell(arch: str, shape_name, multi_pod: bool, out_dir: str, *,
@@ -408,16 +495,17 @@ def run_cell(arch: str, shape_name, multi_pod: bool, out_dir: str, *,
         if verbose:
             print(f"[skip] {arch} × {spec.name} × {mesh_name}: {why}")
         return rec
-    if spec.kind != "train":
-        raise NotImplementedError(
-            f"{arch} × {spec.name} × {mesh_name}: the dry run's {spec.kind} "
-            f"cells need sharded prefill and decode (ROADMAP A14.8)")
     if with_cost is None:
         # Roofline table is single-pod; multi-pod proves the `pod` axis
         # shards.
         with_cost = not multi_pod or host_mesh is not None
     try:
         mesh = _mesh(dims)
+        if spec.kind != "train":
+            # A serving cell's dtype and FSDP are decided on the whole
+            # depth, before the passes cut it.
+            cfg = cell_config(cfg, spec, mesh, opts)
+            opts = dict(opts or {}, serve_bf16=False)
         mem = _memory_pass(cfg, spec, mesh, force_micro=force_micro,
                            opts=opts)
         t_lower, t_compile = mem["build_s"], mem["run_s"]
@@ -427,18 +515,21 @@ def run_cell(arch: str, shape_name, multi_pod: bool, out_dir: str, *,
                                             overrides=cost_overrides)
         peak = mem["peak"]
         arg = mem["state"] + mem["rows"]
+        # What the program writes in place: a train step's state, a decode
+        # step's cache (JAX's donated arguments); a prefill writes new ones.
+        alias = mem["state"] if spec.kind == "train" else mem["aliased"]
         mem_rec = {"argument_size_in_bytes": int(arg),
-                   "output_size_in_bytes": int(mem["state"]),
+                   "output_size_in_bytes": int(alias),
                    "temp_size_in_bytes": int(peak - arg),
-                   "alias_size_in_bytes": int(mem["state"]),
+                   "alias_size_in_bytes": int(alias),
                    "generated_code_size_in_bytes": 0}
         rec = {"status": "ok", "arch": arch, "shape": spec.name,
                "mesh": mesh_name, "memory_analysis": mem_rec,
                "peak_memory_per_device": peak,
                "lower_s": round(t_lower, 1), "compile_s": round(t_compile, 1),
                "cost_pass_s": round(t_cost, 1)}
-        model_flops = 6.0 * cfg.active_param_count() * spec.global_batch \
-            * spec.seq_len
+        model_flops = _model_flops(cfg, spec)
+        rec["model_flops"] = model_flops
         if with_cost:
             rl = build_roofline(arch=arch, shape=spec.name,
                                 mesh_name=mesh_name, chips=chips, cost=cost,
@@ -476,18 +567,19 @@ def run_cell(arch: str, shape_name, multi_pod: bool, out_dir: str, *,
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=ARCH_NAMES)
+    ap.add_argument("--arch", nargs="+", choices=ARCH_NAMES)
     ap.add_argument("--shape", choices=list(SHAPES))
     ap.add_argument("--mesh", choices=["single", "multi", "both"],
                     default="single")
     ap.add_argument("--all", action="store_true",
-                    help="every arch × train shape (the serving cells are "
-                         "ROADMAP A14.8)")
+                    help="every arch × shape (JAX's skip rule applies)")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced configs (CI sanity, not the deliverable)")
     ap.add_argument("--baseline", action="store_true",
-                    help="JAX's pre-hillclimb options; in the port only the "
-                         "MoE changes: one global group (moe_groups=1)")
+                    help="JAX's pre-hillclimb options: one global MoE group "
+                         "(moe_groups=1); serving cells in the config's "
+                         "parameter dtype with its FSDP, the KV cache's head "
+                         "dim over model (no kv_seq_shard)")
     ap.add_argument("--attn-accounting", choices=["dense", "blockwise"],
                     default="dense",
                     help="cost-pass attention: 'dense' one KV block of the "
@@ -514,11 +606,8 @@ def main(argv=None) -> None:
     if args.host_mesh:
         host = tuple(int(x) for x in args.host_mesh.split(","))
 
-    archs = ARCH_NAMES if args.all or not args.arch else [args.arch]
-    if args.all or not args.shape:
-        shapes = [s for s in SHAPES if SHAPES[s].kind == "train"]
-    else:
-        shapes = [args.shape]
+    archs = ARCH_NAMES if args.all or not args.arch else args.arch
+    shapes = list(SHAPES) if args.all or not args.shape else [args.shape]
     meshes = {"single": [False], "multi": [True],
               "both": [False, True]}[args.mesh]
     if host is not None:

@@ -22,9 +22,17 @@ attention on the rank's q heads (``wq``, ``wo``) and on the kv heads they
 read (``wk``/``wv`` split with them where the kv heads divide the axis,
 else held whole and cut), or, where the heads do not divide the axis,
 row-parallel (``wq``/``wk``/``wv`` on the rank's rows of d, all heads
-attended, ``wo``'s columns gathered); the MLP on its ff columns. The train
-and cross branches split; the cache branches run on one rank's axis only
-(sharded serving is ROADMAP A14.8).
+attended, ``wo``'s columns gathered); the MLP on its ff columns. The cache
+branches read and write the rank's part of a cache laid out by
+`repro_torch.sharding.cache` (``cache["split"]``, a `CacheSplit`): where
+the cache holds the rank's kv heads they attend as training does; where it
+holds every kv head on the rank's slots (``kv_seq_over_model``, or the
+slots over ``data`` under ``shard_seq``) the rank gathers every q head,
+attends over its slots and combines the online softmax's statistics over
+the slot group (`_attend_cache`), then keeps its own heads for ``wo``;
+where it holds the rank's columns of the head dim, the logits are summed
+over ``model`` and the output's columns gathered. A decode step's slot is
+written by the rank that holds it, decided on the device.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.sharding.cache import TRIVIAL_SPLIT
 from repro_torch.sharding.collectives import TRIVIAL
 from .config import ModelConfig
 
@@ -56,6 +65,18 @@ FLASH_NO_BACKWARD = (
 
 def dtype_of(name: str) -> torch.dtype:
     return _DTYPES[name]
+
+
+def wide_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype norms, softmax and logits of ``dtype`` values are computed
+    in: float32, or float64 for float64 (a float64 reference keeps no
+    float32 step)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def wide(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in `wide_dtype`."""
+    return t.to(wide_dtype(t.dtype))
 
 
 def dense_init_(w: torch.Tensor, generator: torch.Generator,
@@ -98,9 +119,10 @@ class RMSNorm(nn.Module):
         self.scale.fill_(1.0)
 
     def forward(self, x):
-        xf = x.float()
+        xf = wide(x)
         var = (xf * xf).mean(-1, keepdim=True)
-        return (xf * torch.rsqrt(var + 1e-6) * self.scale.float()).to(x.dtype)
+        return (xf * torch.rsqrt(var + 1e-6)
+                * self.scale.to(xf.dtype)).to(x.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -117,11 +139,12 @@ class LayerNorm(nn.Module):
         self.bias.zero_()
 
     def forward(self, x):
-        xf = x.float()
+        xf = wide(x)
         mu = xf.mean(-1, keepdim=True)
         var = ((xf - mu) ** 2).mean(-1, keepdim=True)
         y = (xf - mu) * torch.rsqrt(var + 1e-6)
-        return (y * self.scale.float() + self.bias.float()).to(x.dtype)
+        return (y * self.scale.to(xf.dtype)
+                + self.bias.to(xf.dtype)).to(x.dtype)
 
 
 def make_norm(cfg: ModelConfig, d: int | None = None, device=None):
@@ -130,9 +153,9 @@ def make_norm(cfg: ModelConfig, d: int | None = None, device=None):
 
 
 def rms_norm_vec(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    xf = x.float()
+    xf = wide(x)
     var = (xf * xf).mean(-1, keepdim=True)
-    return (xf * torch.rsqrt(var + 1e-6) * scale.float()).to(x.dtype)
+    return (xf * torch.rsqrt(var + 1e-6) * scale.to(xf.dtype)).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -140,19 +163,21 @@ def rms_norm_vec(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+def rope_freqs(head_dim: int, theta: float, device=None,
+               dtype=torch.float32) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=dtype,
                                          device=device) / head_dim))
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: [..., T, H, hd]; positions: broadcastable to [..., T]."""
-    freqs = rope_freqs(x.shape[-1], theta, x.device)
-    ang = positions[..., None].float() * freqs  # [..., T, hd/2]
+    xf = wide(x)
+    freqs = rope_freqs(x.shape[-1], theta, x.device, xf.dtype)
+    ang = positions[..., None].to(xf.dtype) * freqs  # [..., T, hd/2]
     cos = torch.cos(ang)[..., None, :]
     sin = torch.sin(ang)[..., None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
+    x1, x2 = xf.chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
 
@@ -179,47 +204,76 @@ def _sdpa(q, k, v, bias):
     b, tq, hq, hd = q.shape
     hkv = k.shape[2]
     qg = q.reshape(b, tq, hkv, hq // hkv, hd)
-    logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k).float()
+    logits = wide(torch.einsum("bqkgd,bskd->bkgqs", qg, k))
     logits = logits / math.sqrt(hd)
-    logits = logits + bias.float()
+    logits = logits + bias.to(logits.dtype)
     w = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", w, v)
     return out.reshape(b, tq, hq, hd)
 
 
-def _sdpa_blockwise(q, k, v, q_pos, k_pos, causal, window, block_kv: int):
-    """Online softmax over KV blocks; activation memory O(Tq·block_kv)."""
-    b, tq, hq, hd = q.shape
+def _sdpa_blockwise(q, k, v, q_pos, k_pos, causal, window, block_kv: int,
+                    split=TRIVIAL_SPLIT, hd: int | None = None):
+    """Online softmax over KV blocks; activation memory O(Tq·block_kv).
+
+    Over a rank's part of a cache, ``split`` (a `CacheSplit` of the
+    cache's ``k``) says how the part lies. Where it splits the head dim,
+    q and the cache hold the rank's columns: the logits are summed over
+    the ranks (the scale is √``hd``, the whole head dim), and the output's
+    columns gathered. Where it splits the slots, the statistics are
+    combined over the slot group: the max of m, each rank's l and acc
+    rescaled to it, then summed. `TRIVIAL_SPLIT` splits neither."""
+    b, tq, hq, hdc = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
+    block_kv = min(block_kv, tk)  # a block holds at most the rank's slots
     nb = -(-tk // block_kv)
     pad = nb * block_kv - tk
     if pad:
         k = F.pad(k, (0, 0, 0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
         k_pos = F.pad(k_pos, (0, pad), value=_PAD_POS)
-    kb = k.reshape(b, nb, block_kv, hkv, hd)
-    vb = v.reshape(b, nb, block_kv, hkv, hd)
+    kb = k.reshape(b, nb, block_kv, hkv, hdc)
+    vb = v.reshape(b, nb, block_kv, hkv, hdc)
     pb = k_pos.reshape(nb, block_kv)
     # As JAX: the scale is √hd rounded to q's dtype, divided in q's dtype.
-    qg = q.reshape(b, tq, hkv, g, hd) / torch.tensor(math.sqrt(hd),
-                                                     dtype=q.dtype)
-    m = torch.full((b, hkv, g, tq), float("-inf"), device=q.device)
-    l = torch.zeros((b, hkv, g, tq), device=q.device)
-    acc = torch.zeros((b, hkv, g, tq, hd), device=q.device)
+    qg = q.reshape(b, tq, hkv, g, hdc) / torch.tensor(math.sqrt(hd or hdc),
+                                                      dtype=q.dtype)
+    wd = wide_dtype(q.dtype)
+    m = torch.full((b, hkv, g, tq), float("-inf"), dtype=wd, device=q.device)
+    l = torch.zeros((b, hkv, g, tq), dtype=wd, device=q.device)
+    acc = torch.zeros((b, hkv, g, tq, hdc), dtype=wd, device=q.device)
     for i in range(nb):
-        logits = torch.einsum("bqkgd,bskd->bkgqs", qg, kb[:, i]).float()
-        logits = logits + _mask_bias(q_pos, pb[i], causal, window,
-                                     torch.float32)
+        logits = split.reduce(wide(torch.einsum(
+            "bqkgd,bskd->bkgqs", qg, kb[:, i])), "k", 3)
+        logits = logits + _mask_bias(q_pos, pb[i], causal, window, wd)
         m_new = torch.maximum(m, logits.amax(dim=-1))
         p = torch.exp(logits - m_new[..., None])
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum(
-            "bkgqs,bskd->bkgqd", p.to(q.dtype), vb[:, i]).float()
+        acc = acc * corr[..., None] + wide(torch.einsum(
+            "bkgqs,bskd->bkgqd", p.to(q.dtype), vb[:, i]))
         m = m_new
+    if split.split("k", 1):  # the slot group's statistics combined
+        m_all = split.reduce(m, "k", 1, op="max")
+        corr = torch.exp(m - m_all)
+        l = split.reduce(l * corr, "k", 1)
+        acc = split.reduce(acc * corr[..., None], "k", 1)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.to(q.dtype).permute(0, 3, 1, 2, 4).reshape(b, tq, hq, hd)
+    out = out.to(q.dtype).permute(0, 3, 1, 2, 4).reshape(b, tq, hq, hdc)
+    return split.gather(out, "k", 3, 3, out=True)
+
+
+def _attend_cache(q, k, v, q_pos, k_pos, causal, window, block_kv: int,
+                  split, hd: int):
+    """Attention of q [B, Tq, Hq, hd_c] over the rank's part of a cache
+    (k, v [B, S_r, Hkv, hd_c], its slots' positions ``k_pos`` [S_r]): as
+    training's (`_attend`) where ``split`` splits neither the slots nor
+    the head dim, else `_sdpa_blockwise` over the part with ``split``."""
+    if not (split.split("k", 1) or split.split("k", 3)):
+        return _attend(q, k, v, q_pos, k_pos, causal, window, block_kv)
+    return _sdpa_blockwise(q, k, v, q_pos, k_pos, causal, window, block_kv,
+                           split, hd)
 
 
 def _attend(q, k, v, q_pos, k_pos, causal, window, block_kv):
@@ -227,7 +281,7 @@ def _attend(q, k, v, q_pos, k_pos, causal, window, block_kv):
     if k.shape[1] > block_kv:
         return _sdpa_blockwise(q, k, v, q_pos, k_pos, causal, window,
                                block_kv)
-    bias = _mask_bias(q_pos, k_pos, causal, window, torch.float32)
+    bias = _mask_bias(q_pos, k_pos, causal, window, wide_dtype(q.dtype))
     return _sdpa(q, k, v, bias)
 
 
@@ -294,7 +348,9 @@ class Attention(nn.Module):
             q = rms_norm_vec(q, self._whole(self.q_norm))
         if cross:
             return self._cross(x, q, cfg, positions, kv_x, cache), cache
-        k, v = self._kv(xc, cfg, cdt)
+        # With a cache, K and V of every kv head the rank's weights give
+        # (the cache may hold kv heads its q heads do not read).
+        k, v = self._kv(xc, cfg, cdt, every=cache is not None)
         if cfg.qk_norm:
             k = rms_norm_vec(k, self._whole(self.k_norm))
         q = apply_rope(q, positions, cfg.rope_theta)
@@ -314,21 +370,24 @@ class Attention(nn.Module):
                 out = _attend(q, k, v, positions, positions, causal, window,
                               cfg.attn_block_kv)
         elif t == 1:  # decode step
-            ck, cv, cp = cache["k"], cache["v"], cache["pos"]
-            slots = ck.shape[1]
-            # JAX's dynamic_update_slice clamps a start past the end: a
-            # linear cache decoded at pos >= slots writes its last slot.
-            slot = (cache_pos % slots if window is not None
-                    else cache_pos.clamp(0, slots - 1)).reshape(1).long()
-            ck.index_copy_(1, slot, k.to(ck.dtype))
-            cv.index_copy_(1, slot, v.to(cv.dtype))
-            cp.index_copy_(0, slot, positions.to(cp.dtype))
-            out = _attend(q, ck.to(cdt), cv.to(cdt), positions, cp, True,
-                          window, cfg.attn_block_kv)
+            split = cache.get("split", TRIVIAL_SPLIT)
+            _write_slot(cache, split, self._cache_part(k, split),
+                        self._cache_part(v, split), positions, cache_pos,
+                        window)
+            s0, s1 = split.span("k", 1, cache["pos"].shape[0])
+            out = _attend_cache(self._cache_q(q, split),
+                                cache["k"].to(cdt), cache["v"].to(cdt),
+                                positions, cache["pos"][s0:s1], True,
+                                window, cfg.attn_block_kv, split,
+                                q.shape[-1])
+            out = self._own_heads(out, split)
         else:  # prefill: attend over the prompt itself, then fill the cache
-            out = _attend(q, k, v, positions, positions, causal, window,
+            split = cache.get("split", TRIVIAL_SPLIT)
+            ks, vs = self._read_kv(k, v, cfg)
+            out = _attend(q, ks, vs, positions, positions, causal, window,
                           cfg.attn_block_kv)
-            _fill_cache(cache, k, v, positions)
+            _fill_cache(cache, split, self._cache_part(k, split),
+                        self._cache_part(v, split), positions)
         return self._out(out, x, cdt), cache
 
     # -- the split over `model` ---------------------------------------------
@@ -359,53 +418,122 @@ class Attention(nn.Module):
         y = _proj(xc, w.to(cdt))
         return self.tp.reduce(y) if self._rows() else y
 
-    def _kv(self, src, cfg: ModelConfig, cdt):
+    def _kv(self, src, cfg: ModelConfig, cdt, *, every: bool = False):
         """K and V of ``src`` (from `_in`) for the rank's q heads: all kv
         heads where row-parallel or one rank; the rank's kv heads where
         they divide the axis; else (``wk``/``wv`` held whole) the kv heads
         its q heads read, repeated per q head where its q heads do not
-        fall on whole GQA groups."""
+        fall on whole GQA groups — or, with ``every``, all kv heads
+        (`_read_kv` then takes the ones its q heads read)."""
         tp = self.tp
         wk, wv = self.wk, self.wv
         if self._rows() or tp.split("wk", 1):
             return self._heads(src, wk, cdt), self._heads(src, wv, cdt)
-        nq, nkv = cfg.n_heads, cfg.n_kv_heads
-        g = nq // nkv
-        h0, h1 = tp.span("wq", 1, nq)
-        k0, k1 = h0 // g, (h1 - 1) // g + 1
         if tp.split("wq", 1):  # held whole, read in part by this rank
             wk, wv = tp.copy(wk), tp.copy(wv)
-        if (k0, k1) != (0, nkv):
+        if every:
+            return _proj(src, wk.to(cdt)), _proj(src, wv.to(cdt))
+        k0, k1 = self._kv_span(cfg)
+        if (k0, k1) != (0, cfg.n_kv_heads):
             wk, wv = wk[:, k0:k1], wv[:, k0:k1]
-        k, v = _proj(src, wk.to(cdt)), _proj(src, wv.to(cdt))
+        return self._repeat(_proj(src, wk.to(cdt)), _proj(src, wv.to(cdt)),
+                            cfg)
+
+    def _kv_span(self, cfg: ModelConfig) -> tuple[int, int]:
+        """The kv heads [k0, k1) the rank's q heads read."""
+        g = cfg.n_heads // cfg.n_kv_heads
+        h0, h1 = self.tp.span("wq", 1, cfg.n_heads)
+        return h0 // g, (h1 - 1) // g + 1
+
+    def _repeat(self, k, v, cfg: ModelConfig):
+        """K, V of the kv heads [k0, k1) repeated per q head where the
+        rank's q heads do not fall on whole GQA groups."""
+        g = cfg.n_heads // cfg.n_kv_heads
+        h0, h1 = self.tp.span("wq", 1, cfg.n_heads)
+        k0, k1 = self._kv_span(cfg)
         if k1 - k0 > 1 and (h0 % g or h1 % g):
             idx = torch.arange(h0, h1, device=k.device) // g - k0
             k, v = k.index_select(2, idx), v.index_select(2, idx)
         return k, v
 
+    def _read_kv(self, k, v, cfg: ModelConfig):
+        """Of `_kv`'s ``every`` K and V, the ones the rank's q heads read
+        (what `_kv` gives without it)."""
+        if self._rows() or self.tp.split("wk", 1):
+            return k, v
+        k0, k1 = self._kv_span(cfg)
+        if (k0, k1) != (0, cfg.n_kv_heads):
+            k, v = k[:, :, k0:k1], v[:, :, k0:k1]
+        return self._repeat(k, v, cfg)
+
+    # -- the cache's layout ----------------------------------------------------
+
+    def _gathers_q(self, split) -> bool:
+        """Whether the rank attends with every q head over its part of the
+        cache: the cache holds every kv head, and the rank's q heads are
+        its own."""
+        return not split.split("k", 2) and self.tp.split("wq", 1)
+
+    def _cache_part(self, k, split):
+        """`_kv`'s ``every`` K (or V) as the cache holds it: the rank's
+        columns of the head dim where the cache splits it."""
+        if split.split("k", 3):
+            c0, c1 = split.span("k", 3, k.shape[-1])
+            k = k[..., c0:c1]
+        return k
+
+    def _cache_q(self, q, split):
+        """q as it attends over the rank's part of the cache: every head
+        (gathered) where `_gathers_q`, its columns where the cache splits
+        the head dim."""
+        if self._gathers_q(split):
+            q = self.tp.gather(q, 2, "wq", 1)
+        return self._cache_part(q, split)
+
+    def _own_heads(self, out, split):
+        """The rank's heads of an attention output over every head."""
+        if self._gathers_q(split):
+            h0, h1 = self.tp.span("wq", 1, self.wq.shape[1])
+            out = out[:, :, h0:h1]
+        return out
+
     def _cross(self, x, q, cfg: ModelConfig, positions, kv_x, cache):
         """The cross branch: no RoPE, every key visible (keys at
-        ``arange(Tk)``, no causality, no window), through ``_attend`` and
-        never the flash kernel, as JAX's. K and V come from a cache that
-        holds them, cast to the compute dtype, else from ``kv_x``; only the
-        latter applies ``k_norm`` under qk-norm (JAX's prefill caches them
-        without it)."""
+        ``arange(Tk)``, no causality, no window), never the flash kernel,
+        as JAX's. Without a cache K and V come from ``kv_x`` (``k_norm``
+        applied under qk-norm) through ``_attend``. With one, a prefill
+        (``kv_x`` given) first writes ``kv_x``'s K and V, without
+        ``k_norm`` (what JAX's ``_fill_cross_caches`` stores), into the
+        rank's part of it; the branch then attends over that part
+        (`_attend_cache`)."""
         cdt = q.dtype
-        if cache is not None and "k" in cache:
-            k, v = cache["k"].to(cdt), cache["v"].to(cdt)
-        else:
+        if cache is None:
             k, v = self._kv(self._in(kv_x).to(cdt), cfg, cdt)
             if cfg.qk_norm:
                 k = rms_norm_vec(k, self._whole(self.k_norm))
-        k_pos = torch.arange(k.shape[1], device=k.device)
-        out = _attend(q, k, v, positions, k_pos, False, None,
-                      cfg.attn_block_kv)
-        return self._out(out, x, cdt)
+            k_pos = torch.arange(k.shape[1], device=k.device)
+            out = _attend(q, k, v, positions, k_pos, False, None,
+                          cfg.attn_block_kv)
+            return self._out(out, x, cdt)
+        split = cache.get("split", TRIVIAL_SPLIT)
+        ck, cv = cache["k"], cache["v"]
+        tk = split.full("k", 1, ck.shape[1])
+        s0, s1 = split.span("k", 1, tk)
+        if kv_x is not None:
+            k, v = self._kv(self._in(kv_x).to(cdt), cfg, cdt, every=True)
+            ck.copy_(self._cache_part(k, split)[:, s0:s1])
+            cv.copy_(self._cache_part(v, split)[:, s0:s1])
+        k_pos = torch.arange(s0, s1, device=ck.device)
+        out = _attend_cache(self._cache_q(q, split), ck.to(cdt),
+                            cv.to(cdt), positions, k_pos, False, None,
+                            cfg.attn_block_kv, split, q.shape[-1])
+        return self._out(self._own_heads(out, split), x, cdt)
 
     def cross_kv(self, enc_out, cfg: ModelConfig):
-        """The K and V the cross branch reads from ``enc_out`` [B, Tk, d],
-        in the compute dtype and without ``k_norm``: what JAX's
-        ``_fill_cross_caches`` stores in a prefill's cache."""
+        """The K and V the cross branch reads from ``enc_out`` [B, Tk, d]
+        for the rank's q heads, in the compute dtype and without
+        ``k_norm``: what JAX's ``_fill_cross_caches`` stores in a
+        prefill's cache."""
         cdt = dtype_of(cfg.compute_dtype)
         return self._kv(self._in(enc_out).to(cdt), cfg, cdt)
 
@@ -426,21 +554,49 @@ class Attention(nn.Module):
         return y.to(x.dtype)
 
 
-def _fill_cache(cache, k, v, positions) -> None:
-    """Prefill's write of a prompt's K, V and positions into ``cache``: at
-    slots [0, t) when the prompt fits, else its last ``slots`` rows rolled
-    by ``t % slots`` (ring-aligned), as JAX's prefill branch."""
+def _fill_cache(cache, split, k, v, positions) -> None:
+    """Prefill's write of a prompt's K, V (as the cache holds them) and
+    positions into ``cache``: at slots [0, t) when the prompt fits, else
+    its last ``slots`` rows rolled by ``t % slots`` (ring-aligned), as
+    JAX's prefill branch; the rank writes its slots [s0, s1) of that, and
+    the whole ``pos`` leaf."""
     ck, cv, cp = cache["k"], cache["v"], cache["pos"]
-    t, slots = k.shape[1], ck.shape[1]
+    t, slots = k.shape[1], cp.shape[0]
+    s0, s1 = split.span("k", 1, slots)
     if t <= slots:
-        ck[:, :t] = k
-        cv[:, :t] = v
+        n = max(0, min(s1, t) - s0)
+        ck[:, :n] = k[:, s0:s0 + n]
+        cv[:, :n] = v[:, s0:s0 + n]
         cp[:t] = positions
     else:  # ring buffer (SWA), or a prompt longer than max_len
         shift = t % slots
-        ck.copy_(torch.roll(k[:, -slots:], shift, dims=1))
-        cv.copy_(torch.roll(v[:, -slots:], shift, dims=1))
+        ck.copy_(torch.roll(k[:, -slots:], shift, dims=1)[:, s0:s1])
+        cv.copy_(torch.roll(v[:, -slots:], shift, dims=1)[:, s0:s1])
         cp.copy_(torch.roll(positions[-slots:], shift, dims=0))
+
+
+def _write_slot(cache, split, k, v, positions, cache_pos, window) -> None:
+    """A decode step's write of its K, V (as the cache holds them) and
+    position at slot ``cache_pos`` (ring: modulo the slots; linear: JAX's
+    dynamic_update_slice clamps a start past the end, so a cache decoded
+    at pos >= slots writes its last slot). The rank whose slots [s0, s1)
+    hold it writes it, the others write back what they hold; the owner is
+    decided on the device, so the step reads nothing on the host. Every
+    rank writes the whole ``pos`` leaf."""
+    ck, cv, cp = cache["k"], cache["v"], cache["pos"]
+    slots = cp.shape[0]
+    slot = (cache_pos % slots if window is not None
+            else cache_pos.clamp(0, slots - 1)).reshape(1).long()
+    k, v, local = k.to(ck.dtype), v.to(cv.dtype), slot
+    if split.split("k", 1):  # the slots' owner writes, the others keep
+        s0, s1 = split.span("k", 1, slots)
+        local = (slot - s0).clamp(0, s1 - s0 - 1)
+        mine = (slot >= s0) & (slot < s1)
+        k = torch.where(mine, k, ck.index_select(1, local))
+        v = torch.where(mine, v, cv.index_select(1, local))
+    ck.index_copy_(1, local, k)
+    cv.index_copy_(1, local, v)
+    cp.index_copy_(0, slot, positions.to(cp.dtype))
 
 
 def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,

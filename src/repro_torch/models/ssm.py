@@ -38,8 +38,13 @@ it holds whole (``mu``, the LoRA mixes, ``w0``, the decay LoRA, ``ln_x``;
 match, split them off its heads, gathered first) copied in and cut to its
 heads where per channel; where the heads do not divide the axis it gathers
 its split weights and computes whole. The channel mix splits the ff dim
-(``wk`` columns, ``wv`` rows) and gathers the receptance over d. The cache
-branches run on one rank's axis only (sharded serving is ROADMAP A14.8).
+(``wk`` columns, ``wv`` rows) and gathers the receptance over d. With a
+cache over a mesh (``cache["split"]``, a
+`repro_torch.sharding.cache.CacheSplit`) each mixer reads and writes the
+rank's part of its states: mamba's ``conv`` and ``ssm`` on its channels of
+d_inner, RWKV's ``state`` on its heads; RWKV's and the channel mix's
+``shift``, split over d while both read every channel, are gathered at use
+and the rank writes back its slice.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.core.heads_tails import _assoc_scan
+from repro_torch.sharding.cache import TRIVIAL_SPLIT
 from repro_torch.sharding.collectives import TRIVIAL
 from .config import MambaConfig, ModelConfig, RWKVConfig
 from .layers import _param, dense_init_, dtype_of
@@ -109,16 +115,6 @@ def _same(t: torch.Tensor) -> torch.Tensor:
 def _softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus``: log(1 + eˣ) as logaddexp(x, 0)."""
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
-
-
-def _write(cache, new: dict) -> dict:
-    """The new states into ``cache``'s tensors in place (the same dict
-    comes back), or ``new`` itself without a cache."""
-    if cache is None:
-        return new
-    for name, value in new.items():
-        cache[name].copy_(value)
-    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -186,11 +182,19 @@ class Mamba(nn.Module):
             h0 = torch.zeros(b, c1 - c0, mc.d_state, dtype=torch.float32,
                              device=x.device)
         else:
-            conv_state, h0 = cache["conv"], cache["ssm"]
+            split = cache.get("split", TRIVIAL_SPLIT)
+            conv_state = split.part(cache["conv"], "conv", 2, c0, c1, di)
+            h0 = split.part(cache["ssm"], "ssm", 1, c0, c1, di)
         y, conv_state, h_last = self._inner(xi, z, conv_state, h0, cfg)
         out = tp.reduce(y @ self.out_proj.to(cdt))
-        return out.to(x.dtype), _write(cache, {"conv": conv_state.to(cdt),
-                                               "ssm": h_last})
+        if cache is None:
+            return out.to(x.dtype), {"conv": conv_state.to(cdt),
+                                     "ssm": h_last}
+        split.put(cache["conv"], "conv", 2, conv_state.to(cdt), c0, c1, di,
+                  lambda t: tp.gather(t, 2, "conv_b", 0))
+        split.put(cache["ssm"], "ssm", 1, h_last, c0, c1, di,
+                  lambda t: tp.gather(t, 1, "conv_b", 0))
+        return out.to(x.dtype), cache
 
     def _inner(self, x, z, conv_state, h0, cfg: ModelConfig):
         """JAX's ``_mamba_inner`` on the post-projection x [B, T, di]."""
@@ -325,7 +329,10 @@ class RWKV(nn.Module):
             s0 = torch.zeros(b, h, hd, hd, dtype=torch.float32,
                              device=x.device)
         else:
-            x_prev_last, s0 = cache["shift"].to(cdt), cache["state"]
+            split = cache.get("split", TRIVIAL_SPLIT)
+            x_prev_last = split.part(cache["shift"], "shift", 2, 0, d,
+                                     d).to(cdt)
+            s0 = split.part(cache["state"], "state", 1, h0, h1, d // hd)
         x_prev = torch.cat([x_prev_last, xc[:, :-1]], dim=1)
         dx = x_prev - xc
 
@@ -366,8 +373,12 @@ class RWKV(nn.Module):
         yf = (y - mu_) * torch.rsqrt(var + 1e-5)
         yf = yf.reshape(b, t, h * hd) * cols(cp(self.ln_x)).float()
         out = rd((yf.to(cdt) * g) @ w["wo"].to(cdt))
-        return out.to(x.dtype), _write(cache, {"shift": xc[:, -1:],
-                                               "state": s_last})
+        if cache is None:
+            return out.to(x.dtype), {"shift": xc[:, -1:], "state": s_last}
+        split.put(cache["shift"], "shift", 2, xc[:, -1:], 0, d, d)
+        split.put(cache["state"], "state", 1, s_last, h0, h1, d // hd,
+                  lambda t: tp.gather(t, 1, "bonus", 0))
+        return out.to(x.dtype), cache
 
 
 def init_rwkv_cache(cfg: ModelConfig, batch: int, device=None) -> dict:
@@ -412,15 +423,21 @@ class RWKVCMix(nn.Module):
         b, _, d = x.shape
         tp = self.tp
         xc = tp.copy(x).to(cdt)
+        split = TRIVIAL_SPLIT if cache is None else \
+            cache.get("split", TRIVIAL_SPLIT)
         prev = torch.zeros(b, 1, d, dtype=cdt, device=x.device) \
-            if cache is None else cache["shift"].to(cdt)
+            if cache is None else split.part(cache["shift"], "shift", 2, 0,
+                                             d, d).to(cdt)
         dx = torch.cat([prev, xc[:, :-1]], dim=1) - xc
         xk = xc + dx * tp.copy(self.mu_k).to(cdt)
         xr = xc + dx * tp.copy(self.mu_r).to(cdt)
         kk = torch.square(F.relu(xk @ self.wk.to(cdt)))
         vv = tp.reduce(kk @ self.wv.to(cdt))
         rr = tp.gather(torch.sigmoid(xr @ self.wr.to(cdt)), -1, "wr", 1)
-        return (rr * vv).to(x.dtype), _write(cache, {"shift": xc[:, -1:]})
+        if cache is None:
+            return (rr * vv).to(x.dtype), {"shift": xc[:, -1:]}
+        split.put(cache["shift"], "shift", 2, xc[:, -1:], 0, d, d)
+        return (rr * vv).to(x.dtype), cache
 
 
 def init_cmix_cache(cfg: ModelConfig, batch: int, device=None) -> dict:

@@ -41,18 +41,28 @@ rank's vocab rows (zeros elsewhere) and sums over the ranks, the patch
 projection gathers its columns, and the head computes the rank's vocab
 columns (``lm_head``'s, or ``embed``'s rows where tied): ``forward``
 gathers the logits to [B, S, padded_vocab], ``loss_fn`` never does — its
-log-sum-exp and target logit are summed over the ranks' columns. Prefill
-and decode run on one rank's axis only (sharded serving is ROADMAP
-A14.8).
+log-sum-exp and target logit are summed over the ranks' columns.
+
+Prefill and decode over a mesh (a model sharded by
+`repro_torch.train.serve.shard_model`, or a sharded train state's) run the
+same split on a cache laid out as JAX's ``cache_specs`` lays it out
+(`repro_torch.sharding.cache.CacheLayout`): each rank holds its rows over
+the data axes (or, under ``shard_seq``, the one sequence whole) and its
+slice of every leaf, and each layer reads and writes its part; the FSDP
+leaves are gathered over the data axes per super-block (`Placement.bind`),
+and the logits come back as the rank's rows gathered over ``model``.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.kernels._platform import resolve_device
+from repro_torch.sharding.cache import CacheLayout, ServeCache
 from repro_torch.sharding.collectives import TRIVIAL
 from . import layers, moe as moe_lib, ssm
 from .config import LayerSpec, ModelConfig
@@ -227,6 +237,8 @@ class Transformer(nn.Module):
         # (`repro_torch.sharding.placement.Placement.bind`).
         self.block_runner = None
         self.tp = TRIVIAL  # the model axis (`Placement.shard` sets it)
+        # The `Placement` of a sharded model (`shard_model`, `shard_state`).
+        self.placement = None
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "Transformer":
@@ -316,14 +328,16 @@ class Transformer(nn.Module):
         return self.lm_head, ("lm_head", 1)
 
     def _logits(self, cfg: ModelConfig, x):
-        """Float32 logits of the rank's vocab columns [v0, v1) (all of
-        them on one rank), the vocab's padding masked."""
+        """Float32 logits (float64 under float64 compute) of the rank's
+        vocab columns [v0, v1) (all of them on one rank), the vocab's
+        padding masked."""
         head, (leaf, dim) = self._head(cfg)
-        logits = self.tp.copy(x).float() @ head.float()
+        xf = layers.wide(self.tp.copy(x))
+        logits = xf @ head.to(xf.dtype)
         if cfg.padded_vocab != cfg.vocab:  # mask the vocab-padding rows
             v0, v1 = self.tp.span(leaf, dim, cfg.padded_vocab)
             pad = torch.arange(v0, v1, device=x.device) >= cfg.vocab
-            logits = logits.masked_fill(pad, torch.finfo(torch.float32).min)
+            logits = logits.masked_fill(pad, torch.finfo(logits.dtype).min)
         return logits
 
     def _full_logits(self, cfg: ModelConfig, x, logits=None):
@@ -358,12 +372,13 @@ class Transformer(nn.Module):
 
     def _stack(self, cfg: ModelConfig, x, positions, caches=None,
                cache_pos=None, *, stack=None, causal: bool = True,
-               enc_out=None):
+               enc_out=None, layout=None):
         """The super-blocks of ``stack`` (default: the decoder's) in order
         (JAX's ``_scan_stack``). Returns ``(x, aux)``, the blocks' aux
         summed in order (None without a MoE layer). ``caches`` is the
         stacked ``cache["blocks"]``, each block reading and writing its
-        slice ``[i]`` of every leaf in place. Without a cache, under
+        slice ``[i]`` of every leaf in place, each sub-layer's kind given
+        its ``"split"`` under ``layout``. Without a cache, under
         ``cfg.remat`` and while autograd records, each super-block is
         checkpointed (JAX's ``jax.checkpoint(block_fn)``)."""
         aux = None
@@ -376,7 +391,9 @@ class Transformer(nn.Module):
                     enc_out, use_reentrant=False)
             else:
                 c = None if caches is None else {
-                    j: {kind: {name: leaf[i] for name, leaf in sub.items()}
+                    j: {kind: dict({name: leaf[i] for name, leaf
+                                    in sub.items()},
+                                   split=layout.split(j, kind))
                         for kind, sub in kinds.items()}
                     for j, kinds in caches.items()}
                 x, a = run(block, x, cfg, positions, causal, enc_out, c,
@@ -444,90 +461,141 @@ class Transformer(nn.Module):
 
     # -- serving: prefill and decode with caches -----------------------------
 
-    def _one_rank(self, what: str) -> None:
-        if not self.tp.trivial:
-            raise NotImplementedError(
-                f"{what} over a model axis of {self.tp.size} ranks: sharded "
-                f"prefill and decode are ROADMAP A14.8")
-
-    def init_cache(self, batch: int, max_len: int,
-                   cfg: ModelConfig | None = None) -> dict:
-        """The empty per-super-block caches for ``batch`` sequences of up to
-        ``max_len`` positions on the module's device, as JAX's
-        ``init_cache`` returns them: ``{"pos<j>": {<kind>: …}}`` with
-        ``attn`` (`layers.init_attn_cache` in the compute dtype), ``cross``
-        (``k``, ``v`` [batch, encoder_len, Hkv, hd] zeros in the compute
-        dtype), ``mamba`` (`ssm.init_mamba_cache`), ``rwkv``
-        (`ssm.init_rwkv_cache`) and ``cmix`` (`ssm.init_cmix_cache`) as the
-        sub-layer has them, each leaf stacked over the super-blocks.
-        `prefill` wraps them as ``{"blocks": …, "pos": …}``."""
+    def cache_shapes(self, batch: int, max_len: int,
+                     cfg: ModelConfig | None = None,
+                     cross_len: int | None = None) -> dict:
+        """The full cache's tree of leaf shapes, ``{"blocks": {"pos<j>":
+        {<kind>: {<leaf>: shape}}}, "pos": ()}``, for ``batch`` sequences
+        of up to ``max_len`` positions (a ``cross`` cache of ``cross_len``
+        frames, default ``encoder_len``): `init_cache`'s leaves."""
         cfg = self._cfg(cfg)
-        dev = self.embed.device
+        with torch.device("meta"):
+            tree = self._empty(cfg, batch, max_len, cross_len)
+        return {"blocks": {j: {kind: {name: (cfg.n_blocks,) + tuple(t.shape)
+                                      for name, t in leaves.items()}
+                               for kind, leaves in kinds.items()}
+                           for j, kinds in tree.items()}, "pos": ()}
+
+    def _empty(self, cfg: ModelConfig, batch: int, max_len: int,
+               cross_len: int | None) -> dict:
+        """One super-block's empty caches on the current default device."""
         cdt = dtype_of(cfg.compute_dtype)
         out = {}
         for j, spec in enumerate(cfg.block):
             kinds = {}
             if spec.mixer == "attn":
                 kinds["attn"] = layers.init_attn_cache(
-                    cfg, batch, max_len, cdt, dev)
+                    cfg, batch, max_len, cdt)
             elif spec.mixer == "mamba":
-                kinds["mamba"] = ssm.init_mamba_cache(cfg, batch, dev)
+                kinds["mamba"] = ssm.init_mamba_cache(cfg, batch)
             elif spec.mixer == "rwkv6":
-                kinds["rwkv"] = ssm.init_rwkv_cache(cfg, batch, dev)
+                kinds["rwkv"] = ssm.init_rwkv_cache(cfg, batch)
             if spec.cross_attn:
-                shape = (batch, cfg.encoder_len, cfg.n_kv_heads,
-                         cfg.resolved_head_dim)
-                kinds["cross"] = {
-                    name: torch.zeros(shape, dtype=cdt, device=dev)
-                    for name in ("k", "v")}
+                shape = (batch, cross_len or cfg.encoder_len,
+                         cfg.n_kv_heads, cfg.resolved_head_dim)
+                kinds["cross"] = {name: torch.zeros(shape, dtype=cdt)
+                                  for name in ("k", "v")}
             if spec.mlp == "rwkv_cmix":
-                kinds["cmix"] = ssm.init_cmix_cache(cfg, batch, dev)
-            out[f"pos{j}"] = {kind: {
-                name: leaf.expand((cfg.n_blocks,) + leaf.shape).clone()
-                for name, leaf in one.items()} for kind, one in kinds.items()}
+                kinds["cmix"] = ssm.init_cmix_cache(cfg, batch)
+            out[f"pos{j}"] = kinds
         return out
 
+    def init_cache(self, batch: int, max_len: int,
+                   cfg: ModelConfig | None = None, *, layout=None,
+                   cross_len: int | None = None) -> dict:
+        """The empty per-super-block caches for ``batch`` sequences of up to
+        ``max_len`` positions on the module's device, as JAX's
+        ``init_cache`` returns them: ``{"pos<j>": {<kind>: …}}`` with
+        ``attn`` (`layers.init_attn_cache` in the compute dtype), ``cross``
+        (``k``, ``v`` [batch, encoder_len, Hkv, hd] zeros in the compute
+        dtype; ``cross_len`` frames in place of ``encoder_len``), ``mamba``
+        (`ssm.init_mamba_cache`), ``rwkv`` (`ssm.init_rwkv_cache`) and
+        ``cmix`` (`ssm.init_cmix_cache`) as the sub-layer has them, each
+        leaf stacked over the super-blocks. With a ``layout``
+        (`repro_torch.sharding.cache.CacheLayout` of the global
+        ``batch``), each leaf is this rank's slice of it. `prefill` wraps
+        them as ``{"blocks": …, "pos": …}``."""
+        cfg = self._cfg(cfg)
+        with torch.device("meta"):
+            tree = self._empty(cfg, batch, max_len, cross_len)
+        out = {}
+        for j, kinds in tree.items():
+            out[j] = {}
+            for kind, leaves in kinds.items():
+                out[j][kind] = {}
+                for name, leaf in leaves.items():
+                    shape = (cfg.n_blocks,) + tuple(leaf.shape)
+                    if layout is not None:
+                        shape = layout.local_shape(j, kind, name)
+                    out[j][kind][name] = torch.full(
+                        shape, -1 if name == "pos" else 0, dtype=leaf.dtype,
+                        device=self.embed.device)
+        return out
+
+    def _serving(self, shard_seq: bool):
+        """The model's parameters as a sharded model's prefill and decode
+        read them: `Placement.bind` (unless bound already), with the MoE
+        layers' data axes off under ``shard_seq``."""
+        if self.placement is None or self.block_runner is not None:
+            return contextlib.nullcontext()
+        return self.placement.bind(self, rows=not shard_seq)
+
+    def _layout(self, cfg: ModelConfig, rows: int, max_len: int, batch, *,
+                shard_seq: bool, kv_seq_over_model: bool) -> CacheLayout:
+        mesh = None if self.placement is None else self.placement.mesh
+        if shard_seq and rows != 1:
+            raise ValueError(f"shard_seq serves one sequence; the batch "
+                             f"has {rows}")
+        if not self.tp.trivial and mesh is None:
+            raise ValueError("the model is split over a model axis without "
+                             "a placement")
+        cross = batch["frames"].shape[1] if cfg.is_enc_dec else None
+        shapes = self.cache_shapes(
+            rows * CacheLayout.rows_of(mesh, shard_seq), max_len, cfg,
+            cross)
+        return CacheLayout(cfg, mesh, shapes, shard_seq=shard_seq,
+                           kv_seq_over_model=kv_seq_over_model)
+
     @torch.inference_mode()
-    def prefill(self, batch, max_len: int, cfg: ModelConfig | None = None):
+    def prefill(self, batch, max_len: int, cfg: ModelConfig | None = None,
+                *, shard_seq: bool = False, kv_seq_over_model: bool = True):
         """Run the prompt ``batch["tokens"]`` [B, T] (after its
         ``"patches"`` under ``patch_positions``) through the stack into a
         new cache of ``max_len`` positions, which must hold the patches
         too. Returns ``(logits [B, padded_vocab] of the last position,
         {"blocks", "pos": T})``, ``pos`` a 0-d int32 tensor on the device
         (T counts the patches). An encoder-decoder first encodes
-        ``batch["frames"]`` and puts each cross-attention's K/V of them in
-        its ``cross`` cache: a new leaf of the frames' length, as JAX's
-        ``_fill_cross_caches`` replaces it. Runs in inference mode, so the
-        cache's tensors are inference tensors: `decode_step` (which also
-        enters that mode) writes them in place."""
-        cfg = self._cfg(cfg)
-        self._one_rank("prefill")
-        x, positions, _ = self._embed_inputs(cfg, batch)
-        b, t = x.shape[:2]
-        blocks = self.init_cache(b, max_len, cfg)
-        enc_out = None
-        if cfg.is_enc_dec:
-            enc_out = self._encode(cfg, batch["frames"])
-            self._fill_cross_caches(cfg, blocks, enc_out)
-        zero = torch.zeros((), dtype=torch.int32, device=x.device)
-        x, _ = self._stack(cfg, x, positions, blocks, cache_pos=zero,
-                           enc_out=enc_out)
-        logits = self._full_logits(cfg, self.final_norm(x[:, -1:]))
-        return logits[:, 0], {"blocks": blocks, "pos": torch.full(
-            (), t, dtype=torch.int32, device=x.device)}
+        ``batch["frames"]``, and each cross-attention writes its K/V of
+        them into its ``cross`` cache, which takes the frames' length, as
+        JAX's ``_fill_cross_caches`` replaces the leaf. Runs in inference
+        mode, so the cache's tensors are inference tensors: `decode_step`
+        (which also enters that mode) writes them in place.
 
-    def _fill_cross_caches(self, cfg: ModelConfig, blocks: dict,
-                           enc_out) -> None:
-        """Each cross-attention's K/V of ``enc_out`` as the ``cross`` leaves
-        of ``blocks``, stacked over the super-blocks (JAX's
-        ``_fill_cross_caches``): new tensors of ``enc_out``'s length."""
-        for j, spec in enumerate(cfg.block):
-            if spec.cross_attn:
-                kv = [block[j].cross.cross_kv(enc_out, cfg)
-                      for block in self.blocks]
-                blocks[f"pos{j}"]["cross"] = {
-                    "k": torch.stack([k for k, _ in kv]),
-                    "v": torch.stack([v for _, v in kv])}
+        On a sharded model ``batch`` holds this rank's rows of the global
+        batch (under ``shard_seq``, the one sequence, whole on every
+        rank), the cache is this rank's slice of JAX's layout
+        (`cache_specs` with ``shard_seq`` and ``kv_seq_over_model``; the
+        returned tree carries it as ``layout``) and the logits are the
+        rank's rows'. Collective: every rank of the mesh calls it."""
+        cfg = self._cfg(cfg)
+        with self._serving(shard_seq):
+            x, positions, _ = self._embed_inputs(cfg, batch)
+            b, t = x.shape[:2]
+            layout = self._layout(cfg, b, max_len, batch,
+                                  shard_seq=shard_seq,
+                                  kv_seq_over_model=kv_seq_over_model)
+            cross = batch["frames"].shape[1] if cfg.is_enc_dec else None
+            blocks = self.init_cache(b * layout.rows, max_len, cfg,
+                                     layout=layout, cross_len=cross)
+            enc_out = None
+            if cfg.is_enc_dec:
+                enc_out = self._encode(cfg, batch["frames"])
+            zero = torch.zeros((), dtype=torch.int32, device=x.device)
+            x, _ = self._stack(cfg, x, positions, blocks, cache_pos=zero,
+                               enc_out=enc_out, layout=layout)
+            logits = self._full_logits(cfg, self.final_norm(x[:, -1:]))
+        return logits[:, 0], ServeCache({"blocks": blocks, "pos": torch.full(
+            (), t, dtype=torch.int32, device=x.device)}, layout)
 
     @torch.inference_mode()
     def decode_step(self, cache: dict, tokens,
@@ -538,14 +606,26 @@ class Transformer(nn.Module):
         same dict comes back, where JAX returns a new one. Nothing here
         reads a device value on the host, so the step can be captured into
         a CUDA graph and replayed (`repro_torch.train.serve.sample_loop`).
-        The cross-attention reads its ``cross`` cache and writes nothing."""
+        The cross-attention reads its ``cross`` cache and writes nothing.
+        On a sharded model the cache is a sharded `prefill`'s (its
+        ``layout`` says how) and ``tokens`` the rank's rows of it;
+        collective."""
         cfg = self._cfg(cfg)
-        self._one_rank("decode_step")
-        pos = cache["pos"]
-        x = self._lookup(cfg, tokens)
-        positions = pos + torch.arange(tokens.shape[1], dtype=torch.int32,
-                                       device=x.device)
-        x, _ = self._stack(cfg, x, positions, cache["blocks"], cache_pos=pos)
-        logits = self._full_logits(cfg, self.final_norm(x[:, -1:]))
+        layout = getattr(cache, "layout", None)
+        if layout is None:
+            if self.placement is not None and self.placement.mesh.size > 1:
+                raise ValueError("decode over a mesh takes the cache its "
+                                 "sharded prefill returned (it carries its "
+                                 "layout)")
+            layout = CacheLayout(cfg, None, {"blocks": {}, "pos": ()})
+        with self._serving(layout.shard_seq):
+            pos = cache["pos"]
+            x = self._lookup(cfg, tokens)
+            positions = pos + torch.arange(tokens.shape[1],
+                                           dtype=torch.int32,
+                                           device=x.device)
+            x, _ = self._stack(cfg, x, positions, cache["blocks"],
+                               cache_pos=pos, layout=layout)
+            logits = self._full_logits(cfg, self.final_norm(x[:, -1:]))
         pos.add_(tokens.shape[1])
         return logits[:, 0], cache

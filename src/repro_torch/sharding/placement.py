@@ -331,13 +331,22 @@ class Placement:
             return _block_forward(block, *args, **kw)
 
     @contextlib.contextmanager
-    def bind(self, model: nn.Module):
+    def bind(self, model: nn.Module, rows: bool = True):
         """Run ``model`` on gathered parameters inside the block: the top
-        level gathered once, each super-block when it runs."""
+        level gathered once, each super-block when it runs. ``rows=False``
+        (serving one sequence held whole by every rank, ``shard_seq``)
+        leaves the MoE layers without their data axes inside the block:
+        no rank holds rows of its own."""
         self._index(model)
         model.block_runner = self.run_block
+        moe = [] if rows else [m for m in model.modules()
+                               if getattr(m, "data_axes", None) is not None]
+        for m in moe:
+            m.data_axes = None
         try:
             with self._installed(self._top):
                 yield
         finally:
             model.block_runner = None
+            for m in moe:
+                m.data_axes = self.data

@@ -8,9 +8,15 @@ cache in place (`Transformer.decode_step`). ``sample_loop`` prefills, then
 samples greedily or at a temperature: on the card it runs the first decode
 step eagerly and replays the rest from one CUDA graph (`DecodeGraph`), the
 counterpart of the ``jax.jit`` JAX's loop applies; on the CPU it runs
-eagerly. ``cache_specs`` gives the partition spec of every leaf of a
-decode cache over a mesh, as JAX's does; in the port it is a table so far
-(sharded prefill and decode are ROADMAP A14.8).
+eagerly. Over a mesh (`repro_torch.launch.mesh.AxisMesh`; the model
+sharded by `shard_model`, or a train state sharded over it) the three
+take ``mesh=`` and ``shard_seq=``: each rank prefills and decodes its rows
+of the global batch (under ``shard_seq``, the one sequence, whole on
+every rank) into its slice of a cache laid out as ``cache_specs`` (JAX's
+table, `repro_torch.sharding.cache`) lays it out, its compute split over
+``model`` as training's; `gather_cache` makes the full cache again. Every
+rank calls them. Decode over more than one rank runs eagerly:
+`DecodeGraph` refuses a mesh of more than one rank.
 
 ``make_figaro_server`` serves one join structure (a `FigaroPlan`) to many
 concurrent users' feature-sets — each dispatch runs Algorithm 2 and the
@@ -36,11 +42,13 @@ from repro_torch.kernels._platform import resolve_device
 from repro_torch.launch.mesh import resolve_shard
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import Transformer
+from repro_torch.sharding.cache import cache_specs
 from repro_torch.train.async_serve import (AsyncFigaroServer, FigaroFuture,
                                            SERVE_KINDS, validate_serve_kind)
+from repro_torch.train.step import _check_mesh, _rows
 
 __all__ = ["make_prefill", "make_decode_step", "cache_specs", "sample_loop",
-           "DecodeGraph", "make_figaro_server", "FigaroServer",
+           "shard_model", "gather_cache", "DecodeGraph", "make_figaro_server", "FigaroServer",
            "AsyncFigaroServer", "FigaroFuture", "SERVE_KINDS",
            "validate_serve_kind"]
 
@@ -166,31 +174,75 @@ def make_figaro_server(plan: FigaroPlan | PlanHolder, *, kind: str = "qr",
 # -- the LM: prefill, decode, sampling -----------------------------------------
 
 
-def make_prefill(cfg: ModelConfig, max_len: int, device=None):
+def shard_model(model: Transformer, mesh) -> Transformer:
+    """``model`` (full parameters) reduced, in place, to the slices this
+    rank of ``mesh`` holds under its config's rules (`Placement`, as a
+    train state's), for serving over the mesh; returns it. Every rank
+    calls it on the same full model."""
+    from repro_torch.sharding.placement import Placement
+
+    if model.placement is not None:
+        raise ValueError("the model is sharded already")
+    place = Placement(model.cfg, mesh, model)
+    place.shard(model)
+    model.placement = place
+    return model
+
+
+def _served(model, mesh) -> Transformer:
+    """The `Transformer` of ``model`` (itself, or a train state's), whose
+    placement must be over ``mesh`` (none without a mesh)."""
+    model = getattr(model, "model", model)
+    place = model.placement
+    if mesh is None:
+        if place is not None and place.mesh.size > 1:
+            raise ValueError("the model is sharded over a mesh: pass it")
+    elif place is None or place.mesh is not mesh:
+        raise ValueError(f"the model is not sharded over this mesh of "
+                         f"{mesh.size} ranks: shard it with shard_model")
+    return model
+
+
+def make_prefill(cfg: ModelConfig, max_len: int, device=None, *, mesh=None,
+                 shard_seq: bool = False, kv_seq_over_model: bool = True):
     """``prefill_fn(model, batch) -> (logits [B, padded_vocab], cache)`` for
     a `repro_torch.models.transformer.Transformer` on ``device`` (the card
     unless ``device="cpu"``): ``batch["tokens"]`` [B, T], with the
     ``"frames"`` of an encoder-decoder or the ``"patches"`` of a patch
     config (arrays or tensors, moved to the device), into a new cache of
-    ``max_len`` positions, in inference mode."""
-    dev = resolve_device(device)
+    ``max_len`` positions, in inference mode.
+
+    Over a ``mesh`` (its device the rank's) ``model`` is sharded over it
+    (`shard_model`, or a train state), every rank is given the global
+    batch and keeps its rows (``batch_specs``'; all of the one sequence
+    under ``shard_seq``), and gets its rows' logits and its slice of the
+    cache (`Transformer.prefill`)."""
+    dev = _check_mesh(mesh, device)
 
     def prefill_fn(model, batch):
-        batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        model = _served(model, mesh)
+        batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+        if mesh is not None and not shard_seq:
+            batch = _rows(batch, model.placement)
+        batch = {k: v.to(dev) for k, v in batch.items()}
         with torch.inference_mode():
-            return model.prefill(batch, max_len, cfg)
+            return model.prefill(batch, max_len, cfg, shard_seq=shard_seq,
+                                 kv_seq_over_model=kv_seq_over_model)
 
     return prefill_fn
 
 
-def make_decode_step(cfg: ModelConfig, device=None):
+def make_decode_step(cfg: ModelConfig, device=None, *, mesh=None):
     """``decode_fn(model, cache, tokens) -> (logits [B, padded_vocab],
     cache)`` on ``device`` (the card unless ``device="cpu"``): one eager
     step of tokens [B, 1]. The cache is consumed: it is written in place
-    and comes back (`Transformer.decode_step`)."""
-    dev = resolve_device(device)
+    and comes back (`Transformer.decode_step`). Over a ``mesh`` the cache
+    is the rank's slice a sharded prefill returned, and ``tokens`` the
+    rank's rows (as its logits are)."""
+    dev = _check_mesh(mesh, device)
 
     def decode_fn(model, cache, tokens):
+        model = _served(model, mesh)
         tokens = torch.as_tensor(tokens).to(dev)
         with torch.inference_mode():
             return model.decode_step(cache, tokens, cfg)
@@ -198,71 +250,12 @@ def make_decode_step(cfg: ModelConfig, device=None):
     return decode_fn
 
 
-def cache_specs(cfg: ModelConfig, mesh, cache: dict, *,
-                shard_seq: bool = False, kv_seq_over_model: bool = True):
-    """The partition spec of every leaf of ``cache`` (`Transformer.
-    init_cache`'s ``{"pos<j>": {<kind>: {<leaf>: …}}}``, or a prefill's
-    ``{"blocks": …, "pos": …}``; leaves stacked over the super-blocks) over
-    ``mesh`` (anything with a ``shape``, or a dict), as a tree of the same
-    keys: JAX's ``cache_specs``.
-
-    Batch-sharded by default; ``shard_seq`` shards attention KV slots over
-    `data` (long_500k, global_batch=1). SSM states are O(1) in seq — they
-    stay batch-sharded (or replicated at batch 1). ``kv_seq_over_model``:
-    when the kv-head count does not divide the model axis (all assigned
-    archs: kv=8 < 16), the KV slots shard over `model`; otherwise the
-    head_dim does. A sharding that does not divide its dim evenly is
-    dropped (JAX's ``_fit``)."""
-    from repro_torch.sharding.rules import P, data_axes, mesh_shape
-
-    shape = mesh_shape(mesh)
-    dp = data_axes(mesh)
-    msz = shape.get("model", 1)
-    kv_ax = "model" if cfg.n_kv_heads % msz == 0 else None
-    seq_model_ax = None
-    if kv_ax is None and kv_seq_over_model:
-        hd_ax = None
-        seq_model_ax = "model"
-    else:
-        hd_ax = None if kv_ax else "model"
-
-    def _fit(spec, dims):
-        fixed = []
-        for dim, ax in zip(dims, tuple(spec) + (None,) * len(dims)):
-            if ax is None:
-                fixed.append(None)
-                continue
-            size = 1
-            for a in (ax if isinstance(ax, tuple) else (ax,)):
-                size *= shape[a]
-            fixed.append(ax if dim >= size and dim % size == 0 else None)
-        return P(*fixed)
-
-    def spec(name: str, dims) -> P:
-        ndim = len(dims)
-        if name == "pos":
-            return P()
-        batch_ax = None if shard_seq else dp
-        if name in ("k", "v"):  # [n_blocks, B, S, kv, hd]
-            if shard_seq:  # batch == 1: context parallelism over data(+model)
-                seq_ax = ("data", "model") if seq_model_ax else "data"
-            else:
-                seq_ax = seq_model_ax
-            return _fit(P(None, batch_ax, seq_ax, kv_ax, hd_ax), dims)
-        if name in ("conv", "shift"):  # [n_blocks, B, w, di]
-            return _fit(P(None, batch_ax, None, "model"), dims)
-        if name == "ssm":  # [n_blocks, B, di, d_state]
-            return _fit(P(None, batch_ax, "model", None), dims)
-        if name == "state":  # rwkv [n_blocks, B, h, hd, hd]
-            return _fit(P(None, batch_ax, "model", None, None), dims)
-        return P(*([None] * ndim))
-
-    def walk(node, name):
-        if isinstance(node, dict):
-            return {k: walk(v, k) for k, v in node.items()}
-        return spec(name, tuple(node.shape))
-
-    return walk(cache, "")
+def gather_cache(cache: dict) -> dict:
+    """The full cache, JAX's layout, from each rank's slice of a sharded
+    prefill's ``cache`` (collective: every rank calls it and gets the
+    whole tree); a cache of one rank as it is."""
+    layout = getattr(cache, "layout", None)
+    return cache if layout is None else layout.gather(cache)
 
 
 class DecodeGraph:
@@ -280,9 +273,21 @@ class DecodeGraph:
     `sample_loop` does. ``launches`` are the kernel launches the capture
     recorded (`_platform.recording_launches`), added to the counts on
     every replay. `close` frees the graph and its memory pool.
+
+    A sharded model is captured on a mesh of one rank, whose step issues
+    no collective. Over more ranks the constructor raises: a graph would
+    capture the step's collectives, and decode over ranks runs eagerly
+    (`make_decode_step`).
     """
 
     def __init__(self, model, cfg: ModelConfig, cache: dict, tokens):
+        place = getattr(model, "placement", None)
+        if place is not None and place.mesh.size > 1:
+            raise ValueError(
+                f"DecodeGraph captures one rank's step; over a mesh of "
+                f"{place.mesh.size} ranks the step's collectives would be "
+                f"captured into the graph: decode eagerly with "
+                f"make_decode_step")
         device = cache["pos"].device
         stream = torch.cuda.Stream(device)
         current = torch.cuda.current_stream(device)
@@ -325,7 +330,8 @@ def _next_token(logits, temperature: float, generator):
 
 
 def sample_loop(model, cfg: ModelConfig, batch, *, steps: int, max_len: int,
-                temperature: float = 0.0, generator=None, device=None):
+                temperature: float = 0.0, generator=None, device=None,
+                mesh=None, shard_seq: bool = False):
     """Greedy / temperature sampling: prefill ``batch``, then ``steps``
     decode steps. Returns the tokens [B, steps] (int32): the prompt's
     greedy next token, then one token a step.
@@ -335,10 +341,14 @@ def sample_loop(model, cfg: ModelConfig, batch, *, steps: int, max_len: int,
     sampled tokens differ from JAX's; greedy ones agree. On the card the
     first decode step runs eagerly and one `DecodeGraph` replays the rest;
     it is freed before the tokens are returned. On the CPU every step runs
-    eagerly."""
-    dev = resolve_device(device)
-    prefill = make_prefill(cfg, max_len, dev)
-    decode = make_decode_step(cfg, dev)
+    eagerly. Over a ``mesh`` (``shard_seq`` as `make_prefill`'s) every
+    rank gets its rows' tokens, and over more than one rank every step
+    runs eagerly (under ``shard_seq`` with a temperature, every rank's
+    ``generator`` must draw alike)."""
+    dev = _check_mesh(mesh, device)
+    prefill = make_prefill(cfg, max_len, dev, mesh=mesh, shard_seq=shard_seq)
+    decode = make_decode_step(cfg, dev, mesh=mesh)
+    capture = dev.type == "cuda" and (mesh is None or mesh.size == 1)
     graph = None
     with torch.inference_mode():
         logits, cache = prefill(model, batch)
@@ -347,8 +357,9 @@ def sample_loop(model, cfg: ModelConfig, batch, *, steps: int, max_len: int,
         try:
             for i in range(steps):
                 toks.append(tok)
-                if i == 1 and dev.type == "cuda":
-                    graph = DecodeGraph(model, cfg, cache, tok)
+                if i == 1 and capture:
+                    graph = DecodeGraph(getattr(model, "model", model), cfg,
+                                        cache, tok)
                 if graph is None:
                     logits, cache = decode(model, cache, tok)
                 else:

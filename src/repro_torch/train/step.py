@@ -89,7 +89,7 @@ def shard_state(state: TrainState, mesh) -> TrainState:
         raise ValueError("the state is sharded already")
     place = Placement(state.model.cfg, mesh, state.model)
     place.shard(state.model, state.opt_state)
-    state.placement = place
+    state.placement = state.model.placement = place
     return state
 
 
@@ -101,8 +101,8 @@ def _check_mesh(mesh, device) -> torch.device:
     if mesh is None:
         return resolve_device(device)
     if not hasattr(mesh, "axes"):
-        raise TypeError(f"train over an AxisMesh (launch.mesh.make_host_mesh"
-                        f" or make_production_mesh), not a "
+        raise TypeError(f"the mesh is an AxisMesh (launch.mesh."
+                        f"make_host_mesh or make_production_mesh), not a "
                         f"{type(mesh).__name__}")
     return mesh.check_device(device)
 

@@ -1403,3 +1403,70 @@ def test_one_rank_nccl_mesh_trains_as_the_mesh_less_step(tmp_path):
                 assert torch.equal(t, s1.opt_state[key][n]), (key, n)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "mixtral-8x22b"])
+def test_one_rank_nccl_mesh_prefill_and_decode_are_the_mesh_less_ones(
+        tmp_path, arch):
+    """Prefill and four decode steps over a one-rank NCCL mesh
+    (`make_host_mesh`, ``cuda:0``; the model sharded over it by
+    `shard_model`, FSDP on) against the mesh-less model from the same
+    weights: the same logits and cache, bit for bit, no collective; a
+    `DecodeGraph` replay on the mesh equals an eager step bit for bit. The
+    counterpart of `tests/test_torch_serve_mesh.py`'s CPU test."""
+    _need_card()
+    import dataclasses
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.sharding.collectives import recording
+    from repro_torch.train import serve
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), fsdp=True)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (2, 12))}
+    steps = rng.integers(0, cfg.vocab, (4, 2, 1))
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=60),
+        device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_host_mesh()
+        runs = []
+        for m in (None, mesh):
+            model = Transformer(cfg, device="cuda").init(
+                torch.Generator(device="cuda").manual_seed(3))
+            if m is not None:
+                model = serve.shard_model(model, m)
+            prefill = serve.make_prefill(cfg, 32, mesh=m)
+            decode = serve.make_decode_step(cfg, mesh=m)
+            with recording() as record:
+                logits, cache = prefill(model, batch)
+                out = [logits] + [decode(model, cache, t)[0].clone()
+                                  for t in steps]
+            assert record == []
+            runs.append((out, cache, model, decode))
+        (a, ca, _, _), (b, cb, model, decode) = runs
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+        for name, leaf in ca["blocks"].items():
+            for kind, leaves in leaf.items():
+                for k, t in leaves.items():
+                    assert torch.equal(t, cb["blocks"][name][kind][k])
+        tok = torch.as_tensor(steps[0]).cuda()
+        graph = serve.DecodeGraph(model, cfg, cb, tok)
+        eager_cache = {"pos": cb["pos"].clone(), "blocks": {
+            j: {kind: {n: t.clone() for n, t in leaves.items()}
+                for kind, leaves in sub.items()}
+            for j, sub in cb["blocks"].items()}}
+        replay = graph(tok).clone()
+        eager, _ = decode(model, eager_cache, tok)
+        assert torch.equal(replay, eager)
+        graph.close()
+    finally:
+        dist.destroy_process_group()

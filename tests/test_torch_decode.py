@@ -244,14 +244,27 @@ def test_temperature_sampling_is_repeatable_and_in_vocab():
     assert int(a.min()) >= 0 and int(a.max()) < tcfg.vocab
 
 
-def test_unported_parts_raise_naming_their_items():
+def test_unported_parts_raise_naming_their_items(tmp_path):
     """A14.6 ported the cache specs, the meshes with a model axis and
     training over a mesh: the cache specs are a table, the production mesh
     refuses a world that is not 256 or 512 ranks, a model axis that does
     not divide the world is refused, and the serving mesh is not a
     training mesh. A14.7 split the compute over ``model`` for the eval
-    forward and training. Sharded prefill and decode (the dry run's
-    serving cells) are A14.8 and raise naming it."""
+    forward and training. A14.8 ported sharded prefill and decode: the dry
+    run's serving cells build their programs (2·N·B·S and 2·N·B model
+    FLOPs), and `Transformer.prefill` and ``decode_step`` run on a model
+    whose layers are bound to a model axis of two ranks, inside a world of
+    two gloo ranks (`tests/_torch_serve_mesh_driver.py`), giving the
+    mesh-less logits; a model split over a model axis without a placement
+    is refused."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import SHAPES
     from repro_torch.launch.dryrun import input_specs
     from repro_torch.launch.mesh import (DataMesh, make_host_mesh,
                                          make_production_mesh)
@@ -274,18 +287,48 @@ def test_unported_parts_raise_naming_their_items():
     with pytest.raises(TypeError, match="AxisMesh"):
         make_train_step(cfg, AdamWConfig(), two)
     for shape in ("prefill_32k", "decode_32k"):
-        with pytest.raises(NotImplementedError, match="A14.8"):
-            input_specs(cfg, shape, make_host_mesh(device="cpu"))
+        spec = SHAPES[shape]
+        with FakeTensorMode():
+            fn, args, flops = input_specs(cfg, shape,
+                                          make_host_mesh(device="cpu"))
+        n = 2.0 * cfg.active_param_count() * spec.global_batch
+        assert flops == n * (spec.seq_len if spec.kind == "prefill" else 1)
+        assert callable(fn) and len(args) == (2 if shape == "prefill_32k"
+                                              else 3)
     from repro_torch.sharding.collectives import ModelAxis
 
     split = Transformer(cfg, device="cpu")
     split.tp = ModelAxis(size=2)  # as `Placement.shard` sets it at model 2
-    for call in (lambda: split.prefill({"tokens": torch.zeros(
-            (1, 4), dtype=torch.int64)}, 8),
-                 lambda: split.decode_step(cache, torch.zeros(
-                     (2, 1), dtype=torch.int64))):
-        with pytest.raises(NotImplementedError, match="A14.8"):
-            call()
+    with pytest.raises(ValueError, match="without a placement"):
+        split.prefill({"tokens": torch.zeros((1, 4), dtype=torch.int64)}, 8)
+
+    repo = pathlib.Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=str(repo / "src"), OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, str(repo / "tests" / "_torch_serve_mesh_driver.py"),
+         str(r), "2", "2", "0", str(tmp_path / "store"), "axis",
+         str(tmp_path / "out.npz")], cwd=repo, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    assert all(p.returncode == 0 for p in procs), logs
+    one = dataclasses.replace(cfg, compute_dtype="float32")
+    model = Transformer(one, device="cpu").init(
+        torch.Generator().manual_seed(5))
+    tokens = torch.from_numpy(np.random.default_rng(6).integers(
+        0, one.vocab, (1, 8)))
+    logits, c = model.prefill({"tokens": tokens}, 16)
+    step, _ = model.decode_step(c, tokens[:, :1])
+    with np.load(tmp_path / "out.npz") as f:
+        assert int(f["size"]) == 2
+        assert _rel(f["prefill"], logits.numpy()) < 1e-5
+        assert _rel(f["decode"], step.numpy()) < 1e-5
 
 
 def test_serving_defaults_to_the_card():

@@ -3,7 +3,9 @@ mirroring ``tests/test_dryrun.py``: the CLI in a subprocess (it starts a
 fake world of 256 or 512 ranks of its own), reduced configs.
 
 A smoke train cell on the single-pod mesh prints ``[ok]``; the skip rule
-is JAX's; a serving cell raises naming ROADMAP A14.8. The per-device FLOPs
+is JAX's; a serving cell writes an ``ok`` record with JAX's model FLOPs,
+and a cut decode cell's FLOPs at (2, 2) are rank 0's count of a real decode
+step in a spawned gloo world. The per-device FLOPs
 are rank 0's: on a (1, 1) mesh they equal ``FlopCounterMode``'s count of
 the real train step on the CPU at the same cut, exactly; on (2, 2) the
 count rank 0 of a real (2, 2) gloo world takes of the same step (its two
@@ -61,11 +63,18 @@ def test_skip_rule_applies():
     assert "[skip]" in out.stdout
 
 
-def test_serving_cells_raise_naming_the_next_item():
-    out = _dryrun(["--arch", "rwkv6-1.6b", "--shape", "long_500k",
-                   "--mesh", "multi", "--smoke", "--out", ""], ok=False)
-    assert out.returncode != 0
-    assert "NotImplementedError" in out.stderr and "A14.8" in out.stderr
+def test_serving_cells_raise_naming_the_next_item(tmp_path):
+    """A serving cell (A14.8, ported): rwkv6's long_500k smoke cell on the
+    multi-pod mesh, one sequence over 512 ranks, writes an ``ok`` record
+    whose ``model_flops`` are JAX's 2·N_active·1 of a decode step."""
+    _dryrun(["--arch", "rwkv6-1.6b", "--shape", "long_500k", "--mesh",
+             "multi", "--smoke", "--out", str(tmp_path)])
+    (path,) = tmp_path.iterdir()
+    rec = json.loads(path.read_text())
+    assert rec["status"] == "ok" and rec["mesh"] == "2x16x16", rec
+    assert rec["model_flops"] == \
+        2.0 * jget_config("rwkv6-1.6b", smoke=True).active_param_count()
+    assert rec["peak_memory_per_device"] > 0
 
 
 CUT = dict(arch="granite-3-8b", blocks=3, batch=4, seq=64)
@@ -108,6 +117,56 @@ def gloo_flops(tmp_path_factory):
     assert all(p.returncode == 0 for p in procs), "\n".join(logs)
     with np.load(tmp / "out.npz") as f:
         return int(f["flops"])
+
+
+import _torch_serve_mesh_driver as serve_driver  # noqa: E402
+
+SERVE_CUT = serve_driver.FLOPS_CUT
+
+
+@pytest.fixture(scope="module")
+def decode_record(tmp_path_factory):
+    """The cut decode cell's record on the (2, 2) mesh."""
+    d = tmp_path_factory.mktemp("drydecode")
+    _dryrun(["--arch", SERVE_CUT["arch"], "--shape", "decode_32k", "--smoke",
+             "--host-mesh", "2,2", "--blocks", str(SERVE_CUT["blocks"]),
+             "--batch", str(SERVE_CUT["batch"]), "--seq",
+             str(SERVE_CUT["seq"]), "--out", str(d)])
+    (path,) = d.iterdir()
+    return json.loads(path.read_text())
+
+
+def test_decode_flops_per_device_equal_the_real_step(decode_record,
+                                                     tmp_path):
+    """The cut decode cell's per-device FLOPs at (2, 2) are rank 0's count
+    of a real decode step of the same cut (the dry run's cell config: bf16
+    parameters, one attention block of the cache) in a (2, 2) gloo world
+    of four spawned ranks (`tests/_torch_serve_mesh_driver.py`); its model
+    FLOPs are 2·N_active·B."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "tests" / "_torch_serve_mesh_driver.py"),
+         str(r), "4", "2", "0", str(tmp_path / "store"), "flops",
+         str(tmp_path / "out.npz")],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(4)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    assert all(p.returncode == 0 for p in procs), "\n".join(logs)
+    with np.load(tmp_path / "out.npz") as f:
+        want = int(f["flops"])
+    rec = decode_record
+    assert rec["status"] == "ok", rec
+    assert rec["flops_per_device"] == want
+    jcfg = dataclasses.replace(jget_config(SERVE_CUT["arch"], smoke=True),
+                               n_blocks=SERVE_CUT["blocks"])
+    assert rec["model_flops"] == \
+        2.0 * jcfg.active_param_count() * SERVE_CUT["batch"]
 
 
 def _real_step_flops(rows: int) -> int:

@@ -18,16 +18,25 @@ reduce-scatters the gradients. Two parts, each
 from the state ``--seed`` draws and on the same global batch of 2 × 4,096
 tokens (`repro_torch.data.pipeline.TokenPipeline`):
 
-  * **hold** — `HOLD_BLOCKS` of the 36 blocks in float32 compute: one step
-    over the mesh against the mesh-less step on card 0 from the same
-    state. The metrics are held within 1e-5 relative (``tokens``
-    exactly); the parameters and moments, gathered to rank 0, at rtol
-    2e-4, atol 2e-6 plus a gradient tolerance of 1e-6 of each leaf's
-    largest carried through the first Adam step (the bound of
-    ``tests/_adam_hold.py``: the first step's update lr·g/(|g| + eps) is
-    monotone in g, so its slack is the larger of its moves at g ± δg).
-    Beside it, each leaf's max |g − g_ref| over its largest |g_ref|, the
-    gradients read off the two first moments (``grad_rel``).
+  * **hold** — `HOLD_BLOCKS` of the 36 blocks in float32 compute, on
+    2 × `HOLD_SEQ` tokens (the float64 reference's 2 × 4,096 would not
+    fit one card): one step over the mesh and the mesh-less step on card
+    0, both from the same state, each held to a **float64 reference** —
+    the mesh-less step in float64 compute and state (norms, softmax and
+    logits too, `repro_torch.models.layers.wide`) from that state cast to
+    float64, on the same batch. The metrics are held within 1e-5 relative
+    (``tokens`` exactly); the parameters and moments (the split's gathered
+    to rank 0) at rtol 2e-4, atol 2e-6 plus the gradient tolerance `TAU`
+    of each leaf's largest carried through the first Adam step (the bound
+    of ``tests/_adam_hold.py``: the first step's update lr·g/(|g| + eps)
+    is monotone in g, so its slack is the larger of its moves at g ± δg).
+    `TAU` is float32's rounding over the step's reduction length:
+    8·√K·2⁻²⁴ with K = 2 × `HOLD_SEQ` tokens, the sum every weight's
+    gradient is. Beside it, each leaf's max |g − g64| over its largest
+    |g64| for both steps (``grad_rel``, ``grad_rel_one``: the gradients
+    read off the first moments) and the split's over the one card's,
+    which must stay within `SPLIT_FACTOR`: a split adds no rounding of
+    another scale.
   * **time** — ``chip_smoke.py`` phase 11a's cut (4 of 36 blocks, bfloat16
     compute, float32 state, remat): the mesh-less step on card 0 first,
     then the mesh step: `TIMED` steps after a warm-up, each timed on every
@@ -75,9 +84,16 @@ import time
 REPO = pathlib.Path(__file__).resolve().parents[1]
 HOLD_BLOCKS, TIME_BLOCKS = 2, 4
 BATCH, SEQ = 2, 4096
+HOLD_SEQ = 1024  # the hold's sequence: its float64 step fits one card
 TIMED = 3
 MICRO_ROWS = 4  # the micro part's global batch, in multiples of BATCH
-TAU, RTOL, ATOL = 1e-6, 2e-4, 2e-6
+#: The gradient's tolerance against float64, of a leaf's largest: float32's
+#: unit roundoff 2⁻²⁴ over √K, K the tokens a gradient sums over, times 8
+#: (the largest of a leaf's millions of errors, and the forward's own
+#: rounding that the backward carries).
+TAU = 8 * (BATCH * HOLD_SEQ) ** 0.5 * 2.0 ** -24
+SPLIT_FACTOR = 4  # the split's error over the one card's, at most
+RTOL, ATOL = 2e-4, 2e-6
 WORKER_TIMEOUT = 600
 
 
@@ -91,6 +107,48 @@ def _cfgs(rehearse: bool):
                                fsdp=True)
     timed = dataclasses.replace(base, n_blocks=TIME_BLOCKS)
     return hold, timed, (4 if rehearse else BATCH), (32 if rehearse else SEQ)
+
+
+def split_faults(g_rel: dict, g_one: dict, tau: float = TAU,
+                 factor: float = SPLIT_FACTOR) -> list[str]:
+    """The leaves on which the split's gradient is more than ``factor``
+    times farther from float64 than the one card's, worst first. Only
+    leaves whose split error passes ``tau``/8 (√K·2⁻²⁴) are compared:
+    below it the ratio of two roundings says nothing."""
+    ratio = {n: g_rel[n] / max(g_one[n], 1e-30) for n in g_rel
+             if g_rel[n] > tau / 8}
+    return [f"the split is {ratio[n]:.2f}x farther from float64 than the "
+            f"one card on {n}"
+            for n in sorted(ratio, key=ratio.get, reverse=True)
+            if ratio[n] > factor]
+
+
+def _float64_step(state32, cfg, opt, batch, dev):
+    """The mesh-less step in float64 compute and state from ``state32``'s
+    parameters cast to float64 (zero moments, as theirs): its (param, mu,
+    nu) per leaf on the host, and its metrics."""
+    import torch
+
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import TrainState, make_train_step
+
+    cfg64 = dataclasses.replace(cfg, compute_dtype="float64",
+                                param_dtype="float64",
+                                opt_state_dtype="float64")
+    opt64 = dataclasses.replace(opt, state_dtype="float64")
+    model = Transformer(cfg64, device=dev)
+    with torch.no_grad():
+        for (n, p), (_, q) in zip(model.named_parameters(),
+                                  state32.items()):
+            p.copy_(q.to(dev, torch.float64))
+    state = TrainState(model=model, opt_state=adamw_init(model, opt64),
+                       step=torch.zeros((), dtype=torch.int32, device=dev))
+    m = make_train_step(cfg64, opt64, device=dev)(state, batch)[1]
+    out = {n: (p.detach().cpu(), state.opt_state["mu"][n].cpu(),
+               state.opt_state["nu"][n].cpu())
+           for n, p in model.named_parameters()}
+    return out, {k: float(v) for k, v in m.items()}
 
 
 def _hold_leaf(got, ref, *, lr, b1, b2, eps, what, chunk=1 << 25):
@@ -165,22 +223,42 @@ def _worker(args) -> None:
     try:
         mesh = make_host_mesh(model=args.model_parallel,
                               device=None if cuda else "cpu")
-        batch_h = TokenPipeline(hold_cfg.vocab, seq, rows,
-                                seed=args.seed).batch_at(0)
+        batch_h = TokenPipeline(hold_cfg.vocab, HOLD_SEQ if cuda else seq,
+                                rows, seed=args.seed).batch_at(0)
         batches = [TokenPipeline(time_cfg.vocab, seq, rows,
                                  seed=args.seed).batch_at(s)
                    for s in range(TIMED + 2)]
 
-        # The mesh-less references, on rank 0's card alone.
+        # The mesh-less references, on rank 0's card alone: the float32
+        # step, then the float64 step from the same state; the float32
+        # step held to the float64 one.
         if rank == 0:
             state = init_state(gen(), hold_cfg, opt, device=dev)
+            start = {n: p.detach().cpu().clone()
+                     for n, p in state.model.named_parameters()}
             step = make_train_step(hold_cfg, opt, device=dev)
-            m = step(state, batch_h)[1]
-            ref_m = {k: float(v) for k, v in m.items()}
-            ref = {n: (p.detach().cpu(), state.opt_state["mu"][n].cpu(),
+            one_m = {k: float(v) for k, v in step(state, batch_h)[1].items()}
+            one = {n: (p.detach().cpu(), state.opt_state["mu"][n].cpu(),
                        state.opt_state["nu"][n].cpu())
                    for n, p in state.model.named_parameters()}
             del state, step
+            if cuda:
+                torch.cuda.empty_cache()
+            ref, ref_m = _float64_step(start, hold_cfg, opt, batch_h, dev)
+            del start
+            if cuda:
+                torch.cuda.empty_cache()
+            one_msgs, g_one = [], {}
+            for n, leaf in one.items():
+                bad, g_one[n] = _hold_leaf(
+                    [t.to(dev) for t in leaf], [t.to(dev) for t in ref[n]],
+                    lr=ref_m["lr"], b1=opt.b1, b2=opt.b2, eps=opt.eps,
+                    what=f"one card {n}")
+                one_msgs += bad
+            one_msgs += [f"one card metric {k}: {one_m[k]} vs {ref_m[k]}"
+                         for k in ref_m if abs(one_m[k] - ref_m[k])
+                         > (0 if k == "tokens" else 1e-5) * abs(ref_m[k])]
+            del one
             state = init_state(gen(), time_cfg, opt, device=dev)
             step = make_train_step(time_cfg, opt, device=dev)
             step(state, batches[0])
@@ -221,10 +299,16 @@ def _worker(args) -> None:
                    for k in ref_m}
             msgs += [f"metric {k}: {m[k]} vs {ref_m[k]}" for k in ref_m
                      if rel[k] > (0 if k == "tokens" else 1e-5)]
+            ratio = {n: g_rel[n] / max(g_one[n], 1e-30) for n in g_rel}
+            msgs += split_faults(g_rel, g_one)
+            msgs += one_msgs
             out["hold"] = {"metrics": m, "reference": ref_m,
                            "metrics_rel": rel, "leaves": leaves,
+                           "tau": TAU, "split_factor": SPLIT_FACTOR,
+                           "tokens": [rows, int(batch_h["tokens"].shape[1])],
                            "failures": msgs[:20], "ok": not msgs,
-                           "grad_rel": g_rel}
+                           "grad_rel": g_rel, "grad_rel_one": g_one,
+                           "split_over_one": ratio}
             del ref
         del state, step
 
