@@ -304,10 +304,33 @@ result line):
                 train step at 2 blocks on the eval batch. The eval FLOPs
                 count the encoder over its frames, the cross-attention and
                 the patch projection. Peak reserved under 80 GB in each.
+  16. closures — (run after 4, its session dropped; `phase_closures`)
+                16a: ``figaro_qr_fn`` and ``figaro_r0_fn(assembly="band")``
+                (float32, ``use_kernel=True``) closed over the plan phase
+                4's session dispatched (its bucketed capacity plan): one
+                eager call, the capture, 5 replays timed by CUDA events and
+                the host clock, and one replay with the launch counters
+                zeroed around it, whose counts must equal the session's
+                replay of the same signature; R and R₀ held to the
+                session's bit for bit (else within 1e-5, the difference
+                logged), each replay to its closure's eager call; the R₀
+                closure with padded assembly (``figaro_r0_fn``'s default,
+                as JAX's; the ``qr`` closure assembles band) timed beside
+                band's; reserved memory before, with each graph live, and
+                after. 16b: Fig
+                4's shape — ``figaro_qr_fn(dtype=float64, use_kernel=True)``
+                against ``materialized_qr`` on ``retailer_like(2000)``,
+                ``favorita_like(2000)`` and ``yelp_like(1000)``: input and
+                join rows, both times, R within 1e-8 of max |R_mat| after
+                normalize_sign, ``join_column_moments`` against the join's
+                column means (1e-10) and rows, and ``implicit_q_gram_check``
+                under 1e-10, and on R scaled entrywise by 1 + 1e-3 · noise
+                (where it reads about 1e-3) within 1e-12 relative of the
+                same formula in float64 numpy. A check, not a benchmark.
   8. summary  — one ``{"kernels": [...]}`` line, then, last, the
                 ``{"ok": true, "device": {...}}`` line.
 
-Each of phases 4–7 (and 5b, 9a, 9b, 10a, 10b, 10c, 12, 13) drives one path of the port
+Each of phases 4–7 (and 5b, 9a, 9b, 10a, 10b, 10c, 12, 13, 16a, 16b) drives one path of the port
 with the launch counters zeroed just before and read just after, and fails
 if a kernel of that path did not launch (in phase 9 the server's dispatch
 thread launches them; the counts are process-wide). Every profiled ``qr`` (`profile_once`) also holds
@@ -4807,6 +4830,229 @@ def phase_lm_serve_mesh(seed: int) -> dict:
     return out
 
 
+# -- phase 16: the plan-closed closures ------------------------------------------
+
+CLOSURE_REPLAYS = 5  # timed replays of each closure after its capture
+# Fig 4's shape (benchmarks/figaro_runtime.py:21-28, each schema's first
+# scale): FiGaRo's closure against the QR of the materialized join.
+FIG4_CASES = (("retailer", "retailer_like", 2000),
+              ("favorita", "favorita_like", 2000),
+              ("yelp", "yelp_like", 1000))
+
+
+def timed_calls(fn, reps: int):
+    """(last output, device ms, host ms) of ``reps`` calls of ``fn``, each
+    timed by CUDA events on the current stream and by the host clock to a
+    synchronize."""
+    import torch
+
+    dev, host = [], []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        dev.append(start.elapsed_time(end))
+    return out, dev, host
+
+
+def drive_closure(label: str, fn, data, want, want_launches: dict) -> dict:
+    """One eager call, the capture, `CLOSURE_REPLAYS` timed replays and one
+    counted replay of a closure, held to the engine's answer ``want`` (bit
+    for bit, else 1e-5 relative with the difference logged) and its replay's
+    launches to the engine replay's ``want_launches``."""
+    import torch
+
+    t0 = time.perf_counter()
+    first = fn(data)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    fn(data)
+    torch.cuda.synchronize()
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    check(len(fn._graphs) == 1, f"{label}: the second call captured a graph")
+    got, dev, host = timed_calls(lambda: fn(data), CLOSURE_REPLAYS)
+    check(len(fn._graphs) == 1, f"{label}: the replays captured nothing")
+    launches = per_call_launches(f"{label} (one replay)", lambda: fn(data))
+    same = torch.equal(got, want)
+    err = rel_err(got, want)[1]
+    out = {"eager_ms": eager_ms, "capture_call_ms": capture_ms,
+           "replay_device_ms": dev, "replay_host_ms": host,
+           "replay_device_ms_median": statistics.median(dev),
+           "replay_host_ms_median": statistics.median(host),
+           "bit_equal_to_session": same, "rel_err_vs_session": err,
+           "replay_equals_eager": torch.equal(got, first),
+           "launches_per_replay": launches}
+    log(f"{label}: eager {eager_ms:.1f} ms, capture call {capture_ms:.1f} "
+        f"ms; replay median {out['replay_device_ms_median']:.3f} ms device "
+        f"(CUDA events), {out['replay_host_ms_median']:.3f} ms host of "
+        f"{[round(x, 3) for x in host]}; bit-equal to the session's {same} "
+        f"(relative {err:.3e}); replay bit-equal to its eager call "
+        f"{out['replay_equals_eager']}; launches per replay {launches} "
+        f"against the engine replay's {want_launches}")
+    check(same or err <= 1e-5, f"{label}: within 1e-5 of the session's")
+    check(out["replay_equals_eager"], f"{label}: replay equals eager")
+    check(launches == want_launches,
+          f"{label}: a replay launches what the engine's replay launches")
+    return out
+
+
+def phase_closures(plan, r_sess, sess_launches: dict) -> dict:
+    """16a: `figaro_qr_fn` and `figaro_r0_fn(assembly="band")` in float32
+    with ``use_kernel=True`` over the plan phase 4's ``Session.qr`` ran (the
+    yelp plan's bucketed capacity plan; a session buckets), held to the
+    session's R and R₀ and to its replays' launches. 16b: Fig 4's shape,
+    `figaro_qr_fn(dtype=float64, use_kernel=True)` against the port's
+    `materialized_qr` on the first scale of each schema (R within 1e-8 of
+    max |R_mat| after normalize_sign), with `join_column_moments` against
+    the materialized join's column means (1e-10 relative) and row count,
+    and `implicit_q_gram_check` against its AᵀA: under 1e-10 on R, and on
+    R scaled entrywise by 1 + 1e-3 · noise within 1e-12 relative of the
+    formula in float64 numpy (it reads about 1e-3 there, so a check that
+    returned 0 would fail)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import figaro
+    from repro_torch.core.figaro import figaro_r0_fn
+    from repro_torch.core.join_tree import build_plan
+    from repro_torch.core.materialize import materialize_join
+    from repro_torch.core.postprocess import normalize_sign
+    from repro_torch.core.qr import (figaro_qr_fn, implicit_q_gram_check,
+                                     materialized_qr)
+    from repro_torch.core.svd import join_column_moments
+    from repro_torch.data import relational
+    from repro_torch.kernels import _platform, _seg_scan
+
+    torch.cuda.reset_peak_memory_stats()
+    out = {"memory": {"phase 16 start": memory_log("phase 16 start")}}
+    cap = plan.__dict__["_capacity_plan"]
+    data = [torch.as_tensor(np.asarray(d), device="cuda").float()
+            for d in cap.data]
+    fn = figaro_qr_fn(cap, use_kernel=True)
+    out["qr"] = drive_closure("16a figaro_qr_fn float32", fn, data, r_sess,
+                              sess_launches)
+    out["memory"]["16a qr"] = memory_log("16a figaro_qr_fn (its graph live)")
+    del fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    sess = figaro.Session(use_kernel=True, assembly="band", device="cuda")
+    for _ in range(2):  # eager, then the capture and its replay
+        sess.r0(plan)
+    r0_launches = per_call_launches("float32 r0 dispatch (replay)",
+                                    lambda: sess.r0(plan))
+    r0_sess = sess.r0(plan)
+    check(sess.engine.capture_count() == 1, "the session captured its r0")
+    del sess
+    gc.collect()
+    torch.cuda.empty_cache()
+    fn = figaro_r0_fn(cap, use_kernel=True, assembly="band")
+    out["r0"] = drive_closure("16a figaro_r0_fn float32 band", fn, data,
+                              r0_sess, r0_launches)
+    out["memory"]["16a r0"] = memory_log("16a figaro_r0_fn (its graph live)")
+    del fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    # figaro_r0_fn assembles padded by default (as JAX's): the same closure
+    # with padded assembly shows what the pad-and-concatenate copies cost
+    # beside band's in-place slabs, which the qr closure uses.
+    fn = figaro_r0_fn(cap, use_kernel=True)
+    fn(data)
+    fn(data)  # eager, then the capture
+    r0_pad, dev, host = timed_calls(lambda: fn(data), CLOSURE_REPLAYS)
+    out["r0_padded"] = {"replay_device_ms": dev, "replay_host_ms": host,
+                        "replay_device_ms_median": statistics.median(dev),
+                        "bit_equal_to_band": torch.equal(r0_pad, r0_sess)}
+    log(f"16a figaro_r0_fn float32 padded: replay median "
+        f"{statistics.median(dev):.3f} ms device, "
+        f"{statistics.median(host):.3f} ms host; R0 bit-equal to band's "
+        f"{out['r0_padded']['bit_equal_to_band']}")
+    check(out["r0_padded"]["bit_equal_to_band"],
+          "padded and band R0 are bit-identical")
+    del fn, data, r0_sess, r0_pad
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["memory"]["phase 16a end"] = memory_log(
+        "phase 16a, the closures dropped")
+
+    fig4 = {}
+    for name, maker, scale in FIG4_CASES:
+        tree = getattr(relational, maker)(scale=scale)
+        small = build_plan(tree)
+        a = materialize_join(tree)
+        rows_in = sum(sp.m for sp in small.spec.nodes)
+        fn = figaro_qr_fn(small, dtype=torch.float64, use_kernel=True)
+        d64 = [torch.as_tensor(np.asarray(d), device="cuda",
+                               dtype=torch.float64) for d in small.data]
+        fn(d64)
+        fn(d64)  # eager, then the capture
+        _platform.reset_launch_counts()
+        r_fig, dev, host = timed_calls(lambda: fn(d64), REPS)
+        counts = _platform.launch_counts()
+        for kname in ("node_fused", "panel_qr"):
+            check(counts.get(kname, 0) > 0,
+                  f"16b {name}: {kname} launched by the closure's replays")
+        r_mat, t_mat, ts_mat, _ = wall(
+            lambda: materialized_qr(tree, device="cuda"), REPS)
+        r_err = float((normalize_sign(r_fig) - normalize_sign(r_mat)).abs()
+                      .max() / r_mat.abs().max())
+        sums, total = join_column_moments(small)
+        mean = a.mean(axis=0)
+        mean_err = float(np.abs((sums / total).cpu().numpy() - mean).max()
+                         / np.abs(mean).max())
+        gram = a.T @ a
+        gram_err = float(implicit_q_gram_check(
+            r_fig, torch.as_tensor(gram, device="cuda")))
+        noise = np.random.default_rng(13).normal(size=tuple(r_fig.shape))
+        off = r_fig.cpu().numpy() * (1.0 + 1e-3 * noise)
+        gram_off = float(implicit_q_gram_check(
+            torch.as_tensor(off, device="cuda"),
+            torch.as_tensor(gram, device="cuda")))
+        gram_off_want = float(np.linalg.norm(off.T @ off - gram)
+                              / np.linalg.norm(gram))
+        gram_off_err = abs(gram_off - gram_off_want) / gram_off_want
+        fig4[name] = {
+            "scale": scale, "input_rows": rows_in, "join_rows": a.shape[0],
+            "n": small.spec.num_cols, "figaro_qr_fn_device_ms": dev,
+            "figaro_qr_fn_host_ms": host,
+            "figaro_qr_fn_host_ms_median": statistics.median(host),
+            "materialized_qr_ms": [x * 1e3 for x in ts_mat],
+            "materialized_qr_ms_median": t_mat * 1e3,
+            "r_rel_err": r_err, "mean_rel_err": mean_err,
+            "join_rows_counted": float(total), "gram_check": gram_err,
+            "gram_check_perturbed": gram_off,
+            "gram_check_perturbed_rel_err": gram_off_err,
+            "launches": counts}
+        log(f"16b {name}@{scale}: input rows {rows_in}, join rows "
+            f"{a.shape[0]}, N = {small.spec.num_cols}; figaro_qr_fn float64 "
+            f"replay median {statistics.median(host):.3f} ms host "
+            f"({statistics.median(dev):.3f} ms device), materialized_qr "
+            f"median {t_mat * 1e3:.3f} ms host; R vs materialized "
+            f"{r_err:.3e} (tol 1e-8), means {mean_err:.3e} (tol 1e-10), "
+            f"rows {float(total):.0f}, Gram check {gram_err:.3e} (tol "
+            f"1e-10), perturbed {gram_off:.6e} against numpy's "
+            f"{gram_off_want:.6e} (relative {gram_off_err:.3e}, tol 1e-12); "
+            f"launches over {REPS} replays {counts}")
+        check(r_err <= 1e-8, f"16b {name}: R within 1e-8 of materialized")
+        check(mean_err <= 1e-10, f"16b {name}: means within 1e-10")
+        check(float(total) == a.shape[0], f"16b {name}: the join's rows")
+        check(gram_err < 1e-10, f"16b {name}: Gram check under 1e-10")
+        check(1e-5 < gram_off_want and gram_off_err <= 1e-12,
+              f"16b {name}: perturbed Gram check within 1e-12 of numpy's")
+        del fn, d64, r_fig, r_mat
+    out["fig4"] = fig4
+    _seg_scan.check()
+    torch.cuda.empty_cache()
+    out["memory"]["phase 16 end"] = memory_log("phase 16 end")
+    return out
+
+
 def flash_entry(res: dict) -> dict:
     """The kernels line's keys of one config's flash `measure` result."""
     return {k: res[k] for k in (
@@ -4906,6 +5152,8 @@ def main(argv=None) -> int:
           "the main path's panels all take panel_qr's one-block variant")
     per_qr = per_call_launches("float32 qr dispatch (eager)",
                                lambda: eager_call(sess, plan, "qr"))
+    per_replay = per_call_launches("float32 qr dispatch (replay)",
+                                   lambda: sess.qr(plan))
     captures = sess.engine.capture_count()
     log(f"main path: {sess.engine.trace_count()} misses, {captures} "
         f"captures (float32 R, float64 R)")
@@ -4963,8 +5211,16 @@ def main(argv=None) -> int:
     memory = {"phase 4": memory_log("phase 4", sess.engine)}
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
-    del sess, plain, cap_plan, r32, r_p
+    del sess, plain, cap_plan, r_p
     torch.cuda.empty_cache()
+
+    log("== phase 16: plan-closed closures (16a figaro_qr_fn and "
+        "figaro_r0_fn on the yelp plan; 16b Fig 4's shape against "
+        "materialized_qr)")
+    closures = phase_closures(plan, r32, per_replay)
+    memory.update(closures.pop("memory"))
+    del r32
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
     log("== phase 4c: dataset surface")
     torch.cuda.reset_peak_memory_stats()
@@ -5187,6 +5443,7 @@ def main(argv=None) -> int:
                                       "tall_blocked_qr_f64":
                                           tall["first_call_ms"]},
                     "graph_vs_eager": graphs,
+                    "closures": closures,
                     "dataset": dataset,
                     "serving": serving,
                     "distribution": distribution,

@@ -9,10 +9,12 @@ finding NOT in it. A deliberate violation carries an in-source suppression
 comment instead wherever it can (the reason lives next to the code).
 
 Matching is by fingerprint (rule, path, message) — line numbers drift with
-unrelated edits and would churn the file. The file is written by hand,
+unrelated edits and would churn the file. The file is
 ``{"version": 1, "findings": [{"rule", "path", "message",
-"justification"}, ...]}``, so that every accepted finding carries its
-reason.
+"justification"}, ...]}``. ``--write-baseline`` regenerates it from the
+current tree, carrying forward the justifications of entries that still
+match; a new entry gets a TODO marker, so that no accepted finding passes
+review without its reason.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ from typing import Iterable
 from .framework import Finding
 
 BASELINE_VERSION = 1
+#: The justification a newly accepted finding gets from `write_baseline`.
+TODO_JUSTIFICATION = "TODO: justify or fix"
 
 
 @dataclasses.dataclass
@@ -48,6 +52,16 @@ class Baseline:
         live = {f.fingerprint() for f in findings}
         return sorted(fp for fp in self.entries if fp not in live)
 
+    def to_json(self) -> dict:
+        return {
+            "version": BASELINE_VERSION,
+            "findings": [
+                {"rule": rule, "path": path, "message": message,
+                 "justification": just}
+                for (rule, path, message), just in sorted(self.entries.items())
+            ],
+        }
+
 
 def empty_baseline() -> Baseline:
     return Baseline(entries={})
@@ -65,3 +79,20 @@ def load_baseline(path: str) -> Baseline:
         entries[(e["rule"], e["path"], e["message"])] = \
             e.get("justification", "")
     return Baseline(entries=entries)
+
+
+def write_baseline(path: str, findings: Iterable[Finding],
+                   previous: Baseline | None = None) -> Baseline:
+    """Regenerate the baseline from the current findings, carrying forward
+    justifications that still apply; new entries get a TODO marker so review
+    can spot unjustified acceptances."""
+    prev = previous.entries if previous is not None else {}
+    entries = {}
+    for f in findings:
+        fp = f.fingerprint()
+        entries[fp] = prev.get(fp, TODO_JUSTIFICATION)
+    baseline = Baseline(entries=entries)
+    with open(path, "w", encoding="utf-8") as fh:
+        json.dump(baseline.to_json(), fh, indent=2, sort_keys=True)
+        fh.write("\n")
+    return baseline

@@ -420,6 +420,47 @@ class CallGraph:
                     lines.append(f"    -> {dst}")
         return "\n".join(lines)
 
+    def render_dot(self) -> str:
+        """The graph as Graphviz DOT: capture roots dark, captured-context
+        functions light, host functions grey."""
+        def nid(q: str) -> str:
+            return '"' + q.replace('"', "'") + '"'
+        lines = ["digraph figaro_flow {", "  rankdir=LR;",
+                 '  node [shape=box, fontsize=10];']
+        for q in sorted(self.functions):
+            if q in self.roots:
+                style = 'style=filled, fillcolor="#d95f02"'
+            elif q in self.captured:
+                style = 'style=filled, fillcolor="#fdcdac"'
+            else:
+                style = 'style=filled, fillcolor="#eeeeee"'
+            lines.append(f"  {nid(q)} [{style}];")
+        for src in sorted(self.edges):
+            for dst in sorted(self.edges[src]):
+                lines.append(f"  {nid(src)} -> {nid(dst)};")
+        lines.append("}")
+        return "\n".join(lines)
+
+    def to_json(self) -> dict:
+        """Every function with its place, whether it runs in a captured
+        context, its root kind (None unless a root), its chain from a root
+        (what `Program.captured_chain` returns) and its callees; and the
+        roots."""
+        return {
+            "functions": {
+                q: {
+                    "path": fi.ctx.path,
+                    "line": fi.node.lineno,
+                    "captured": q in self.captured,
+                    "root": self.roots[q].kind if q in self.roots else None,
+                    "chain": list(self.captured.get(q, ())),
+                    "calls": sorted(self.edges.get(q, ())),
+                }
+                for q, fi in sorted(self.functions.items())
+            },
+            "roots": sorted(self.roots),
+        }
+
 
 class _Indexer:
     """Pass 1: index functions/classes and attach each Call/Assign to its
@@ -539,6 +580,9 @@ class Program:
         return self._dataflow
 
     def captured_chain(self, qname: str) -> tuple[str, ...]:
+        """The call chain from a capture root to ``qname`` (root first;
+        empty outside any capture) — the counterpart of the JAX package's
+        ``Program.traced_chain``, whose roots are jit traces."""
         return self.graph.captured.get(qname, ())
 
     def external_method_refs(self, owner: ast.ClassDef,

@@ -59,9 +59,16 @@ class Finding:
         baseline matches on (rule, path, message) instead."""
         return (self.rule, self.path, self.message)
 
+    def to_json(self) -> dict:
+        """The ``--json`` form, with the JAX package's keys."""
+        return {"rule": self.rule, "severity": str(self.severity),
+                "path": self.path, "line": self.line,
+                "message": self.message, "fix_hint": self.fix_hint,
+                "traced_context": list(self.traced_context)}
+
     def render(self) -> str:
         """Human-readable form, fix hint included on its own indented line —
-        the hint must reach terminal users."""
+        the hint must reach terminal users, not just the `--json` payload."""
         head = (f"{self.path}:{self.line}: {self.rule} {self.severity}: "
                 f"{self.message}")
         if not self.fix_hint:

@@ -23,7 +23,7 @@ Exemptions, in order of principle:
     (`kernels/_seg_scan.py`'s ``_error``). Filling them once is their
     meaning, capture or not. The engine's own graph bookkeeping
     (``_graphs``, ``_warm``, ``_captures`` under its locks) runs in
-    `_graph_r`/`_capture`, outside the captured region, and needs no
+    `_graph_call`/`_capture`, outside the captured region, and needs no
     exemption.
   * An explicit allowlist pins `_platform.count_launch` by qualified name:
     during a capture it counts into the thread's recorder, which the engine

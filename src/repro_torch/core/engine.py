@@ -50,6 +50,11 @@ on the host), numerics-sanitizer shadow dispatches, and dispatches inside
 two are never counted and never captured. Any thread may capture a
 signature another thread ran eagerly (a server's dispatch thread does).
 
+Plan-closed closures (`_PlanClosure`, behind `core.qr.figaro_qr_fn` and
+`core.figaro.figaro_r0_fn`) run the same R body on one plan they hold on
+the device, with graphs, data buffers and a pool of their own, keyed by the
+data's shapes and dtypes alone: no cache, counters or eviction.
+
 Serving (the engine half of `repro_torch.train.async_serve`):
 
   * ``batch_capacity=`` on every batched kind pads the request batch up to
@@ -335,16 +340,19 @@ def _static_plan(plan: FigaroPlan) -> FigaroPlan:
 
 class _Graph:
     """One captured R body: the CUDA graph, its input buffers (the plan's
-    index and mask tensors, then the data), its output, and the launches its
-    capture recorded."""
+    index and mask tensors, then copies of the data), its output, and the
+    launches its capture recorded (``out`` and ``launches`` are set by the
+    capture, which runs the body on ``plan`` and ``self.data``)."""
 
-    def __init__(self, graph, plan, data, out, launches):
-        self.graph = graph
+    def __init__(self, plan, data):
+        self.graph = torch.cuda.CUDAGraph()
         self.index = _index_tensors(plan)
-        self.data = data
-        self.out = out
-        self.launches = launches
-        self._loaded = None  # weakref to the device plan last copied in
+        self.data = [d.clone() for d in data]
+        self.out = None
+        self.launches: dict = {}
+        # weakref to the device plan whose tensors the buffers hold: at
+        # first the plan the body is captured on
+        self._loaded = weakref.ref(plan)
 
     def replay(self, plan: FigaroPlan, data) -> torch.Tensor:
         """Copy the inputs in, replay, clone R out (on the current stream).
@@ -363,6 +371,148 @@ class _Graph:
             dst.copy_(src)
         self.graph.replay()
         return self.out.clone()
+
+
+def _graph_call(owner, key, plan, data, *, lock, eager, capture,
+                kept=lambda: True) -> torch.Tensor:
+    """R of one card call of signature ``key``, for the engine and the plan
+    closures alike: ``eager()`` on the signature's first call, on the
+    second ``capture(stream, pool)`` (the owner's ``torch.cuda.graph``
+    block, returning a `_Graph`) and its replay, replays after.
+
+    ``owner`` holds the side stream and the pool under its ``_graph_lock``,
+    which this takes, and the graphs and warm set under ``lock``; ``kept()``,
+    asked under ``lock``, says whether the signature may still be kept (an
+    engine signature evicted meanwhile is neither warmed nor kept). The
+    graphs share one pool, opened anew when none is live; the references to
+    the live ones held here keep it alive through a capture even if an
+    eviction drops them meanwhile. A capture records its launches, and each
+    replay adds them to the counts."""
+    from repro_torch.kernels import _seg_scan
+
+    with owner._graph_lock:
+        if owner._stream is None:
+            owner._stream = torch.cuda.Stream(plan.device)
+        stream = owner._stream
+        current = torch.cuda.current_stream(plan.device)
+        stream.wait_stream(current)
+        with lock:
+            graph = owner._graphs.get(key)
+            warm = key in owner._warm
+            live = list(owner._graphs.values())
+        with torch.cuda.stream(stream):
+            if graph is None and not warm:
+                r = eager()
+                with lock:
+                    if kept():
+                        owner._warm.add(key)
+            else:
+                if graph is None:
+                    if not live:
+                        owner._pool = torch.cuda.graph_pool_handle()
+                    with _platform.recording_launches() as launches:
+                        graph = capture(stream, owner._pool)
+                    graph.launches = dict(launches)
+                    with lock:
+                        owner._warm.discard(key)
+                        if kept():
+                            owner._graphs[key] = graph
+                r = graph.replay(plan, data)
+        del live
+        current.wait_stream(stream)
+        r.record_stream(current)
+        if graph is not None:
+            _platform.add_launches(graph.launches)
+    # The scan kernels report a look-back timeout through a pinned word they
+    # write on replay as well: read it, as an eager launch does.
+    _seg_scan.raise_if_timed_out()
+    return r
+
+
+@shared_state({"_graphs": "_lock", "_warm": "_lock"})
+class _PlanClosure:
+    """``data -> R`` (or R₀, with ``method=None``) for one plan: the body of
+    `core.qr.figaro_qr_fn` and `core.figaro.figaro_r0_fn`.
+
+    The plan moves to its device once, here, and the closure keeps that
+    device plan: every run, eager or replayed, reads its index and mask
+    tensors in place, and nothing copies them per call. On the card the
+    first call of a data signature (the shapes and dtypes of the data as
+    given) runs eagerly, the second captures one CUDA graph of `_body` (the
+    cast, `_r0_batch` and `postprocess_r0`: the engine's ``_body``) with
+    data buffers and a memory pool of the closure's own, and every later
+    call copies the data into the buffers, replays and clones R out
+    (`_graph_call`, as the engine's). Data of another dtype captures a
+    graph of its own, as a jit traces again. On the CPU every call runs
+    eagerly. No signature cache, LRU or counters: this is the
+    dispatch-minimal form a wall-clock benchmark times.
+    """
+
+    def __init__(self, plan: FigaroPlan, *, dtype, use_kernel: bool,
+                 assembly: str, method: str | None = None,
+                 leaf_rows: int = 256, device=None):
+        if not isinstance(plan, FigaroPlan):
+            raise TypeError(_plan_arg_error("plan", plan))
+        if assembly not in ASSEMBLIES:
+            raise ValueError(f"unknown assembly {assembly!r}; expected "
+                             f"{ASSEMBLIES}")
+        # The lock guards the graphs and the warm set; the graph lock
+        # serializes captures and replays, and guards the pool and stream.
+        self._lock = san_lock("plan_closure._lock")
+        self._graph_lock = san_lock("plan_closure._graph_lock")
+        self.plan = plan if plan.device is not None \
+            else plan.to(resolve_device(device))
+        self.dtype = dtype
+        self.use_kernel = bool(use_kernel)
+        self.assembly = assembly
+        self.method = method
+        self.leaf_rows = leaf_rows
+        self._graphs: dict = {}  # data signature -> _Graph
+        self._warm: set = set()  # signatures run once eagerly
+        self._pool = None
+        self._stream = None
+
+    def __call__(self, data=None) -> torch.Tensor:
+        plan = self.plan
+        data = [torch.as_tensor(d, device=plan.device)
+                for d in (plan.data if data is None else data)]
+        if len(data) != len(plan.spec.nodes):
+            raise ValueError(f"{len(data)} data matrices for a plan of "
+                             f"{len(plan.spec.nodes)} nodes")
+        for sp, d in zip(plan.spec.nodes, data):
+            if tuple(d.shape) != (sp.m, sp.n):
+                raise ValueError(f"{sp.name}: data shape {tuple(d.shape)} "
+                                 f"does not match the plan's "
+                                 f"({sp.m}, {sp.n})")
+        if plan.device.type != "cuda":
+            return self._body(plan, data)
+        key = tuple((tuple(d.shape), d.dtype) for d in data)
+        with torch.cuda.device(plan.device):
+            return _graph_call(
+                self, key, plan, data, lock=self._lock,
+                eager=lambda: self._body(plan, data),
+                capture=lambda stream, pool: self._capture(data, stream,
+                                                           pool))
+
+    def _body(self, plan: FigaroPlan, data) -> torch.Tensor:
+        """What a graph captures: the cast to the closure's dtype, R₀ and,
+        given a method, R, for per-node data [m_i, n_i]."""
+        r0 = _r0_batch(plan, [d.to(self.dtype)[None] for d in data],
+                       use_kernel=self.use_kernel, assembly=self.assembly)
+        if self.method is None:
+            return r0[0]
+        return postprocess_r0(r0, method=self.method,
+                              leaf_rows=self.leaf_rows,
+                              use_kernel=self.use_kernel)[0]
+
+    def _capture(self, data, stream, pool) -> _Graph:
+        """Capture `_body` into ``pool`` on data buffers of its own; the
+        plan's tensors are read in place."""
+        graph = _Graph(self.plan, data)
+        with torch.cuda.graph(graph.graph, pool=pool, stream=stream,
+                              capture_error_mode="thread_local"):
+            graph.out = self._body(self.plan, graph.data)
+        return graph
 
 
 @shared_state({"_cache": "_cache_lock", "_graphs": "_cache_lock",
@@ -724,67 +874,26 @@ class FigaroEngine:
     # -- the captured program ------------------------------------------------
 
     def _graph_r(self, kind, r_key, plan, data, options) -> torch.Tensor:
-        """R of one card dispatch: on the signature's first call an eager
-        run, on the second the capture and its replay, then replays.
+        """R of one card dispatch through `_graph_call`: an R key evicted
+        meanwhile is neither warmed nor kept."""
+        return _graph_call(
+            self, r_key, plan, data, lock=self._cache_lock,
+            eager=lambda: self._body(kind, plan, data, options),
+            capture=lambda stream, pool: self._capture(
+                kind, plan, data, options, stream, pool),
+            kept=lambda: r_key in self._cache.values())
 
-        The graphs live in one pool, opened anew when none is live; the
-        references to the live ones held here keep them (and so the pool)
-        alive through a capture even if an eviction drops them meanwhile."""
-        from repro_torch.kernels import _seg_scan
-
-        with self._graph_lock:
-            if self._stream is None:
-                self._stream = torch.cuda.Stream(plan.device)
-            stream = self._stream
-            current = torch.cuda.current_stream(plan.device)
-            stream.wait_stream(current)
-            with self._cache_lock:
-                graph = self._graphs.get(r_key)
-                warm = r_key in self._warm
-                live = list(self._graphs.values())
-            with torch.cuda.stream(stream):
-                if graph is None and not warm:
-                    r = self._body(kind, plan, data, options)
-                    with self._cache_lock:
-                        if r_key in self._cache.values():  # not evicted
-                            self._warm.add(r_key)
-                else:
-                    if graph is None:
-                        if not live:
-                            self._pool = torch.cuda.graph_pool_handle()
-                        graph = self._capture(kind, r_key, plan, data,
-                                              options, stream, self._pool)
-                    r = graph.replay(plan, data)
-            del live
-            current.wait_stream(stream)
-            r.record_stream(current)
-            if graph is not None:
-                _platform.add_launches(graph.launches)
-        # The scan kernels report a look-back timeout through a pinned word
-        # they write on replay as well: read it, as an eager launch does.
-        _seg_scan.raise_if_timed_out()
-        return r
-
-    def _capture(self, kind, r_key, plan, data, options, stream,
-                 pool) -> _Graph:
-        """Capture the R body of ``r_key`` into a graph in ``pool``, with
-        input buffers of its own (under the graph lock, after the eager
-        run of the signature's first call)."""
+    def _capture(self, kind, plan, data, options, stream, pool) -> _Graph:
+        """Capture the R body of ``kind`` into ``pool``, with input buffers
+        of its own (under the graph lock, after the eager run of the
+        signature's first call)."""
         static_plan = _static_plan(plan)
-        static_data = [d.clone() for d in data]
-        cuda_graph = torch.cuda.CUDAGraph()
-        with _platform.recording_launches() as launches:
-            with torch.cuda.graph(cuda_graph, pool=pool, stream=stream,
-                                  capture_error_mode="thread_local"):
-                out = self._body(kind, static_plan, static_data, options)
-        graph = _Graph(cuda_graph, static_plan, static_data, out,
-                       dict(launches))
+        graph = _Graph(static_plan, data)
+        with torch.cuda.graph(graph.graph, pool=pool, stream=stream,
+                              capture_error_mode="thread_local"):
+            graph.out = self._body(kind, static_plan, graph.data, options)
         with self._count_lock:
             self._captures[kind] += 1
-        with self._cache_lock:
-            self._warm.discard(r_key)
-            if r_key in self._cache.values():  # not evicted meanwhile
-                self._graphs[r_key] = graph
         return graph
 
     # -- pipeline bodies (data batched over a leading axis) ------------------

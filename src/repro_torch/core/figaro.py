@@ -71,7 +71,8 @@ from .counts import compute_counts
 from .heads_tails import segmented_head_tail
 from .join_tree import FigaroPlan, PlanSpec
 
-__all__ = ["figaro_r0", "figaro_r0_batched", "assembly_traffic"]
+__all__ = ["figaro_r0", "figaro_r0_batched", "figaro_r0_fn",
+           "assembly_traffic"]
 
 ASSEMBLIES = ("padded", "band")
 
@@ -350,3 +351,21 @@ def figaro_r0_batched(
         raise ValueError(f"unknown assembly {assembly!r}; expected {ASSEMBLIES}")
     plan, data = device_inputs(plan, data_batch, dtype, device, batched=True)
     return _r0_batch(plan, data, use_kernel=use_kernel, assembly=assembly)
+
+
+def figaro_r0_fn(plan: FigaroPlan, *, dtype=torch.float32,
+                 use_kernel: bool = False, assembly: str = "padded",
+                 device=None):
+    """A closure ``data -> R₀`` for a fixed plan.
+
+    The plan is closed over: a host plan moves to ``device`` (default: the
+    card) once, here, and on the card each call replays one CUDA graph per
+    data signature, captured on its second call (see
+    `core.engine._PlanClosure`). ``data`` is per-node [m_i, n_i] (default:
+    the plan's own). For plan-generic dispatch, which shares one graph
+    across same-signature plans, use `repro_torch.core.engine.FigaroEngine`.
+    """
+    from .engine import _PlanClosure  # engine imports this module
+
+    return _PlanClosure(plan, dtype=dtype, use_kernel=use_kernel,
+                        assembly=assembly, device=device)

@@ -5,15 +5,17 @@ vectors of A == those of R; RᵀR is the Cholesky factorization of AᵀA; the
 least-squares solution against a label column is back-substitution on the R of
 the label-extended matrix. None of it touches the join output.
 
-All entry points delegate to `repro_torch.api.default_session(device)`;
+The factorizations delegate to `repro_torch.api.default_session(device)`;
 ``batched=True`` serves a leading batch axis of feature-sets per dispatch.
+`join_column_moments` runs the engine's factorized column sums directly.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .engine import PCAResult
+from .engine import PCAResult, _column_moments
+from .figaro import device_inputs
 
 
 def _session(device):
@@ -27,6 +29,7 @@ __all__ = [
     "svd_over_join",
     "pca_over_join",
     "least_squares_over_join",
+    "join_column_moments",
     "PCAResult",
 ]
 
@@ -40,6 +43,20 @@ def svd_over_join(tree_or_plan, data=None, *, batched: bool = False,
     """
     return _session(device).svd(tree_or_plan, data, batched=batched,
                                 dtype=dtype, **qr_kwargs)
+
+
+def join_column_moments(plan, data=None, *, dtype=torch.float64,
+                        device=None):
+    """Factorized column sums [N] & row count of the join (no
+    materialization).
+
+    Row r of relation i appears in exactly Φ°_i(key(r)) join rows, so
+    Σ_join A[:, Y_i] = Σ_r data_i[r] · Φ°_i(key(r)) — a per-node weighted sum.
+    A host plan runs on ``device`` (default: the card).
+    """
+    plan, data = device_inputs(plan, data, dtype, device, batched=False)
+    sums, total = _column_moments(plan, data, dtype)
+    return sums[0], total
 
 
 def pca_over_join(tree_or_plan, k: int | None = None, *, data=None,

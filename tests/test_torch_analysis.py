@@ -810,16 +810,19 @@ def test_port_tree_has_no_finding_without_a_baseline():
 
 def test_port_capture_root_is_the_engine_body():
     """The port's captures: the engine's R body (its kind and options
-    static) and the LM's decode step (`train/serve.py:DecodeGraph` names
+    static), the plan-closed closures' body (`figaro_qr_fn`/`figaro_r0_fn`)
+    and the LM's decode step (`train/serve.py:DecodeGraph` names
     ``Transformer.decode_step`` through the class, so the call resolves)."""
     program = load_program([str(PORT)], root=str(REPO))
     roots = program.graph.roots
     decode = "repro_torch.models.transformer:Transformer.decode_step"
+    closure = "repro_torch.core.engine:_PlanClosure._body"
     assert set(roots) == {"repro_torch.core.engine:FigaroEngine._body",
-                          decode}
+                          closure, decode}
     assert roots["repro_torch.core.engine:FigaroEngine._body"].static == {
         "kind", "options"}
     assert roots[decode].kind == "cuda.graph"
+    assert roots[closure].kind == "cuda.graph"
     captured = program.graph.captured
     for fn in ("repro_torch.core.figaro:_r0_batch",
                "repro_torch.core.postprocess:postprocess_r0",

@@ -16,7 +16,11 @@ launch counts which variant (``panel_qr_reg``, ``_cluster``, ``_grid``) ran. The
 engine's captured program: a replay equals the eager body bit for bit, an
 append within capacity replays (no capture), a regrow captures once, replays
 add the capture's launch counts, an evicted graph frees its memory, and two
-threads share one signature's graph. Serving: a thread captures a signature
+threads share one signature's graph. The plan-closed closures
+(`figaro_qr_fn`, `figaro_r0_fn`): the third call replays without a capture,
+bit-equal to the first, eager call and to the engine's answer, each replay
+adds the capture's launches, and data of another dtype captures a second
+graph. Serving: a thread captures a signature
 another thread ran eagerly, a served batch equals its synchronous batched
 dispatch bit for bit, `stage` copies on the engine's copy stream, a served
 stream over a one-rank NCCL mesh (appends included) equals the same stream
@@ -728,6 +732,63 @@ def test_replay_adds_the_captured_launches():
         assert sess.engine.capture_count() == 1
         assert _platform.launch_counts() == {
             k: v * (n + 1) for k, v in eager.items()}
+
+
+@pytest.mark.parametrize("kind", ["qr", "r0"])
+def test_plan_closure_replays_its_eager_answer(kind):
+    """`figaro_qr_fn` / `figaro_r0_fn` with ``use_kernel=True``: the first
+    call runs eagerly, the second captures, the third and later replay
+    without a capture, each bit-equal to the first and to the engine's
+    answer (bucket off, the closure's assembly: band for ``qr``, padded
+    for ``r0``); every replay adds the capture's launches; new values give
+    the new answer; data of another dtype captures a second graph."""
+    _need_card()
+    from repro_torch.core.figaro import figaro_r0_fn
+    from repro_torch.core.join_tree import build_plan
+    from repro_torch.core.qr import figaro_qr_fn
+
+    tree = yelp_like(scale=400, cols=3)
+    plan = build_plan(tree)
+    make = figaro_qr_fn if kind == "qr" else figaro_r0_fn
+    fn = make(plan, use_kernel=True)
+    data = [torch.as_tensor(d, device="cuda", dtype=torch.float32)
+            for d in plan.data]
+    _platform.reset_launch_counts()
+    first = fn(data)
+    eager = _platform.launch_counts()
+    assert eager.get("node_fused", 0) > 0
+    assert (eager.get("panel_qr", 0) > 0) == (kind == "qr")
+    assert not fn._graphs
+    second = fn(data)
+    (graph,) = fn._graphs.values()
+    assert graph.launches == eager
+    assert _platform.launch_counts() == {k: 2 * v for k, v in eager.items()}
+    for n in (3, 4):
+        got = fn(data)
+        assert len(fn._graphs) == 1
+        assert torch.equal(got, first)
+        assert _platform.launch_counts() == {
+            k: n * v for k, v in eager.items()}
+    assert torch.equal(second, first)
+    sess = figaro.Session(use_kernel=True, bucket=False,
+                          assembly="band" if kind == "qr" else "padded")
+    with sess.engine.eager_reference():
+        engine = getattr(sess, kind)(plan)
+    assert torch.equal(first, engine)
+    fresh = [2.0 * d + 1.0 for d in data]
+    got = fn(fresh)
+    want = make(plan, use_kernel=True, device="cpu")(
+        [d.cpu() for d in fresh])
+    assert not torch.equal(got, first)
+    if kind == "qr":  # float32 R held on RᵀR, as the panels are
+        got, want = got.mT @ got, want.mT @ want
+        assert _rel(got.cpu(), want) <= 1e-4
+    else:
+        assert _rel(got.cpu(), want) <= 1e-5
+    wide = [d.double() for d in data]
+    for _ in range(3):  # eager, capture, replay of the float64 signature
+        assert torch.equal(fn(wide), first)
+    assert len(fn._graphs) == 2
 
 
 def test_append_within_capacity_replays_and_regrow_captures_once():
